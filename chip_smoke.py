@@ -27,16 +27,29 @@ printing the last line:
    SGD with masked weight decay, cosine warm-up, EMA), 2 warm-up and 8
    timed steps, with its images/s, peak memory, launches of each kernel by
    input shape, and one step under torch.profiler.
-4. Kernels: each Hopper kernel against its plain PyTorch version on the
-   card.  The forward at cotnet50's four aggregation geometries (N=128,
-   bf16, with and without the GroupNorm affine), general f32 cases
-   (heads=2, K=5 and 7, dilation 2, odd H != W) and a reflect-padded case;
-   the two backward kernels (dx, dw) at the same geometries without the
-   affine, and the reflect case through autograd as well.  CUDA-event
+4. The switches and CoTNeXt.  For cotnet50 and for cotnext50_2x48d, in f32
+   at bs16 with TF32 off: the logits of the fused-embed eval
+   (``mega_fuse=True``) against the unfused ones of the same weights; one
+   loss and backward of the folded model (``gn_fold_train=True``) with
+   every affine backward launch held against the plain affine backward on
+   the model's own tensors; five f32 steps of the folded model, which must
+   lower the loss.  Then the bf16 main paths at 224x224 bs128, each with
+   its images/s, launches of every kernel by input shape, no plain call
+   and one step under torch.profiler: path A, the folded train step, and
+   path B, the fused-embed eval, for both models; for cotnext50_2x48d its
+   default eval and train steps as well.
+5. Kernels: each Hopper kernel against its plain PyTorch version on the
+   card.  The forward at the four aggregation geometries of cotnet50
+   (N=128) and the four per-group ones of cotnext50_2x48d (N=256), bf16,
+   with and without the GroupNorm affine, general f32 cases (heads=2, K=5
+   and 7, dilation 2, odd H != W) and a reflect-padded case; the backward
+   kernels (dx, dw, and with the affine dx and dw+ds+db) at the same
+   geometries, the reflect case through autograd as well; the fused embed
+   kernels at the eight model geometries and at general f32 cases (K=5
+   with dilation 2 and K=7, non-square maps, two groups).  CUDA-event
    times of kernel and plain version beside the bound (data-sheet rates)
    and the byte bound at the device copy rate measured first; each case's
-   launches in the main paths' runs of phases 2 and 3 (0 for a shape no
-   main path launches).
+   launches in the main paths' runs (0 for a shape no main path launches).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -52,15 +65,25 @@ import time
 
 import torch
 
-# H100 SXM data sheet: HBM3 rate, and the f32 rate outside the tensor cores
-# (the kernel's products and sums are f32 FMAs)
+# H100 SXM data sheet: HBM3 rate, the f32 rate outside the tensor cores (the
+# taps' products and sums are f32 FMAs), and the dense tensor-core rate of a
+# matrix product by the type of its operands (an f32 product at the f32 rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+MATMUL_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
+                      torch.float32: 67e12}
 L2_FLUSH_BYTES = 256 << 20
 BATCH, IMAGE = 128, 224
 # (C, map size, CoT layers at that size): the launches per forward the
 # main path must make at each shape
 COTNET50_GEOMETRIES = ((64, 56, 3), (128, 28, 4), (256, 14, 6), (512, 7, 3))
+# model -> (channel groups of its CoT layers, geometries per group): the
+# groups of a CoXtLayer run as images of a batch BATCH * groups
+MODELS = {
+    "cotnet50": (1, COTNET50_GEOMETRIES),
+    "cotnext50_2x48d": (2, ((48, 56, 3), (96, 28, 4), (192, 14, 6),
+                            (384, 7, 3))),
+}
 REPLACES = ("cotnet_tpu/ops/local_agg_pallas.py:447 _fwd_kernel, "
             ":451 _fwd_kernel_affine, :952 _fwd_chwn_kernel, "
             ":1066 _fwd_chwn_strip_kernel")
@@ -85,7 +108,21 @@ RECIPE = {
                    epochs=350, warmup_epochs=5, decay_rate=0.1),
     "ema_decay": 0.9999,
 }
+REPLACES_AFFINE_BWD = {
+    "dx": "cotnet_tpu/ops/local_agg_pallas.py:512 _dx_kernel_affine",
+    "dw": "cotnet_tpu/ops/local_agg_pallas.py:697 _dw_kernel_affine",
+}
+REPLACES_EMBED_GN = "cotnet_tpu/ops/local_agg_pallas.py:1985 _fused_embed_kernel"
 IMAGENET_TRAIN_IMAGES = 1281167
+# the kernels a main path of each kind must launch 16 times a step
+# (cotnet50 and cotnext50_2x48d have 16 CoT layers); every other count,
+# the plain versions' included, must be 0
+PATH_KERNELS = {
+    "eval": ("fwd_affine",),
+    "eval_fused": ("embed_gn",),
+    "train": ("fwd", "dx", "dw"),
+    "train_fold": ("fwd_affine", "dx_affine", "dw_affine"),
+}
 
 
 def log(*args):
@@ -131,10 +168,14 @@ def copy_rate() -> float:
     return 2 * src.numel() / (ms * 1e-3)
 
 
-def bounds_ms(nbytes: int, flops: int) -> tuple:
-    """(bound ms, 'bytes' or 'operations') at the data-sheet rates."""
+def bounds_ms(nbytes: int, flops: int, matmul_flops: int = 0,
+              matmul_dtype=torch.float32) -> tuple:
+    """(bound ms, 'bytes' or 'operations') at the data-sheet rates: the
+    bytes, or the f32 operations plus those of a matrix product at the
+    rate of its operands' type, whichever takes longer."""
     bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-              "operations": flops / F32_FLOPS_PER_S * 1e3}
+              "operations": (flops / F32_FLOPS_PER_S + matmul_flops
+                             / MATMUL_FLOPS_PER_S[matmul_dtype]) * 1e3}
     by = max(bounds, key=bounds.get)
     return bounds[by], by
 
@@ -163,9 +204,11 @@ def check_close(what, got, ref, dtype) -> tuple:
 
 def kernel_cases() -> list:
     cases = []
-    for c, hw, _ in COTNET50_GEOMETRIES:
-        cases.append(dict(n=BATCH, c=c, h=hw, w=hw, heads=1, cw=c // 8, k=3,
-                          dil=1, pad_mode="zeros", dtype=torch.bfloat16))
+    for groups, geometries in MODELS.values():
+        for c, hw, _ in geometries:
+            cases.append(dict(n=BATCH * groups, c=c, h=hw, w=hw, heads=1,
+                              cw=c // 8, k=3, dil=1, pad_mode="zeros",
+                              dtype=torch.bfloat16))
     for k in (5, 7):
         cases.append(dict(n=4, c=32, h=13, w=11, heads=2, cw=8, k=k, dil=2,
                           pad_mode="zeros", dtype=torch.float32))
@@ -191,11 +234,93 @@ def new_key(counts: dict, before: dict):
     return new[0]
 
 
-def kernel_phase(la, hbm_rate: float, main_counts: dict) -> list:
+def launch_snapshot(la) -> dict:
+    """The wrappers' counts as they stand: ``by_key`` maps (kernel, launch
+    key) to launches, with the kernel named fwd, dx, dw (``_affine`` added
+    where the GroupNorm affine was folded in) or embed_gn; ``plain`` is the
+    number of calls of any plain version."""
+    by_key = {}
+    for key, count in la.LAUNCHES_BY_SHAPE.items():
+        by_key[("fwd_affine" if key[1] else "fwd", key)] = count
+    for (kernel, key), count in la.BWD_LAUNCHES_BY_SHAPE.items():
+        by_key[(kernel + ("_affine" if key[1] else ""), key)] = count
+    for key, count in la.EMBED_GN_LAUNCHES_BY_SHAPE.items():
+        by_key[("embed_gn", key)] = count
+
+    def total(*kernels):
+        return sum(c for (k, _), c in by_key.items() if k in kernels)
+
+    # the totals and the counts by shape are kept apart in the wrappers
+    if (la.LAUNCHES, la.BWD_LAUNCHES, la.AFFINE_BWD_LAUNCHES,
+            la.EMBED_GN_LAUNCHES) != (
+            total("fwd", "fwd_affine"),
+            {"dx": total("dx"), "dw": total("dw")},
+            {"dx": total("dx_affine"), "dw": total("dw_affine")},
+            total("embed_gn")):
+        raise AssertionError("launch totals disagree with the counts by "
+                             "shape")
+    return {"by_key": by_key,
+            "plain": (la.PLAIN_CALLS + la.PLAIN_BWD_CALLS
+                      + la.PLAIN_EMBED_GN_CALLS)}
+
+
+class PathCounts:
+    """What each main path launched: (kernel, launch key) -> {path label:
+    (launches, steps of that path's run)}."""
+
+    def __init__(self):
+        self.by_key = {}
+
+    def record(self, la, label: str, steps: int) -> dict:
+        """Read the counts a main path's run left; returns the snapshot."""
+        snapshot = launch_snapshot(la)
+        for key, count in snapshot["by_key"].items():
+            self.by_key.setdefault(key, {})[label] = (count, steps)
+        return snapshot
+
+    def entry(self, kernel: str, key) -> dict:
+        """The ``launches`` keys of a kernel entry."""
+        by_path = self.by_key.get((kernel, key), {})
+        return {"launches": sum(c for c, _ in by_path.values()),
+                "launches_by_path": {
+                    label: {"launches": c, "steps": n}
+                    for label, (c, n) in by_path.items()}}
+
+
+def check_path_launches(snapshot: dict, kind: str, model_name: str,
+                        steps: int):
+    """Raise unless a main path's run launched exactly the kernels of its
+    kind, each once per CoT layer and step at the model's bf16 geometries,
+    and called no plain version."""
+    groups, geometries = MODELS[model_name]
+    want = {(c, hw): per_step * steps for c, hw, per_step in geometries}
+    kernels = {kernel for kernel, _ in snapshot["by_key"]}
+    for kernel in kernels | set(PATH_KERNELS[kind]):
+        got = {}
+        for (kern, key), count in snapshot["by_key"].items():
+            if kern != kernel:
+                continue
+            if kernel == "embed_gn":
+                dtype, (n, c, h, w), _, key_groups, *_ = key
+                n, c = n * key_groups, c // key_groups
+            else:
+                dtype, _, (n, c, h, w), *_ = key
+            if not (dtype == "bfloat16" and n == BATCH * groups and h == w):
+                raise AssertionError(f"{model_name} {kind}: {kernel} "
+                                     f"launched at {key}")
+            got[(c, h)] = got.get((c, h), 0) + count
+        if got != (want if kernel in PATH_KERNELS[kind] else {}):
+            raise AssertionError(f"{model_name} {kind}: {kernel} launches by "
+                                 f"(C, map) {got} in {steps} steps")
+    if snapshot["plain"]:
+        raise AssertionError(f"{model_name} {kind}: {snapshot['plain']} "
+                             "calls of a plain version")
+
+
+def kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
     """Forward kernel vs plain version on the card; returns the kernel
     entries.  ``hbm_rate`` is the measured copy rate, for a second byte
-    bound; ``main_counts`` maps a launch key to (launches, steps) of the
-    main path that launched it."""
+    bound; ``paths`` holds what the main paths launched."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
@@ -222,8 +347,9 @@ def kernel_phase(la, hbm_rate: float, main_counts: dict) -> list:
             with torch.no_grad():
                 got = la.local_aggregate(x, wt, impl="hopper", **kw)
                 torch.cuda.synchronize()
-                launches, steps = main_counts.get(
-                    new_key(la.LAUNCHES_BY_SHAPE, before), (0, 1))
+                launches = paths.entry(
+                    "fwd_affine" if affine else "fwd",
+                    new_key(la.LAUNCHES_BY_SHAPE, before))
                 ref = la.local_aggregate(x, wt, impl="torch", **kw)
                 geometry = describe(cs, pad, affine)
                 max_err, rtol, atol = check_close(geometry, got, ref, dt)
@@ -242,8 +368,7 @@ def kernel_phase(la, hbm_rate: float, main_counts: dict) -> list:
             entries.append({
                 "name": "local_agg_fwd", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_fwd.cu",
-                "replaces": REPLACES, "geometry": geometry,
-                "launches": launches, "launches_per_step": launches / steps,
+                "replaces": REPLACES, "geometry": geometry, **launches,
                 "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
@@ -260,7 +385,7 @@ def log_entry(e):
         f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
         f"({e['bound_by']}; {100 * e['bound_ms'] / e['ms']:.1f}% of it), "
         f"{e['bound_ms_at_copy_rate']:.4f} ms at the copy rate; "
-        f"{e['launches']} launches in the main path")
+        f"{e['launches']} launches in the main paths")
 
 
 def valid_taps(size_in, size_out, k, pad, dil) -> int:
@@ -270,10 +395,9 @@ def valid_taps(size_in, size_out, k, pad, dil) -> int:
                if 0 <= o - pad + i * dil < size_in)
 
 
-def bwd_kernel_phase(la, hbm_rate: float, main_counts: dict) -> list:
+def bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
     """The two backward kernels vs the plain backward on the card; returns
-    their entries.  ``main_counts`` maps (kernel, launch key) to (launches,
-    steps) of the train main path."""
+    their entries."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -319,8 +443,8 @@ def bwd_kernel_phase(la, hbm_rate: float, main_counts: dict) -> list:
             before = dict(la.BWD_LAUNCHES_BY_SHAPE)
             got = la.local_aggregate_bwd_hopper(x, wt, dy, **geo, **need)[pick]
             torch.cuda.synchronize()
-            launches, steps = main_counts.get(
-                new_key(la.BWD_LAUNCHES_BY_SHAPE, before), (0, 1))
+            launches = paths.entry(
+                kernel, new_key(la.BWD_LAUNCHES_BY_SHAPE, before)[1])
             ref = la.local_aggregate_bwd_plain(xp, wt, dy, (k, k), (dil, dil),
                                                **need)[pick]
             if kernel == "dx":
@@ -342,13 +466,227 @@ def bwd_kernel_phase(la, hbm_rate: float, main_counts: dict) -> list:
                 "name": f"local_agg_bwd_{kernel}", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_bwd.cu",
                 "replaces": REPLACES_BWD[kernel], "geometry": geometry,
-                "launches": launches, "launches_per_step": launches / steps,
-                "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
+                **launches, "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
                 "bound_ms_at_copy_rate": nbytes / hbm_rate * 1e3,
                 "library_ms": None})
             log_entry(entries[-1])
+    return entries
+
+
+def check_sums(what, got, ref, factor: float = 1.0) -> float:
+    """ds and db are f32 sums over Ho*Wo positions of f32 terms that kernel
+    and plain version form alike; only the order of the sum differs (a
+    thread's stride, a warp's butterfly, the warps in turn, against
+    torch's own).  So they are held as a whole: ``max|err| <= factor *
+    1e-5 * max|ref|``; the largest ratio seen at any geometry is 3e-7.
+    Returns max|err|."""
+    err = float((got - ref).abs().max())
+    if not err <= factor * 1e-5 * float(ref.abs().max()):
+        raise AssertionError(f"kernel != plain at {what}: max|err| {err}, "
+                             f"max|ref| {float(ref.abs().max())}")
+    return err
+
+
+def affine_bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
+    """The two backward kernels of the aggregation with the folded affine
+    (dx; dw with ds and db) vs the plain affine backward on the card;
+    returns their entries."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        t = torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+        return t.to(dtype)
+
+    entries = []
+    for cs in kernel_cases():
+        n, c, h, w, heads, cw, k = (cs[key] for key in (
+            "n", "c", "h", "w", "heads", "cw", "k"))
+        dt, dil = cs["dtype"], cs["dil"]
+        pad = (dil * (k - 1) + 1) // 2
+        x = randn(n, c, h, w, dtype=dt)
+        wt = randn(n, heads, cw, k * k, h, w, dtype=dt)
+        s = randn(n, heads, cw, k * k, scale=0.5, shift=1.0)
+        b = randn(n, heads, cw, k * k, scale=0.5)
+        dy = randn(n, heads * c, h, w, dtype=dt)
+        geometry = describe(cs, pad, affine=True)
+        if cs["pad_mode"] == "reflect":
+            # through autograd: the reflect pad is differentiated outside
+            # the op, the kernels see the padded input
+            grads = {}
+            for impl in ("hopper", "torch"):
+                leaves = [t.clone().requires_grad_() for t in (x, wt, s, b)]
+                out = la.local_aggregate(
+                    leaves[0], leaves[1], kernel_size=k, padding=pad,
+                    dilation=dil, pad_mode="reflect", impl=impl,
+                    w_scale=leaves[2], w_bias=leaves[3])
+                grads[impl] = torch.autograd.grad(out, leaves, dy)
+            for name, got, ref in zip(("dx", "dw"), *grads.values()):
+                check_close(f"{geometry} autograd {name}", got, ref, dt)
+            for name, got, ref in zip(("ds", "db"), grads["hopper"][2:],
+                                      grads["torch"][2:]):
+                check_sums(f"{geometry} autograd {name}", got, ref)
+            x, kpad = F.pad(x, (pad,) * 4, mode="reflect"), 0
+        else:
+            kpad = pad
+        xp = F.pad(x, (kpad,) * 4)
+        hi, wi = x.shape[2:]
+        geo = dict(kernel_size=(k, k), dilation=(dil, dil),
+                   padding=(kpad, kpad))
+        pairs = (valid_taps(hi, h, k, kpad, dil)
+                 * valid_taps(wi, w, k, kpad, dil))
+        item = x.element_size()
+        for kernel in ("dx", "dw"):
+            need = dict(need_dx=kernel == "dx", need_dw=kernel == "dw")
+            before = dict(la.BWD_LAUNCHES_BY_SHAPE)
+            got = la.local_aggregate_bwd_affine_hopper(x, wt, s, b, dy, **geo,
+                                                       **need)
+            torch.cuda.synchronize()
+            launches = paths.entry(
+                f"{kernel}_affine",
+                new_key(la.BWD_LAUNCHES_BY_SHAPE, before)[1])
+            ref = la.local_aggregate_bwd_affine_plain(
+                xp, wt, s, b, dy, (k, k), (dil, dil), **need)
+            extra = {}
+            if kernel == "dx":
+                max_err, rtol, atol = check_close(
+                    f"{geometry} dx", got[0],
+                    ref[0][..., kpad:kpad + hi, kpad:kpad + wi], dt)
+                # reads w, dy, s and b, writes dx; per (channel, head,
+                # in-image tap) a multiply and an add, and w*s + b once per
+                # weight
+                nbytes = (wt.numel() + dy.numel() + x.numel()) * item \
+                    + (s.numel() + b.numel()) * 4
+                flops = 2 * n * heads * c * pairs + 2 * wt.numel()
+            else:
+                max_err, rtol, atol = check_close(f"{geometry} dw", got[1],
+                                                  ref[1], dt)
+                extra = {"ds_max_abs_err": check_sums(f"{geometry} ds",
+                                                      got[2], ref[2]),
+                         "db_max_abs_err": check_sums(f"{geometry} db",
+                                                      got[3], ref[3]),
+                         "sums_tol": "1e-5 * max|ref|"}
+                # reads x, dy, w and s, writes dw, ds and db; the group sum
+                # per in-image tap, then gn*s, gn*w summed and gn summed
+                nbytes = (x.numel() + dy.numel() + 2 * wt.numel()) * item \
+                    + 3 * s.numel() * 4
+                flops = 2 * n * heads * c * pairs + 4 * wt.numel()
+            ms = device_ms(lambda: la.local_aggregate_bwd_affine_hopper(
+                x, wt, s, b, dy, **geo, **need))
+            plain_ms = device_ms(lambda: la.local_aggregate_bwd_affine_plain(
+                xp, wt, s, b, dy, (k, k), (dil, dil), **need))
+            bound, bound_by = bounds_ms(nbytes, flops)
+            entries.append({
+                "name": f"local_agg_bwd_{kernel}_affine", "route": "cuda",
+                "source": "cotnet_tpu_torch/ops/csrc/local_agg_bwd.cu",
+                "replaces": REPLACES_AFFINE_BWD[kernel], "geometry": geometry,
+                **launches, "max_abs_err": max_err,
+                "tol": {"rtol": rtol, "atol": atol}, **extra,
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": bound_by,
+                "bound_ms_at_copy_rate": nbytes / hbm_rate * 1e3,
+                "library_ms": None})
+            log_entry(entries[-1])
+    return entries
+
+
+def embed_gn_cases() -> list:
+    """x ``[n, c, h, w]``, w_pre ``[n, cp, h, w]`` as the models call the
+    fused op (cp = c/2, Cw = c/8 over all groups), then general f32 cases."""
+    cases = []
+    for groups, geometries in MODELS.values():
+        for c, hw, _ in geometries:
+            cases.append(dict(n=BATCH, c=c * groups, cp=c * groups // 2,
+                              h=hw, w=hw, k=3, dil=1, groups=groups,
+                              dtype=torch.bfloat16))
+    cases.append(dict(n=3, c=32, cp=24, h=13, w=11, k=5, dil=2, groups=1,
+                      dtype=torch.float32))
+    cases.append(dict(n=2, c=16, cp=40, h=6, w=5, k=7, dil=1, groups=1,
+                      dtype=torch.float32))
+    cases.append(dict(n=4, c=96, cp=48, h=9, w=14, k=3, dil=1, groups=2,
+                      dtype=torch.float32))
+    return cases
+
+
+def embed_gn_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
+    """The fused embed conv + GroupNorm + aggregation kernels vs the plain
+    version on the card; returns their entries."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        t = torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+        return t.to(dtype)
+
+    entries = []
+    for cs in embed_gn_cases():
+        n, c, cp, h, w, k, dil, groups = (cs[key] for key in (
+            "n", "c", "cp", "h", "w", "k", "dil", "groups"))
+        dt = cs["dtype"]
+        pad = (dil * (k - 1) + 1) // 2
+        f = c // 8 * k * k
+        x = randn(n, c, h, w, dtype=dt)
+        w_pre = randn(n, cp, h, w, dtype=dt).relu()      # it follows a ReLU
+        w2 = randn(f, cp // groups, scale=(2.0 / f) ** 0.5).to(dt)
+        b2, beta = randn(f, scale=0.1), randn(f, scale=0.2)
+        gamma = randn(f, scale=0.2, shift=1.0)
+        args = (x, w_pre, w2, b2, gamma, beta)
+        kw = dict(kernel_size=k, padding=pad, dilation=dil, groups=groups)
+        geometry = (f"N={n} C={c} Cp={cp} {h}x{w} groups={groups} "
+                    f"Cw={c // 8} K={k} dil={dil} pad={pad} "
+                    f"{str(dt).replace('torch.', '')}")
+        before = dict(la.EMBED_GN_LAUNCHES_BY_SHAPE)
+        with torch.no_grad(), tf32_off():
+            got = la.local_aggregate_embed_gn(*args, impl="hopper", **kw)
+            torch.cuda.synchronize()
+            launches = paths.entry(
+                "embed_gn", new_key(la.EMBED_GN_LAUNCHES_BY_SHAPE, before))
+            ref = la.local_aggregate_embed_gn(*args, impl="torch", **kw)
+            scale = float(ref.float().abs().max())
+            if dt == torch.float32:
+                # the product's and the statistics' sums in another order
+                rtol, atol = 1e-5, 1e-5 * scale
+            else:
+                # besides the output's own rounding, a w_raw whose f32 sum
+                # lies at a rounding boundary may round to the neighbouring
+                # bf16 value in one of the two, which moves that tap's
+                # weight by one bf16 ulp
+                rtol, atol = 8e-3, 4e-3 * scale
+            err = (got.float() - ref.float()).abs()
+            bad = int((err > atol + rtol * ref.float().abs()).sum())
+            if bad:
+                raise AssertionError(
+                    f"kernel != plain at {geometry}: {bad} elements, max "
+                    f"|err| {float(err.max())}")
+            ms = device_ms(lambda: la.local_aggregate_embed_gn(
+                *args, impl="hopper", **kw))
+            plain_ms = device_ms(lambda: la.local_aggregate_embed_gn(
+                *args, impl="torch", **kw))
+        # x, w_pre and w2 read, out written, the three f32 vectors; the
+        # product w_pre @ w2 once, at the tensor cores' rate for its type
+        # (that this kernel forms it twice, in f32 FMAs, is its own cost),
+        # then per w_raw element the bias, the two statistics' terms and the
+        # normalize, and the taps, in f32
+        nbytes = (2 * x.numel() + w_pre.numel() + w2.numel()) \
+            * x.element_size() + 3 * f * 4
+        w_raw = n * f * h * w
+        bound, bound_by = bounds_ms(
+            nbytes, 8 * w_raw + 2 * x.numel() * k * k,
+            matmul_flops=2 * w_raw * (cp // groups), matmul_dtype=dt)
+        entries.append({
+            "name": "local_agg_embed_gn", "route": "cuda",
+            "source": "cotnet_tpu_torch/ops/csrc/local_agg_embed_gn.cu",
+            "replaces": REPLACES_EMBED_GN, "geometry": geometry, **launches,
+            "max_abs_err": float(err.max()),
+            "mean_abs_err": float(err.mean()),
+            "tol": {"rtol": rtol, "atol": atol},
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "bound_ms_at_copy_rate": nbytes / hbm_rate * 1e3,
+            "library_ms": None})
+        log_entry(entries[-1])
     return entries
 
 
@@ -404,35 +742,37 @@ class tf32_off:
          torch.backends.cuda.matmul.allow_tf32) = self.old
 
 
-def by_map(counts: dict, want_affine: bool, what: str) -> dict:
-    """Launch counts by (C, map size), after checking that every launch was
-    a bf16 bs128 square one with or without the affine as ``want_affine``
-    says."""
-    out = {}
-    for key, count in counts.items():
-        dtype, affine, (n, c, h, w), *_ = key
-        out[(c, h)] = out.get((c, h), 0) + count
-        if not (affine == want_affine and dtype == "bfloat16" and n == BATCH
-                and h == w):
-            raise AssertionError(f"{what} launched at {key}")
-    return out
+def images_f32():
+    """16 f32 images, each with its own contrast and brightness: with images
+    of one distribution the pooled vector that feeds each CotLayer's se BN
+    is nearly the same for all samples, its one-pass variance cancels, and
+    f32 rounding alone moves the train-mode gradients by 1e-4 relative."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(16, 3, IMAGE, IMAGE, generator=gen, device="cuda")
+    return x * torch.linspace(0.3, 2.0, 16, device="cuda")[:, None, None, None] \
+        + torch.linspace(-1, 1, 16, device="cuda")[:, None, None, None]
 
 
-def model_phase(la) -> dict:
-    """Phases 2 and 3.  Returns the main paths' launch counts:
-    ``{"fwd": {key: (launches, steps)}, "bwd": {(kernel, key): ...}}``."""
+def bs128_batch() -> dict:
+    """The main paths' batch: bf16 images, labels, and 8 invalid samples."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    return {
+        "image": torch.randn(BATCH, 3, IMAGE, IMAGE, generator=gen,
+                             device="cuda").to(torch.bfloat16),
+        "label": torch.randint(0, 1000, (BATCH,), generator=gen,
+                               device="cuda"),
+        "valid": (torch.arange(BATCH, device="cuda") < BATCH - 8).float(),
+    }
+
+
+def model_phase(la, paths: PathCounts) -> dict:
+    """Phases 2 and 3, on cotnet50; records the two main paths' launches
+    in ``paths``.  Returns the calibrated f32 state_dict, for phase 4."""
     from cotnet_tpu_torch.models import create_model
     from cotnet_tpu_torch.train.step import make_eval_step
 
     model = create_model("cotnet50", device="cuda", seed=0)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    # every image with its own contrast and brightness: with images of one
-    # distribution the pooled vector that feeds each CotLayer's se BN is
-    # nearly the same for all samples, its one-pass variance cancels, and
-    # f32 rounding alone moves the train-mode gradients by 1e-4 relative
-    x = torch.randn(16, 3, IMAGE, IMAGE, generator=gen, device="cuda")
-    x = x * torch.linspace(0.3, 2.0, 16, device="cuda")[:, None, None, None] \
-        + torch.linspace(-1, 1, 16, device="cuda")[:, None, None, None]
+    x = images_f32()
     calibrate_bn(model, x, seed=1)
     state = {k: v.clone() for k, v in model.state_dict().items()}
     plain = create_model("cotnet50", device="cuda",
@@ -482,14 +822,7 @@ def model_phase(la) -> dict:
         f"|diff| {d_max:.4g}, mean |diff| {d_mean:.4g} of max|logit| "
         f"{scale:.3g} (limit 0.2 on the max)")
     eval_step = make_eval_step(model16)
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    batch = {
-        "image": torch.randn(BATCH, 3, IMAGE, IMAGE, generator=gen,
-                             device="cuda").to(torch.bfloat16),
-        "label": torch.randint(0, 1000, (BATCH,), generator=gen,
-                               device="cuda"),
-        "valid": (torch.arange(BATCH, device="cuda") < BATCH - 8).float(),
-    }
+    batch = bs128_batch()
     warmup, timed = 2, 10
     steps = warmup + timed
     la.reset_counts()
@@ -501,17 +834,11 @@ def model_phase(la) -> dict:
         torch.cuda.synchronize()
         if i >= warmup:
             times.append(time.perf_counter() - t0)
-    launches, plain_calls = la.LAUNCHES, la.PLAIN_CALLS
-    by_shape = dict(la.LAUNCHES_BY_SHAPE)
-    if (launches, plain_calls) != (16 * steps, 0):
-        raise AssertionError(f"{steps} bf16 eval steps: {launches} kernel "
-                             f"launches, {plain_calls} plain calls")
-    # the launches by map size: cotnet50's (3, 4, 6, 3) CoT layers
-    want = {(c, hw): per_fwd * steps
-            for c, hw, per_fwd in COTNET50_GEOMETRIES}
-    if by_map(by_shape, True, "the eval main path") != want:
-        raise AssertionError(f"eval launches by (C, map) "
-                             f"{by_map(by_shape, True, 'eval')}, want {want}")
+    launches = la.LAUNCHES
+    # 16 affine forward launches a step, by map size as cotnet50's
+    # (3, 4, 6, 3) CoT layers, and nothing else
+    check_path_launches(paths.record(la, "cotnet50 eval", steps), "eval",
+                        "cotnet50", steps)
     top1, top5, n = (float(out[key]) for key in
                      ("top1_count", "top5_count", "n"))
     if not (0 <= top1 <= top5 <= n == BATCH - 8):
@@ -525,11 +852,8 @@ def model_phase(la) -> dict:
     del model16, eval_step
     torch.cuda.empty_cache()
 
-    counts = {"fwd": {key: (count, steps) for key, count in by_shape.items()}}
-    train_counts = train_main_path(la, batch)
-    counts["fwd"].update(train_counts["fwd"])
-    counts["bwd"] = train_counts["bwd"]
-    return counts
+    train_main_path(la, batch, paths)
+    return state
 
 
 def train_loss(model, x, labels):
@@ -689,21 +1013,16 @@ def loss_falls(la, model, x, steps: int = 5, lr: float = 0.01):
         f"loss {', '.join(f'{v:.4f}' for v in losses)}")
 
 
-def train_main_path(la, batch) -> dict:
-    """The train main path: bf16 ``make_train_step`` on cotnet50 at 224x224
-    bs128 under the recipe."""
+def recipe_train_step(model):
+    """``make_train_step`` on ``model`` under the recipe; returns (step,
+    its TrainState with an EMA)."""
     from cotnet_tpu_torch.data.mixup import Mixup
-    from cotnet_tpu_torch.models import create_model
     from cotnet_tpu_torch.train.loss import create_loss_fn
     from cotnet_tpu_torch.train.optim import create_optimizer
     from cotnet_tpu_torch.train.schedule import create_scheduler
-    from cotnet_tpu_torch.train.state import TrainState, float_state
+    from cotnet_tpu_torch.train.state import TrainState
     from cotnet_tpu_torch.train.step import make_train_step
 
-    torch.cuda.reset_peak_memory_stats()
-    model = create_model("cotnet50", device="cuda", dtype=torch.bfloat16,
-                         seed=0, **RECIPE["model"])
-    start = {k: v.detach().clone() for k, v in float_state(model).items()}
     schedule_fn, _ = create_scheduler(RECIPE["solver"],
                                       IMAGENET_TRAIN_IMAGES // BATCH)
     optimizer = create_optimizer(RECIPE["solver"], model.parameters())
@@ -711,7 +1030,20 @@ def train_main_path(la, batch) -> dict:
     step = make_train_step(model, optimizer, schedule_fn, loss_fn,
                            ema_decay=RECIPE["ema_decay"],
                            mixup_fn=Mixup(**RECIPE["mixup"]))
-    state = TrainState.create(model, optimizer, ema=True)
+    return step, TrainState.create(model, optimizer, ema=True)
+
+
+def train_main_path(la, batch, paths: PathCounts):
+    """The train main path: bf16 ``make_train_step`` on cotnet50 at 224x224
+    bs128 under the recipe."""
+    from cotnet_tpu_torch.models import create_model
+    from cotnet_tpu_torch.train.state import float_state
+
+    torch.cuda.reset_peak_memory_stats()
+    model = create_model("cotnet50", device="cuda", dtype=torch.bfloat16,
+                         seed=0, **RECIPE["model"])
+    start = {k: v.detach().clone() for k, v in float_state(model).items()}
+    step, state = recipe_train_step(model)
     gen = torch.Generator(device="cuda").manual_seed(6)
     batch = {"image": batch["image"], "label": batch["label"]}
 
@@ -728,24 +1060,11 @@ def train_main_path(la, batch) -> dict:
             times.append(time.perf_counter() - t0)
         metrics.append(m)
     peak = torch.cuda.max_memory_allocated()
-    fwd = dict(la.LAUNCHES_BY_SHAPE)
-    bwd = dict(la.BWD_LAUNCHES_BY_SHAPE)
-    totals = (la.LAUNCHES, dict(la.BWD_LAUNCHES), la.PLAIN_CALLS,
-              la.PLAIN_BWD_CALLS)
-    if totals != (16 * steps, {"dx": 16 * steps, "dw": 16 * steps}, 0, 0):
-        raise AssertionError(f"{steps} bf16 train steps: (launches, bwd "
-                             f"launches, plain, plain bwd) = {totals}")
-    want = {(c, hw): per_step * steps
-            for c, hw, per_step in COTNET50_GEOMETRIES}
-    got = {"fwd": by_map(fwd, False, "the train main path")}
-    for kernel in ("dx", "dw"):
-        got[kernel] = by_map({key: count for (kern, key), count in bwd.items()
-                              if kern == kernel}, False,
-                             f"the train main path's {kernel}")
-    for what, counts in got.items():
-        if counts != want:
-            raise AssertionError(f"train {what} launches by (C, map) "
-                                 f"{counts}, want {want}")
+    # 16 forward, 16 dx and 16 dw launches a step without the affine, by
+    # map size as cotnet50's (3, 4, 6, 3) CoT layers, and nothing else
+    check_path_launches(paths.record(la, "cotnet50 train", steps), "train",
+                        "cotnet50", steps)
+    totals = (la.LAUNCHES, dict(la.BWD_LAUNCHES))
 
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
@@ -783,8 +1102,197 @@ def train_main_path(la, batch) -> dict:
         f"{steps} steps: fwd {totals[0]}, dx {totals[1]['dx']}, dw "
         f"{totals[1]['dw']}, 0 plain calls")
     profile_step(lambda: step(state, batch, gen), "bf16 train step")
-    return {"fwd": {key: (count, steps) for key, count in fwd.items()},
-            "bwd": {key: (count, steps) for key, count in bwd.items()}}
+
+
+def affine_backward_launches_match_plain(la, model, x, labels) -> tuple:
+    """One f32 loss and backward of a folded model through the kernels,
+    with every affine backward launch held, on the model's own x, w, s, b
+    and dy, against the plain affine backward: ``max|err| <= 1e-5 *
+    max|ref|`` for dx and dw, and ``check_sums`` for ds and db.  Returns
+    the worst ratio of (dx and dw, ds and db)."""
+    import torch.nn.functional as F
+
+    launch = la.local_aggregate_bwd_affine_hopper
+    ratios = {"dx": [], "dw": [], "ds": [], "db": []}
+
+    def checked(x_, w_, s_, b_, dy, *, kernel_size, dilation, padding,
+                **need):
+        got = launch(x_, w_, s_, b_, dy, kernel_size=kernel_size,
+                     dilation=dilation, padding=padding, **need)
+        ph, pw = padding
+        ref = la.local_aggregate_bwd_affine_plain(
+            F.pad(x_, (pw, pw, ph, ph)), w_, s_, b_, dy, kernel_size,
+            dilation, **need)
+        ref = (ref[0][..., ph:ph + x_.shape[2], pw:pw + x_.shape[3]],) \
+            + ref[1:]
+        for name, g, r in zip(ratios, got, ref):
+            if g is not None:
+                ratios[name].append(float((g - r).abs().max()
+                                          / r.abs().max()))
+        return got
+
+    la.local_aggregate_bwd_affine_hopper = checked
+    try:
+        with tf32_off():
+            model.train()
+            la.reset_counts()
+            train_loss(model, x, labels).backward()
+            torch.cuda.synchronize()
+    finally:
+        la.local_aggregate_bwd_affine_hopper = launch
+        model.zero_grad(set_to_none=True)
+        model.eval()
+    counts = (la.LAUNCHES, dict(la.AFFINE_BWD_LAUNCHES), dict(la.BWD_LAUNCHES),
+              la.PLAIN_CALLS)
+    if counts != (16, {"dx": 16, "dw": 16}, {"dx": 0, "dw": 0}, 0):
+        raise AssertionError(f"one f32 loss and backward of the folded "
+                             f"model: (fwd, affine bwd, plain-form bwd, "
+                             f"plain forward calls) = {counts}")
+    worst = (max(ratios["dx"] + ratios["dw"]), max(ratios["ds"] + ratios["db"]))
+    if any(len(v) != 16 for v in ratios.values()) or not max(worst) <= 1e-5:
+        raise AssertionError(f"affine backward launches in the model "
+                             f"against the plain affine backward: {ratios}")
+    return worst
+
+
+def switch_checks_f32(la, model_name: str, state=None):
+    """Phase 4's f32 checks for one model, at bs16 with TF32 off: the
+    fused-embed eval against the unfused one, and the folded model's
+    backward and five train steps.  ``state`` is a calibrated f32
+    state_dict; without one the model is calibrated here."""
+    from cotnet_tpu_torch.models import create_model
+
+    x = images_f32()
+    if state is None:
+        model = create_model(model_name, device="cuda", seed=0)
+        calibrate_bn(model, x, seed=1)
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        del model
+
+    logits = {}
+    for fused in (False, True):
+        model = create_model(model_name, device="cuda", mega_fuse=fused)
+        model.load_state_dict(state)
+        with tf32_off(), torch.no_grad():
+            la.reset_counts()
+            logits[fused] = model(x)
+            torch.cuda.synchronize()
+        counts = (la.LAUNCHES, la.EMBED_GN_LAUNCHES,
+                  launch_snapshot(la)["plain"])
+        if counts != ((0, 16, 0) if fused else (16, 0, 0)):
+            raise AssertionError(f"{model_name} f32 forward, mega_fuse="
+                                 f"{fused}: (fwd launches, fused launches, "
+                                 f"plain calls) = {counts}")
+        del model
+    diff = float((logits[True] - logits[False]).abs().max())
+    scale = float(logits[False].abs().max())
+    if not (torch.isfinite(logits[True]).all()
+            and logits[True].shape == (16, 1000) and diff <= 1e-3 * scale):
+        raise AssertionError(f"{model_name} f32 logits, fused embed against "
+                             f"unfused: max|diff| {diff}, max|logit| {scale}")
+
+    model = create_model(model_name, device="cuda", gn_fold_train=True)
+    model.load_state_dict(state)
+    labels = torch.randint(0, 1000, (x.shape[0],), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(4))
+    worst = affine_backward_launches_match_plain(la, model, x, labels)
+    log(f"{model_name} f32, bs{x.shape[0]}: fused-embed eval logits against "
+        f"the unfused ones max|diff| {diff:.3g} of max|logit| {scale:.3g} "
+        f"(limit 1e-3), 16 fused launches and no aggregation launch per "
+        f"forward; folded backward, each of the 16 affine dx and 16 affine "
+        f"dw launches against the plain affine backward on the model's own "
+        f"tensors: worst max|err|/max|ref| {worst[0]:.3g} for dx and dw, "
+        f"{worst[1]:.3g} for ds and db (limit 1e-5)")
+    loss_falls(la, model, x)
+    if la.AFFINE_BWD_LAUNCHES != {"dx": 80, "dw": 80} or la.BWD_LAUNCHES != {
+            "dx": 0, "dw": 0}:
+        raise AssertionError(f"five folded f32 steps: affine backward "
+                             f"launches {la.AFFINE_BWD_LAUNCHES}, others "
+                             f"{la.BWD_LAUNCHES}")
+
+
+def run_main_path(la, paths: PathCounts, model_name: str, kind: str, batch,
+                  timed: int):
+    """One bf16 main path at 224x224 bs128 with seeded random weights:
+    ``kind`` is eval, eval_fused (path B, ``mega_fuse``), train, or
+    train_fold (path A, ``gn_fold_train``); the train kinds run under the
+    recipe.  2 warm-up and ``timed`` timed steps; the launches are checked
+    against the kind's and recorded in ``paths``."""
+    from cotnet_tpu_torch.models import create_model
+    from cotnet_tpu_torch.train.step import make_eval_step
+
+    label = f"{model_name} {kind}"
+    training = kind.startswith("train")
+    torch.cuda.reset_peak_memory_stats()
+    model = create_model(
+        model_name, device="cuda", dtype=torch.bfloat16, seed=0,
+        gn_fold_train=kind == "train_fold", mega_fuse=kind == "eval_fused",
+        **(RECIPE["model"] if training else {}))
+    if training:
+        step, state = recipe_train_step(model)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        images = {"image": batch["image"], "label": batch["label"]}
+
+        def run():
+            return step(state, images, gen)[1]
+    else:
+        eval_step = make_eval_step(model)
+
+        def run():
+            return eval_step(batch)
+
+    warmup = 2
+    steps = warmup + timed
+    la.reset_counts()
+    times, outs = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(run())
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check_path_launches(paths.record(la, label, steps), kind, model_name,
+                        steps)
+    if training:
+        values = [float(m[key]) for m in outs for key in ("loss", "grad_norm")]
+        if not (all(v == v and abs(v) < float("inf") for v in values)
+                and state.step == steps):
+            raise AssertionError(f"{label}: step {state.step}, losses and "
+                                 f"grad norms {values}")
+        result = (f"loss {values[0]:.4f} -> {values[-2]:.4f}, peak memory "
+                  f"{peak / 2 ** 30:.2f} GiB")
+    else:
+        top1, top5, n = (float(outs[-1][key]) for key in
+                         ("top1_count", "top5_count", "n"))
+        if not (0 <= top1 <= top5 <= n == BATCH - 8):
+            raise AssertionError(f"{label}: top1 {top1} top5 {top5} n {n}")
+        result = f"top1 {top1:.0f} top5 {top5:.0f} of {n:.0f}"
+    median = statistics.median(times)
+    log(f"bf16 {label} {IMAGE}x{IMAGE} bs{BATCH}: {BATCH / median:.1f} img/s "
+        f"(median of {timed} steps, {median * 1e3:.1f} ms a step) on "
+        f"{nvidia_smi()}; {result}; per step 16 launches each of "
+        f"{', '.join(PATH_KERNELS[kind])}, no other kernel of the op, 0 "
+        f"plain calls")
+    profile_step(run, f"bf16 {label} step")
+    torch.cuda.empty_cache()
+
+
+def switches_phase(la, paths: PathCounts, cotnet50_state):
+    """Phase 4: the two switches on cotnet50, and cotnext50_2x48d with and
+    without them."""
+    switch_checks_f32(la, "cotnet50", cotnet50_state)
+    switch_checks_f32(la, "cotnext50_2x48d")
+    torch.cuda.empty_cache()
+    batch = bs128_batch()
+    for model_name, kinds in (
+            ("cotnet50", ("train_fold", "eval_fused")),
+            ("cotnext50_2x48d", ("eval", "train", "train_fold",
+                                 "eval_fused"))):
+        for kind in kinds:
+            run_main_path(la, paths, model_name, kind, batch,
+                          timed=6 if kind.startswith("train") else 8)
 
 
 def profile_step(fn, label: str, top: int = 12):
@@ -811,9 +1319,11 @@ def profile_step(fn, label: str, top: int = 12):
         return
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    agg = {name: sum(r[0] for r in rows if name in r[2])
+    # a template's name ends at its "<"
+    agg = {name: sum(r[0] for r in rows if f"{name}<" in r[2])
            for name in ("local_agg_fwd", "local_agg_bwd_dx",
-                        "local_agg_bwd_dw")}
+                        "local_agg_bwd_dw", "local_agg_bwd_dw_affine",
+                        "embed_gn_stats", "embed_gn_agg")}
     log(f"profile of one {label}: {sum(r[1] for r in rows)} device kernels "
         f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
         f"({100 * busy_ms / wall_ms:.1f}%); "
@@ -826,12 +1336,14 @@ def profile_step(fn, label: str, top: int = 12):
             f"{name[:100]}")
 
 
-def per_step_summary(entries, label):
-    """Each on-path case at its measured launches per step."""
-    on_path = [e for e in entries if e["launches"]]
-    log(f"{label} ({sum(e['launches_per_step'] for e in on_path):.0f} "
-        "launches): " + ", ".join(
-            f"{key} {sum(e[key] * e['launches_per_step'] for e in on_path):.4f} ms"
+def per_step_summary(entries, path: str):
+    """Each case a main path launched, at its launches per step there."""
+    per_step = [(e, by["launches"] / by["steps"]) for e in entries
+                for label, by in e["launches_by_path"].items()
+                if label == path]
+    log(f"aggregation kernels per step of {path} "
+        f"({sum(n for _, n in per_step):.0f} launches): " + ", ".join(
+            f"{key} {sum(e[key] * n for e, n in per_step):.4f} ms"
             for key in ("ms", "plain_ms", "bound_ms",
                         "bound_ms_at_copy_rate")))
 
@@ -855,21 +1367,35 @@ def main() -> int:
     torch.zeros(1, device="cuda")
     log(f"set-up (kernel build included): {time.perf_counter() - t0:.1f} s")
 
-    counts = model_phase(la)
+    paths = PathCounts()
+    state = model_phase(la, paths)
+    switches_phase(la, paths, state)
+    del state
+    torch.cuda.empty_cache()
+    log(f"model phases done at {time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()
     log(f"device copy rate: {hbm_rate / 1e12:.3f} TB/s (data sheet "
         f"{HBM_BYTES_PER_S / 1e12:.2f})")
-    fwd_entries = kernel_phase(la, hbm_rate, counts["fwd"])
-    bwd_entries = bwd_kernel_phase(la, hbm_rate, counts["bwd"])
-    affine = [e for e in fwd_entries if e["geometry"].endswith("affine")]
-    plain_fwd = [e for e in fwd_entries if e not in affine]
-    per_step_summary(affine, "aggregation per eval forward")
-    per_step_summary(plain_fwd + bwd_entries,
-                     "aggregation per train step, forward and backward")
+    entries = (kernel_phase(la, hbm_rate, paths)
+               + bwd_kernel_phase(la, hbm_rate, paths)
+               + affine_bwd_kernel_phase(la, hbm_rate, paths)
+               + embed_gn_kernel_phase(la, hbm_rate, paths))
+    # every shape a main path launched was held against its plain version
+    launched = sum(c for by in paths.by_key.values() for c, _ in by.values())
+    if sum(e["launches"] for e in entries) != launched:
+        raise AssertionError(
+            f"the main paths made {launched} launches, the kernel phase "
+            f"accounts for {sum(e['launches'] for e in entries)}")
+    path_labels = []
+    for by_path in paths.by_key.values():
+        path_labels += [label for label in by_path
+                        if label not in path_labels]
+    for label in path_labels:
+        per_step_summary(entries, label)
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(smi)
-    print(json.dumps({"kernels": fwd_entries + bwd_entries}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

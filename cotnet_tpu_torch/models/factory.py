@@ -18,7 +18,9 @@ def create_model(model_name: str, num_classes: int = 1000,
     running stats stay float32 (the state_dict the converter maps) and each
     weight is cast to ``dtype`` where it is used.  Extra kwargs go to the
     entrypoint (e.g. ``drop_rate=``, ``drop_path_rate=``,
-    ``block_args=dict(impl=...)``); None values are pruned.  The model is
+    ``block_args=dict(impl=...)``, and for the CoT family
+    ``gn_fold_train=`` and ``mega_fuse=``, see ``models/cotnet.py``); None
+    values are pruned.  The model is
     returned on ``device`` in eval mode; call ``model.train()`` to train it
     (``train/step.py`` does).
     """

@@ -12,7 +12,9 @@ SubChannelGroupNorm: the CoT attention-embed GroupNorm, the reference's
 cw*K^2 + k), so group cw holds every tap of weight channel cw.  Statistics
 are one-pass (E[x^2] - E[x]^2) in f32 per (n, cw) over (K^2, H, W).
 ``fold()`` returns the equivalent per-(n, cw, k) affine for the
-aggregation instead of the normalized tensor.
+aggregation instead of the normalized tensor (differentiable in the input
+and the parameters by plain autograd), ``raw()`` the parameters alone for
+the fused eval op, which takes its own statistics.
 """
 
 from __future__ import annotations
@@ -159,7 +161,10 @@ class SubChannelGroupNorm(nn.Module):
         ``GN(x) == x*s + b`` per (n, cw, k), for local_aggregate's
         ``w_scale``/``w_bias``.  ``b = beta - mean*s`` cancels where
         |mean| >> std, so the fold carries more f32 rounding there than the
-        materialized form (see ``cotnet_tpu/nn/norm.py``'s note)."""
+        materialized form (see ``cotnet_tpu/nn/norm.py``'s note).  The
+        statistics are plain autograd, so gradients arriving at s and b
+        flow on to x, ``weight`` and ``bias``; autograd keeps an f32 copy of
+        x for that."""
         n = x.shape[0]
         mean, inv = self._stats(x)
         g = self.weight.view(1, self.cw, self.k2)
@@ -167,3 +172,7 @@ class SubChannelGroupNorm(nn.Module):
         s = inv[..., None] * g
         b = be - mean[..., None] * s
         return s.view(n, 1, self.cw, self.k2), b.view(n, 1, self.cw, self.k2)
+
+    def raw(self):
+        """``(weight, bias)`` alone, for ``local_aggregate_embed_gn``."""
+        return self.weight, self.bias

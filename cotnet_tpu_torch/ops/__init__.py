@@ -1,7 +1,9 @@
 from cotnet_tpu_torch.ops.local_agg import (
     extract_patches,
     local_aggregate,
+    local_aggregate_embed_gn,
     out_size,
 )
 
-__all__ = ["extract_patches", "local_aggregate", "out_size"]
+__all__ = ["extract_patches", "local_aggregate", "local_aggregate_embed_gn",
+           "out_size"]

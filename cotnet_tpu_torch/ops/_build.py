@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles into its own shared library with a plain C
 interface, ``cotnet_tpu_torch/_build/lib<name>-<hash>.so``.  The hash covers
-the source and the compiler flags, so an edited source builds anew and an
+the source, the headers beside it (``csrc/*.cuh``, which any source may
+include) and the compiler flags, so an edited source builds anew and an
 unchanged one loads the library already there.  The sources in the package
 are the only inputs; nothing is built or run when this module is imported.
 """
@@ -35,9 +36,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+    inputs = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b"".join(p.read_bytes() for p in inputs)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

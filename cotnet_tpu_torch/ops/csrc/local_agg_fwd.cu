@@ -31,40 +31,9 @@
 // halo tiles of x reused across the K*K taps and the G = C/Cw channel
 // groups that share one weight channel, 16-byte vector loads, and TMA.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-struct Geometry {
-  int n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw;
-};
-
-constexpr int kThreads = 256;
 
 // x [N, C, Hi, Wi]; w [N, heads, Cw, Kh*Kw, Ho, Wo];
 // s, b [N, heads, Cw, Kh*Kw] f32 (AFFINE only); out [N, heads*C, Ho, Wo].
@@ -115,9 +84,9 @@ int launch(const void* x, const void* w, const void* s, const void* b,
            void* out, const Geometry& g, cudaStream_t stream) {
   const int64_t total = int64_t(g.n) * g.heads * g.c * g.ho * g.wo;
   if (total == 0) return int(cudaSuccess);
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffff) return int(cudaErrorInvalidConfiguration);
-  local_agg_fwd<T, AFFINE><<<unsigned(blocks), kThreads, 0, stream>>>(
+  unsigned blocks;
+  if (!grid_for(total, &blocks)) return int(cudaErrorInvalidConfiguration);
+  local_agg_fwd<T, AFFINE><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(s), static_cast<const float*>(b),
       static_cast<T*>(out), g);

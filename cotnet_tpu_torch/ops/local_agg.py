@@ -16,24 +16,32 @@ layout:
 
 Two implementations compute the function and its gradients:
 
-- ``local_aggregate_plain`` / ``local_aggregate_bwd_plain``: shifted slices
-  of the padded input, one tap at a time, accumulated into f32 buffers (no
-  K*K-sized intermediate).  Their arithmetic is the TPU kernels': every
-  operand widens to f32, ``w*s + b`` is formed in f32, products and sums
-  are f32, and each result is rounded once.  They are the CPU path, the
-  in-package oracle and the kernels' comparison.
-- ``local_aggregate_hopper`` / ``local_aggregate_bwd_hopper``: the CUDA
-  kernels ``csrc/local_agg_fwd.cu`` and ``csrc/local_agg_bwd.cu`` (one
-  kernel for dx, one for dw), launched on PyTorch's current stream for CUDA
-  tensors at stride 1.
+- ``local_aggregate_plain`` / ``local_aggregate_bwd_plain`` /
+  ``local_aggregate_bwd_affine_plain``: shifted slices of the padded input,
+  one tap at a time, accumulated into f32 buffers (no K*K-sized
+  intermediate).  Their arithmetic is the TPU kernels': every operand
+  widens to f32, ``w*s + b`` is formed in f32, products and sums are f32,
+  and each result is rounded once.  They are the CPU path, the in-package
+  oracle and the kernels' comparison.
+- ``local_aggregate_hopper`` / ``local_aggregate_bwd_hopper`` /
+  ``local_aggregate_bwd_affine_hopper``: the CUDA kernels
+  ``csrc/local_agg_fwd.cu`` and ``csrc/local_agg_bwd.cu`` (one kernel for
+  dx, one for dw, one for dw, ds and db together with the affine),
+  launched on PyTorch's current stream for CUDA tensors at stride 1.
 
-``local_aggregate`` is differentiable in x and w (once: there is no double
-backward).  The GroupNorm fold ``w_scale``/``w_bias`` has no backward yet.
+``local_aggregate`` is differentiable in x and w and, with the GroupNorm
+fold, in ``w_scale`` and ``w_bias`` (once: there is no double backward).
+
+``local_aggregate_embed_gn`` is the eval-only fusion of the embed 1x1 conv,
+the GroupNorm and the aggregation: ``local_aggregate_embed_gn_plain``
+beside the kernels of ``csrc/local_agg_embed_gn.cu``.
 
 ``LAUNCHES`` / ``PLAIN_CALLS`` count the forward calls of each
-implementation, ``BWD_LAUNCHES`` (per kernel, ``"dx"`` and ``"dw"``) /
-``PLAIN_BWD_CALLS`` the backward ones, so a run can show which one it went
-through; ``LAUNCHES_BY_SHAPE`` and ``BWD_LAUNCHES_BY_SHAPE`` split the
+implementation, ``BWD_LAUNCHES`` and ``AFFINE_BWD_LAUNCHES`` (per kernel,
+``"dx"`` and ``"dw"``) / ``PLAIN_BWD_CALLS`` the backward ones,
+``EMBED_GN_LAUNCHES`` / ``PLAIN_EMBED_GN_CALLS`` those of the fused op, so a
+run can show which one it went through; ``LAUNCHES_BY_SHAPE``,
+``BWD_LAUNCHES_BY_SHAPE`` and ``EMBED_GN_LAUNCHES_BY_SHAPE`` split the
 launches by their input shapes.  ``reset_counts()`` zeroes them all.
 """
 
@@ -56,11 +64,24 @@ LAUNCHES_BY_SHAPE: Dict[tuple, int] = {}
 # local_aggregate_bwd_hopper, and calls of local_aggregate_bwd_plain
 BWD_LAUNCHES: Dict[str, int] = {"dx": 0, "dw": 0}
 PLAIN_BWD_CALLS = 0
-# keyed by (kernel, launch_key())
+# launches of the two affine backward kernels ("dw" writes dw, ds and db) by
+# local_aggregate_bwd_affine_hopper; the plain affine backward counts in
+# PLAIN_BWD_CALLS
+AFFINE_BWD_LAUNCHES: Dict[str, int] = {"dx": 0, "dw": 0}
+# keyed by (kernel, launch_key()); the key says whether the affine was on
 BWD_LAUNCHES_BY_SHAPE: Dict[tuple, int] = {}
+# launches by local_aggregate_embed_gn_hopper (one per call: its two kernels
+# always run together), keyed by embed_gn_key(); calls of the plain version
+EMBED_GN_LAUNCHES = 0
+EMBED_GN_LAUNCHES_BY_SHAPE: Dict[tuple, int] = {}
+PLAIN_EMBED_GN_CALLS = 0
 
 _LIB_NAME = "local_agg_fwd"
 _BWD_LIB_NAME = "local_agg_bwd"
+_EMBED_GN_LIB_NAME = "local_agg_embed_gn"
+# the tap counts (K*K) the fused kernel is compiled for: it keeps them in
+# registers
+_EMBED_GN_TAPS = (9, 25, 49)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
@@ -130,6 +151,12 @@ def local_aggregate_plain(xp, w, kernel_size, stride, dilation,
     ``[N, heads*C, Ho, Wo]`` in ``xp.dtype``; all arithmetic in f32."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
+    return _aggregate_taps(xp, w, kernel_size, stride, dilation, w_scale,
+                           w_bias)
+
+
+def _aggregate_taps(xp, w, kernel_size, stride, dilation, w_scale=None,
+                    w_bias=None):
     n, c, _, _ = xp.shape
     _, heads, cw, k2, ho, wo = w.shape
     kh, kw = kernel_size
@@ -195,6 +222,64 @@ def local_aggregate_bwd_plain(xp, w, dy, kernel_size, dilation,
     return dxp, dw
 
 
+def local_aggregate_bwd_affine_plain(xp, w, w_scale, w_bias, dy, kernel_size,
+                                     dilation, need_dx: bool = True,
+                                     need_dw: bool = True):
+    """Gradients of the stride-1 ``local_aggregate_plain`` with the affine
+    ``wn = w*w_scale + w_bias``, in plain PyTorch.
+
+    xp ``[N, C, Hp, Wp]`` (pre-padded), w ``[N, heads, Cw, K2, Ho, Wo]``,
+    w_scale / w_bias ``[N, heads, Cw, K2]``, dy ``[N, heads*C, Ho, Wo]`` ->
+    ``(dxp, dw, ds, db)``: dxp and dw of the shapes and dtypes of xp and w,
+    ds and db of w_scale's.  ``need_dw`` asks for dw, ds and db together
+    (one pass computes them); what is not needed is None.
+
+    One tap at a time, with the TPU kernels' arithmetic
+    (``_dx_kernel_affine``, ``_dw_kernel_affine``): the gradient of the
+    normalized weight ``gn = sum_g x_tap * dy`` stays f32 and is never
+    stored whole; ``dw = gn * s`` is rounded once; ``ds = sum_hw gn * w``
+    takes the raw w widened to f32; ``db = sum_hw gn``; dxp aggregates dy
+    with ``w*s + b`` formed in f32."""
+    global PLAIN_BWD_CALLS
+    PLAIN_BWD_CALLS += 1
+    n, c, hp, wp = xp.shape
+    _, heads, cw, k2, ho, wo = w.shape
+    kh, kw = kernel_size
+    g = c // cw
+    acc = _acc_dtype(xp)
+    dyv = dy.to(acc).reshape(n, heads, g, cw, ho, wo)
+    wf = w.to(acc)
+    sf = w_scale.to(acc)[..., None, None]
+    dxp = dw = ds = db = None
+    if need_dx:
+        bf = w_bias.to(acc)[..., None, None]
+        dxp = torch.zeros(n, g, cw, hp, wp, dtype=acc, device=xp.device)
+    if need_dw:
+        xv = xp.to(acc).reshape(n, 1, g, cw, hp, wp)
+        dw = torch.empty(w.shape, dtype=acc, device=xp.device)
+        ds = torch.empty(w_scale.shape, dtype=acc, device=xp.device)
+        db = torch.empty_like(ds)
+    for ikh in range(kh):
+        for ikw in range(kw):
+            k = ikh * kw + ikw
+            h0, w0 = ikh * dilation[0], ikw * dilation[1]
+            if need_dw:
+                gn = (xv[..., h0:h0 + ho, w0:w0 + wo] * dyv).sum(2)
+                dw[:, :, :, k] = gn * sf[:, :, :, k]
+                ds[:, :, :, k] = (gn * wf[:, :, :, k]).sum((-2, -1))
+                db[:, :, :, k] = gn.sum((-2, -1))
+            if need_dx:
+                wn = wf[:, :, :, k] * sf[:, :, :, k] + bf[:, :, :, k]
+                dxp[..., h0:h0 + ho, w0:w0 + wo] += (
+                    wn[:, :, None] * dyv).sum(1)
+    if need_dx:
+        dxp = dxp.view(n, c, hp, wp).to(xp.dtype)
+    if need_dw:
+        dw = dw.to(w.dtype)
+        ds, db = ds.to(w_scale.dtype), db.to(w_scale.dtype)
+    return dxp, dw, ds, db
+
+
 def _c_function(lib_name, fn_name, argtypes):
     from cotnet_tpu_torch.ops import _build
 
@@ -217,12 +302,29 @@ def _bwd_kernel():
                        + [ctypes.c_int] * 14 + [ctypes.c_void_p])
 
 
+def _bwd_affine_kernel():
+    return _c_function(_BWD_LIB_NAME, "local_agg_bwd_affine_launch",
+                       [ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+
+
+def _embed_gn_kernel():
+    return _c_function(_EMBED_GN_LIB_NAME, "local_agg_embed_gn_launch",
+                       [ctypes.c_int] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 15 + [ctypes.c_float,
+                                                ctypes.c_void_p])
+
+
 def reset_counts():
-    global LAUNCHES, PLAIN_CALLS, PLAIN_BWD_CALLS
+    global LAUNCHES, PLAIN_CALLS, PLAIN_BWD_CALLS, EMBED_GN_LAUNCHES, \
+        PLAIN_EMBED_GN_CALLS
     LAUNCHES = PLAIN_CALLS = PLAIN_BWD_CALLS = 0
+    EMBED_GN_LAUNCHES = PLAIN_EMBED_GN_CALLS = 0
     LAUNCHES_BY_SHAPE.clear()
     BWD_LAUNCHES.update(dx=0, dw=0)
+    AFFINE_BWD_LAUNCHES.update(dx=0, dw=0)
     BWD_LAUNCHES_BY_SHAPE.clear()
+    EMBED_GN_LAUNCHES_BY_SHAPE.clear()
 
 
 def launch_key(x, w, affine, dilation, padding) -> tuple:
@@ -245,9 +347,8 @@ def local_aggregate_hopper(x, w, w_scale=None, w_bias=None, *,
     tensors = [x, w] + ([] if w_scale is None else [w_scale, w_bias])
     _check_kernel_tensors("local_aggregate_hopper", tensors, (x, w))
     affine = w_scale is not None
-    if affine and (w_scale.dtype, w_bias.dtype) != (torch.float32,) * 2:
-        raise TypeError(f"affine dtypes {w_scale.dtype}/{w_bias.dtype}: "
-                        "need float32")
+    if affine:
+        _check_f32("affine", w_scale, w_bias)
     n, c, hi, wi = x.shape
     _, heads, cw, _, ho, wo = w.shape
     kh, kw = kernel_size
@@ -270,8 +371,15 @@ def local_aggregate_hopper(x, w, w_scale=None, w_bias=None, *,
     return out
 
 
+def _check_f32(what, *tensors):
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{what} dtypes "
+                        f"{'/'.join(str(t.dtype) for t in tensors)}: need "
+                        "float32")
+
+
 def _check_kernel_tensors(who, tensors, same_dtype):
-    """What both launch wrappers need: contiguous CUDA tensors on one
+    """What every launch wrapper needs: contiguous CUDA tensors on one
     device, and one supported dtype across ``same_dtype``."""
     first = tensors[0]
     if any(t.device.type != "cuda" or t.device != first.device
@@ -329,6 +437,65 @@ def local_aggregate_bwd_hopper(x, w, dy, *, kernel_size, dilation, padding,
     return dx, dw
 
 
+def local_aggregate_bwd_affine_hopper(x, w, w_scale, w_bias, dy, *,
+                                      kernel_size, dilation, padding,
+                                      need_dx: bool = True,
+                                      need_dw: bool = True):
+    """Launch the Hopper backward kernels of the aggregation with the affine
+    ``w*w_scale + w_bias`` folded in (stride 1, fused zero pad).
+
+    x, w, dy as for ``local_aggregate_bwd_hopper``; w_scale, w_bias
+    ``[N, heads, Cw, K2]`` float32.  Returns ``(dx, dw, ds, db)``: dx and dw
+    of the shapes and dtypes of x and w, ds and db float32 of w_scale's
+    shape.  ``need_dw`` asks for dw, ds and db, which one kernel writes
+    together; the kernel of what is not needed is not launched and its
+    slots are None."""
+    _check_kernel_tensors("local_aggregate_bwd_affine_hopper",
+                          [x, w, dy, w_scale, w_bias], (x, w, dy))
+    _check_f32("affine", w_scale, w_bias)
+    n, c, hi, wi = x.shape
+    _, heads, cw, k2, ho, wo = w.shape
+    if tuple(dy.shape) != (n, heads * c, ho, wo):
+        raise ValueError(f"dy shape {tuple(dy.shape)} != "
+                         f"{(n, heads * c, ho, wo)}")
+    if not (tuple(w_scale.shape) == tuple(w_bias.shape)
+            == (n, heads, cw, k2)):
+        raise ValueError(f"affine shape {tuple(w_scale.shape)}/"
+                         f"{tuple(w_bias.shape)} != {(n, heads, cw, k2)}")
+    kh, kw = kernel_size
+    dh, dw_ = dilation
+    ph, pw = padding
+    if not (need_dx or need_dw):
+        return None, None, None, None
+    fn = _bwd_affine_kernel()
+    dx = torch.empty_like(x) if need_dx else None
+    dw = ds = db = None
+    if need_dw:
+        dw = torch.empty_like(w)
+        ds, db = torch.empty_like(w_scale), torch.empty_like(w_scale)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+                 w_scale.data_ptr(), w_bias.data_ptr(), dy.data_ptr(),
+                 ptr(dx), ptr(dw), ptr(ds), ptr(db),
+                 n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw_,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"local_agg_bwd_affine launch failed: cudaError "
+                           f"{err}")
+    key = launch_key(x, w, True, dilation, padding)
+    for kernel, launched in (("dx", need_dx), ("dw", need_dw)):
+        if launched:
+            AFFINE_BWD_LAUNCHES[kernel] += 1
+            BWD_LAUNCHES_BY_SHAPE[(kernel, key)] = \
+                BWD_LAUNCHES_BY_SHAPE.get((kernel, key), 0) + 1
+    return dx, dw, ds, db
+
+
 class _AggregateStride1(torch.autograd.Function):
     """The stride-1 aggregation with zero pad and no affine, as one autograd
     node: the Hopper kernels (``use_kernel``) or the plain versions, in
@@ -369,6 +536,50 @@ class _AggregateStride1(torch.autograd.Function):
         return dx, dw, None, None, None, None
 
 
+class _AggregateStride1Affine(torch.autograd.Function):
+    """The stride-1 aggregation with zero pad and the affine ``w*s + b``, as
+    one autograd node: the Hopper kernels (``use_kernel``) or the plain
+    versions, in forward and backward alike.  Saves x, w, s and b."""
+
+    @staticmethod
+    def forward(ctx, x, w, s, b, kernel_size, dilation, padding, use_kernel):
+        ctx.geometry = (kernel_size, dilation, padding, use_kernel)
+        if use_kernel:
+            x, w, s, b = (t.contiguous() for t in (x, w, s, b))
+            out = local_aggregate_hopper(x, w, s, b, kernel_size=kernel_size,
+                                         dilation=dilation, padding=padding)
+        else:
+            out = local_aggregate_plain(_pad_input(x, padding, "zeros"), w,
+                                        kernel_size, (1, 1), dilation, s, b)
+        ctx.save_for_backward(x, w, s, b)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w, s, b = ctx.saved_tensors
+        kernel_size, dilation, padding, use_kernel = ctx.geometry
+        need_dx = ctx.needs_input_grad[0]
+        # dw, ds and db come out of one pass
+        need_dw = any(ctx.needs_input_grad[1:4])
+        if use_kernel:
+            grads = local_aggregate_bwd_affine_hopper(
+                x, w, s, b, dy.contiguous(), kernel_size=kernel_size,
+                dilation=dilation, padding=padding, need_dx=need_dx,
+                need_dw=need_dw)
+        else:
+            ph, pw = padding
+            grads = local_aggregate_bwd_affine_plain(
+                _pad_input(x, padding, "zeros"), w, s, b, dy, kernel_size,
+                dilation, need_dx=need_dx, need_dw=need_dw)
+            if need_dx:
+                grads = (grads[0][..., ph:ph + x.shape[2],
+                                  pw:pw + x.shape[3]],) + grads[1:]
+        grads = tuple(g if need else None
+                      for g, need in zip(grads, ctx.needs_input_grad))
+        return grads + (None, None, None, None)
+
+
 def local_aggregate(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -396,8 +607,8 @@ def local_aggregate(
         a CUDA tensor at a stride above 1 raises unless ``impl='torch'``.
       w_scale / w_bias: optional ``[N, heads, Cw, K*K]`` float32 affine
         applied to ``w`` inside the op (``w*scale + bias``), the GroupNorm
-        fold: the normalized weight is never materialized.  Forward only:
-        with the affine, a call that would record a gradient raises.
+        fold: the normalized weight is never materialized.  Differentiable
+        like x and w.
 
     Returns:
       ``[N, heads*C, Ho, Wo]``; output channel ``head*C + c`` aggregates input
@@ -442,29 +653,203 @@ def local_aggregate(
             "the Hopper kernel computes stride 1 only; pass impl='torch' for "
             "the plain version of a strided call")
     use_kernel = impl != "torch" and on_cuda
-    if w_scale is not None:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x, w, w_scale, w_bias)):
-            raise NotImplementedError(
-                "the aggregation with w_scale/w_bias has no backward yet "
-                "(ROADMAP queue 2, item 11): run it under torch.no_grad(), "
-                "or normalize w first and call it without the affine")
-        if not use_kernel:
-            xp = _pad_input(x, padding, pad_mode)
-            return local_aggregate_plain(xp, w, kernel_size, stride,
-                                         dilation, w_scale, w_bias)
-    elif stride != (1, 1):
+    if stride != (1, 1):
         # the plain version alone; autograd differentiates its slices
         xp = _pad_input(x, padding, pad_mode)
-        return local_aggregate_plain(xp, w, kernel_size, stride, dilation)
+        return local_aggregate_plain(xp, w, kernel_size, stride, dilation,
+                                     w_scale, w_bias)
     if pad_mode == "reflect":
         # the fused pad is zero; reflect pads outside (and is differentiated
         # there), as the JAX package does for its TPU kernels
         x, padding = _pad_input(x, padding, pad_mode), (0, 0)
     if w_scale is not None:
-        return local_aggregate_hopper(
-            x.contiguous(), w.contiguous(), w_scale.contiguous(),
-            w_bias.contiguous(), kernel_size=kernel_size, dilation=dilation,
-            padding=padding)
+        return _AggregateStride1Affine.apply(
+            x, w, w_scale, w_bias, kernel_size, dilation, padding, use_kernel)
     return _AggregateStride1.apply(x, w, kernel_size, dilation, padding,
                                    use_kernel)
+
+
+def embed_gn_key(x, w_pre, groups, dilation, padding) -> tuple:
+    """The key under which ``EMBED_GN_LAUNCHES_BY_SHAPE`` counts a launch."""
+    return (str(x.dtype).replace("torch.", ""), tuple(x.shape),
+            tuple(w_pre.shape), int(groups), tuple(dilation), tuple(padding))
+
+
+def local_aggregate_embed_gn_plain(x, w_pre, w2, b2, gamma, beta, kernel_size,
+                                   dilation, padding, eps: float = 1e-5,
+                                   groups: int = 1):
+    """``local_aggregate_embed_gn`` in plain PyTorch, with the arithmetic of
+    the TPU kernel (``_fused_embed_kernel``): ``w_raw = w_pre @ w2 + b2``
+    accumulated in f32 and rounded to x's dtype (what the embed conv would
+    have written), one-pass f32 statistics of that rounded tensor per
+    (image, group, cw) over (K2, H, W), ``var = max(E[w^2] - E[w]^2, 0)``,
+    the normalize as ``(w_raw - mean) * (inv * gamma) + beta``, f32 taps and
+    one rounding of the output.  Shapes as ``local_aggregate_embed_gn``
+    takes them, already checked; w2 is ``[F, Cp]``."""
+    global PLAIN_EMBED_GN_CALLS
+    PLAIN_EMBED_GN_CALLS += 1
+    n, c, _, _ = x.shape
+    _, _, ho, wo = w_pre.shape
+    f, cp = w2.shape
+    k2 = kernel_size[0] * kernel_size[1]
+    fg = f // groups
+    cwg = fg // k2
+    acc = _acc_dtype(x)
+    wp = w_pre.reshape(n, groups, cp, ho * wo).to(acc)
+    w2g = w2.to(x.dtype).to(acc).reshape(groups, fg, cp)
+    w_raw = torch.matmul(w2g, wp) + b2.to(acc).view(groups, fg, 1)
+    w_raw = w_raw.to(x.dtype).to(acc).view(n * groups, cwg, k2 * ho * wo)
+    mean = w_raw.mean(-1, keepdim=True)
+    var = (w_raw.square().mean(-1, keepdim=True)
+           - mean.square()).clamp_min(0.0)
+    inv = torch.rsqrt(var + eps)
+
+    def per_tap(v):      # [F] -> [N*groups, Cwg, K2, 1], image-major
+        return v.to(acc).view(1, groups, cwg, k2, 1).expand(
+            n, -1, -1, -1, -1).reshape(n * groups, cwg, k2, 1)
+
+    wn = ((w_raw - mean).view(n * groups, cwg, k2, ho * wo)
+          * (inv[..., None] * per_tap(gamma)) + per_tap(beta))
+    xp = _pad_input(x, padding, "zeros")
+    out = _aggregate_taps(
+        xp.reshape(n * groups, c // groups, *xp.shape[2:]),
+        wn.view(n * groups, 1, cwg, k2, ho, wo), kernel_size, (1, 1),
+        dilation)
+    return out.view(n, c, ho, wo)
+
+
+def local_aggregate_embed_gn_hopper(x, w_pre, w2, b2, gamma, beta, *,
+                                    kernel_size, dilation, padding,
+                                    eps: float = 1e-5, groups: int = 1):
+    """Launch the fused Hopper kernels (``csrc/local_agg_embed_gn.cu``): a
+    statistics pass and an aggregation pass that both form ``w_raw`` in
+    registers, so the weight tensor is never stored.
+
+    x ``[N, C, Hi, Wi]``, w_pre ``[N, groups*Cp, Ho, Wo]`` and w2
+    ``[F, Cp]`` contiguous CUDA tensors of one dtype (f32/f16/bf16); b2,
+    gamma, beta ``[F]`` float32.  The shapes are checked by
+    ``local_aggregate_embed_gn``; this checks what the kernel needs
+    besides.  Returns ``[N, C, Ho, Wo]``; records no autograd graph."""
+    global EMBED_GN_LAUNCHES
+    _check_kernel_tensors("local_aggregate_embed_gn_hopper",
+                          [x, w_pre, w2, b2, gamma, beta], (x, w_pre, w2))
+    _check_f32("b2/gamma/beta", b2, gamma, beta)
+    kh, kw = kernel_size
+    if kh * kw not in _EMBED_GN_TAPS:
+        raise NotImplementedError(
+            f"the fused embed kernel is compiled for K*K in "
+            f"{_EMBED_GN_TAPS}, not {kh}x{kw}; pass impl='torch' for the "
+            "plain version")
+    n, c, hi, wi = x.shape
+    _, _, ho, wo = w_pre.shape
+    f, cp = w2.shape
+    cwg = f // groups // (kh * kw)
+    dh, dw = dilation
+    ph, pw = padding
+    fn = _embed_gn_kernel()
+    out = torch.empty(n, c, ho, wo, dtype=x.dtype, device=x.device)
+    tiles = -(-ho * wo // 32)
+    partials = torch.empty(n * groups, cwg, tiles, 2, dtype=torch.float32,
+                           device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w_pre.data_ptr(),
+                 w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+                 beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
+                 n * groups, groups, c // groups, hi, wi, cp, cwg, kh, kw,
+                 ho, wo, ph, pw, dh, dw, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"local_agg_embed_gn launch failed: cudaError "
+                           f"{err}")
+    EMBED_GN_LAUNCHES += 1
+    key = embed_gn_key(x, w_pre, groups, dilation, padding)
+    EMBED_GN_LAUNCHES_BY_SHAPE[key] = \
+        EMBED_GN_LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    return out
+
+
+def local_aggregate_embed_gn(
+    x: torch.Tensor,
+    w_pre: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    *,
+    kernel_size=3,
+    padding=None,
+    dilation=1,
+    eps: float = 1e-5,
+    groups: int = 1,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Embed conv + sub-channel GroupNorm + aggregation, fused (eval path).
+
+    Computes ``w = GN(conv1x1(w_pre; w2, b2))`` (GroupNorm per (image, cw)
+    over (K^2, H, W) with the per-channel affine gamma/beta: the CoT embed
+    normalize) and aggregates ``x`` with it, heads = 1, stride 1, zero
+    padding.  The weight tensor is never stored.
+
+    Args:
+      x: ``[N, C, H, W]`` values.
+      w_pre: ``[N, groups*Cp, Ho, Wo]`` embed mid-activation.
+      w2: ``[F, Cp]`` or ``[F, Cp, 1, 1]``, the 1x1 conv's weight as torch
+        keeps it, ``F = groups * Cw * K^2`` output channels in cw-major
+        order; the conv is grouped when ``groups > 1``.
+      b2, gamma, beta: ``[F]``.
+      groups: the layer's channel groups (CoXtLayer's ``dw_group``): group
+        g aggregates x's g-th ``C/groups`` channels with the weight made
+        from w_pre's g-th Cp channels.  The groups run as ``groups``
+        consecutive images of a batch ``N*groups``, a view of the same
+        memory, in one launch.
+      impl: ``'auto'`` (the kernels for CUDA tensors, the plain version for
+        CPU tensors), ``'hopper'`` or ``'torch'``.
+
+    Eval only, as in the JAX package (its TPU kernel has no VJP): a call
+    that would record a gradient raises.  w2 is cast to x's dtype and b2,
+    gamma, beta to float32, as the TPU wrapper does.
+    """
+    kernel_size, dilation = _pair(kernel_size), _pair(dilation)
+    padding = _default_padding(padding, kernel_size, dilation)
+    if impl not in ("auto", "hopper", "torch"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_pre, w2, b2, gamma, beta)):
+        raise NotImplementedError(
+            "local_aggregate_embed_gn is the eval fusion and has no "
+            "backward: run it under torch.no_grad(), or train through the "
+            "embed conv, the GroupNorm and local_aggregate")
+    if w2.dim() == 4 and tuple(w2.shape[2:]) == (1, 1):
+        w2 = w2.reshape(w2.shape[0], w2.shape[1])
+    if x.dim() != 4 or w_pre.dim() != 4 or w2.dim() != 2:
+        raise ValueError(f"shapes x {tuple(x.shape)}, w_pre "
+                         f"{tuple(w_pre.shape)}, w2 {tuple(w2.shape)}: need "
+                         "[N,C,H,W], [N,groups*Cp,Ho,Wo], [F,Cp]")
+    n, c, hi, wi = x.shape
+    f, cp = w2.shape
+    k2 = kernel_size[0] * kernel_size[1]
+    if groups < 1 or f % (groups * k2) or c % groups:
+        raise ValueError(f"F {f} and C {c} must divide into {groups} groups "
+                         f"of Cw*{k2} and C/groups channels")
+    cwg = f // (groups * k2)
+    if (c // groups) % cwg:
+        raise ValueError(f"x channels per group {c // groups} not divisible "
+                         f"by weight channels {cwg}")
+    expect = (n, groups * cp,
+              out_size(hi, kernel_size[0], 1, padding[0], dilation[0]),
+              out_size(wi, kernel_size[1], 1, padding[1], dilation[1]))
+    if tuple(w_pre.shape) != expect:
+        raise ValueError(f"w_pre shape {tuple(w_pre.shape)} != {expect}")
+    if any(tuple(v.shape) != (f,) for v in (b2, gamma, beta)):
+        raise ValueError(f"b2/gamma/beta must have shape ({f},)")
+    on_cuda = x.device.type == "cuda"
+    if impl == "hopper" and not on_cuda:
+        raise ValueError("impl='hopper' launches the CUDA kernels: x must "
+                         "be a CUDA tensor")
+    args = (x, w_pre, w2.to(x.dtype), b2.float(), gamma.float(), beta.float())
+    geometry = dict(kernel_size=kernel_size, dilation=dilation,
+                    padding=padding, eps=eps, groups=groups)
+    if impl != "torch" and on_cuda:
+        return local_aggregate_embed_gn_hopper(
+            *(t.contiguous() for t in args), **geometry)
+    return local_aggregate_embed_gn_plain(*args, **geometry)

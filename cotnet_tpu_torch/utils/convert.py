@@ -1,7 +1,8 @@
 """JAX (flax) variables -> the port's state_dict.
 
 The inverse of ``cotnet_tpu.utils.convert.convert_torch_state_dict``
-(``cotnet_tpu/utils/convert.py:475-605``) for the names cotnet50 uses, so
+(``cotnet_tpu/utils/convert.py:475-605``) for the names the CoT family
+uses, so
 weights made by the JAX package load into the port, and the port's
 state_dict is the reference's torch layout:
 
@@ -15,7 +16,8 @@ state_dict is the reference's torch layout:
   the reference's Sequential indices;
 - the attention-embed producer (``embed_conv2`` and ``embed_gn``) has its
   output channels permuted from the JAX package's k-major order
-  (k*Cw + cw) back to the reference's cw-major order (cw*K^2 + k).
+  (k*Cw + cw) back to the reference's cw-major order (cw*K^2 + k), within
+  each of the layer's ``dw_group`` channel groups (2 for CoTNeXt).
 """
 
 from __future__ import annotations
@@ -36,11 +38,14 @@ _SE_DENSE = ("se_fc1", "se_fc2")
 _EMBED_PRODUCER = ("embed_conv2", "embed_gn")
 
 
-def _kmajor_perm(n: int, k2: int) -> np.ndarray:
-    """cw-major -> k-major channel permutation: k-major channel i holds
-    cw-major channel perm[i] (torch channel cw*k2 + k, ours k*cw + cw)."""
-    cw = n // k2
-    return np.asarray([c * k2 + k for k in range(k2) for c in range(cw)])
+def _kmajor_perm(n: int, k2: int, groups: int = 1) -> np.ndarray:
+    """cw-major -> k-major channel permutation, per group: k-major channel i
+    holds cw-major channel perm[i] (within a group, torch channel
+    cw*k2 + k, the JAX package's k*cw_g + cw)."""
+    per = n // groups
+    cw_g = per // k2
+    return np.asarray([g * per + c * k2 + k for g in range(groups)
+                       for k in range(k2) for c in range(cw_g)])
 
 
 def _module_path(parts) -> str:
@@ -65,10 +70,12 @@ def _module_path(parts) -> str:
 
 
 def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
-                            kernel_size: int = 3) -> Dict[str, torch.Tensor]:
+                            kernel_size: int = 3,
+                            dw_group: int = 1) -> Dict[str, torch.Tensor]:
     """``{"params/.../kernel": array, "batch_stats/.../mean": array, ...}``
     (the JAX ``{params, batch_stats}`` flattened to '/'-joined keys) -> the
-    port's state_dict of float32 tensors."""
+    port's state_dict of float32 tensors.  ``dw_group`` is 2 for the
+    CoTNeXt models (CoXtLayer), else 1."""
     k2 = kernel_size * kernel_size
     sd = {}
     for key, val in flat.items():
@@ -97,7 +104,7 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
         else:
             raise KeyError(f"unknown leaf in {key!r}")
         if owner in _EMBED_PRODUCER:
-            val = val[np.argsort(_kmajor_perm(val.shape[0], k2))]
+            val = val[np.argsort(_kmajor_perm(val.shape[0], k2, dw_group))]
         sd[f"{mod}.{name}"] = val
     # own, writable memory: arrays that come from JAX are read-only
     return {k: torch.from_numpy(np.require(v, requirements="CW"))

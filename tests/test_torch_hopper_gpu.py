@@ -1,0 +1,213 @@
+"""The Hopper kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  The file imports
+only ``torch``, numpy and the port, so it collects on a machine that has no
+JAX::
+
+    python -m pytest --noconftest tests/test_torch_hopper_gpu.py
+
+It also holds the seeded numpy inputs (in the JAX package's layouts) and their
+permutation into the port's, which the CPU parity tests share.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from cotnet_tpu_torch.ops import local_agg as la  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+def make_inputs(seed, n=2, c=8, cw=4, hi=9, wi=8, heads=1, k=3, stride=1,
+                dil=1, affine=False):
+    """numpy NHWC / k-major inputs of the JAX package's layout."""
+    pad = (dil * (k - 1) + 1) // 2
+    ho = la.out_size(hi, k, stride, pad, dil)
+    wo = la.out_size(wi, k, stride, pad, dil)
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, hi, wi, c).astype(np.float32)
+    w = rng.randn(n, ho, wo, heads, k * k, cw).astype(np.float32)
+    s = b = None
+    if affine:
+        s = (1.0 + 0.5 * rng.randn(n, heads, k * k, cw)).astype(np.float32)
+        b = (0.5 * rng.randn(n, heads, k * k, cw)).astype(np.float32)
+    return x, w, s, b, pad
+
+
+def to_port(x, w, s=None, b=None):
+    """NHWC / k-major numpy -> NCHW / cw-major torch tensors."""
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(0, 3, 5, 4, 1, 2)))
+    if s is None:
+        return xt, wt, None, None
+    st, bt = (torch.from_numpy(np.ascontiguousarray(a.transpose(0, 1, 3, 2)))
+              for a in (s, b))
+    return xt, wt, st, bt
+
+
+def to_nhwc(y):
+    return y.detach().numpy().transpose(0, 2, 3, 1)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Hopper kernel has no CPU form)")
+
+
+def test_hopper_grad_goes_through_the_kernels():
+    """A CUDA gradient is computed by the two backward kernels, one launch
+    each, and by no plain version."""
+    _need_cuda()
+    x, w, _, _, pad = make_inputs(0)
+    xt, wt = (t.cuda().requires_grad_() for t in to_port(x, w)[:2])
+    la.reset_counts()
+    la.local_aggregate(xt, wt, padding=pad).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (la.LAUNCHES, la.BWD_LAUNCHES) == (1, {"dx": 1, "dw": 1})
+    assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
+    assert xt.grad.shape == xt.shape and wt.grad.shape == wt.shape
+    key = la.launch_key(xt, wt, False, (1, 1), (pad, pad))
+    assert la.BWD_LAUNCHES_BY_SHAPE == {("dx", key): 1, ("dw", key): 1}
+
+
+@pytest.mark.parametrize("impl", ["auto", "hopper"])
+def test_cuda_strided_call_is_refused(impl):
+    """The kernel computes stride 1 only; a strided CUDA call raises rather
+    than run the plain version on the card."""
+    _need_cuda()
+    x, w, _, _, pad = make_inputs(0, stride=2)
+    xt, wt = (t.cuda() for t in to_port(x, w)[:2])
+    plain = la.PLAIN_CALLS
+    with pytest.raises(NotImplementedError, match="stride 1"):
+        la.local_aggregate(xt, wt, stride=2, padding=pad, impl=impl)
+    assert la.PLAIN_CALLS == plain
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hopper_matches_plain_on_card(dtype):
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    x, w, s, b, pad = make_inputs(5, n=4, c=32, cw=8, hi=13, wi=11, heads=2,
+                                  k=5, dil=2, affine=True)
+    xt, wt, st, bt = (t.cuda() for t in to_port(x, w, s, b))
+    xt, wt = xt.to(dt), wt.to(dt)
+    launches = la.LAUNCHES
+    got = la.local_aggregate(xt, wt, kernel_size=5, padding=pad, dilation=2,
+                             w_scale=st, w_bias=bt)
+    torch.cuda.synchronize()
+    assert la.LAUNCHES == launches + 1
+    ref = la.local_aggregate(xt, wt, kernel_size=5, padding=pad, dilation=2,
+                             impl="torch", w_scale=st, w_bias=bt)
+    if dt == torch.float32:
+        rtol, atol = 1e-5, 1e-5          # summation order only
+    else:
+        # same bf16 inputs, f32 sums, one rounding: within 1 bf16 ulp
+        rtol, atol = 8e-3, 1e-3 * float(ref.float().abs().max())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("need", ["both", "dx", "dw"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hopper_bwd_matches_plain_on_card(dtype, need):
+    """Both backward kernels against the plain backward on the card, and a
+    call that needs one gradient launches that kernel alone."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    x, w, _, _, pad = make_inputs(5, n=4, c=32, cw=8, hi=13, wi=11, heads=2,
+                                  k=5, dil=2)
+    xt, wt = (t.cuda().to(dt) for t in to_port(x, w)[:2])
+    dy = torch.randn(4, 64, 13, 11, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0)).to(dt)
+    need_dx, need_dw = need in ("both", "dx"), need in ("both", "dw")
+    la.reset_counts()
+    got = la.local_aggregate_bwd_hopper(
+        xt, wt, dy, kernel_size=(5, 5), dilation=(2, 2), padding=(pad, pad),
+        need_dx=need_dx, need_dw=need_dw)
+    torch.cuda.synchronize()
+    assert la.BWD_LAUNCHES == {"dx": int(need_dx), "dw": int(need_dw)}
+    xp = torch.nn.functional.pad(xt, (pad,) * 4)
+    dxp, dw = la.local_aggregate_bwd_plain(xp, wt, dy, (5, 5), (2, 2))
+    ref = (dxp[..., pad:pad + 13, pad:pad + 11], dw)
+    for g, r, wanted in zip(got, ref, (need_dx, need_dw)):
+        if not wanted:
+            assert g is None
+            continue
+        if dt == torch.float32:
+            rtol, atol = 1e-5, 1e-5      # summation order only
+        else:
+            # same bf16 inputs, f32 sums, one rounding: within 1 bf16 ulp
+            rtol, atol = 8e-3, 1e-3 * float(r.float().abs().max())
+        torch.testing.assert_close(g.float(), r.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hopper_affine_bwd_matches_plain_on_card(dtype):
+    """The two affine backward kernels against the plain affine backward,
+    through autograd, with one launch of each and no plain call."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    x, w, s, b, pad = make_inputs(5, n=4, c=32, cw=8, hi=13, wi=11, heads=2,
+                                  k=5, dil=2, affine=True)
+    xt, wt, st, bt = (t.cuda() for t in to_port(x, w, s, b))
+    xt, wt = xt.to(dt), wt.to(dt)
+    dy = torch.randn(4, 64, 13, 11, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0)).to(dt)
+    grads = {}
+    for impl in ("hopper", "torch"):
+        leaves = [t.clone().requires_grad_() for t in (xt, wt, st, bt)]
+        la.reset_counts()
+        out = la.local_aggregate(leaves[0], leaves[1], kernel_size=5,
+                                 padding=pad, dilation=2, impl=impl,
+                                 w_scale=leaves[2], w_bias=leaves[3])
+        grads[impl] = torch.autograd.grad(out, leaves, dy)
+        torch.cuda.synchronize()
+        if impl == "hopper":
+            assert la.AFFINE_BWD_LAUNCHES == {"dx": 1, "dw": 1}
+            assert la.PLAIN_BWD_CALLS == 0
+    for i, (g, r) in enumerate(zip(*grads.values())):
+        if i >= 2:
+            # ds, db: f32 sums in another order, held as a whole
+            assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+        elif dt == torch.float32:
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+        else:
+            # same bf16 inputs, f32 sums, one rounding: within 1 bf16 ulp
+            torch.testing.assert_close(
+                g.float(), r.float(), rtol=8e-3,
+                atol=1e-3 * float(r.float().abs().max()))
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hopper_embed_gn_matches_plain_on_card(dtype, groups):
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator("cuda").manual_seed(1)
+    n, c, cp, h, w = 3, 96, 48, 13, 11
+    f = 9 * c // 8
+    x = torch.randn(n, c, h, w, device="cuda", generator=gen).to(dt)
+    w_pre = torch.randn(n, cp, h, w, device="cuda", generator=gen).to(dt)
+    w2 = 0.1 * torch.randn(f, cp // groups, device="cuda", generator=gen)
+    vecs = [0.2 * torch.randn(f, device="cuda", generator=gen)
+            for _ in range(3)]
+    vecs[1] += 1.0
+    la.reset_counts()
+    with torch.no_grad():
+        got = la.local_aggregate_embed_gn(x, w_pre, w2, *vecs, groups=groups)
+        torch.cuda.synchronize()
+        assert (la.EMBED_GN_LAUNCHES, la.PLAIN_EMBED_GN_CALLS) == (1, 0)
+        ref = la.local_aggregate_embed_gn(x, w_pre, w2, *vecs, groups=groups,
+                                          impl="torch")
+    scale = float(ref.float().abs().max())
+    if dt == torch.float32:
+        rtol, atol = 1e-5, 1e-5 * scale      # summation order only
+    else:
+        # the output's rounding, and a w_raw at a rounding boundary
+        rtol, atol = 8e-3, 4e-3 * scale
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)

@@ -4,8 +4,8 @@ The port (``cotnet_tpu_torch.ops.local_agg``) works on NCHW activations and
 the cw-major weight ``[N, heads, Cw, K*K, Ho, Wo]``; the JAX package on NHWC
 and the k-major weight ``[N, Ho, Wo, heads, K*K, Cw]``.  The same seeded
 numpy inputs go to both, permuted, in f32, forward and gradients.  On the
-CPU the port runs its plain versions; the Hopper kernels' own tests need a
-CUDA device and skip here.
+CPU the port runs its plain versions; the Hopper kernels' own tests are in
+``test_torch_hopper_gpu.py``.
 """
 
 import contextlib
@@ -22,37 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 import cotnet_tpu.ops.local_agg_pallas as lap  # noqa: E402
 from cotnet_tpu.ops.local_agg import local_aggregate as jax_aggregate  # noqa: E402
 from cotnet_tpu_torch.ops import local_agg as la  # noqa: E402
-
-
-def make_inputs(seed, n=2, c=8, cw=4, hi=9, wi=8, heads=1, k=3, stride=1,
-                dil=1, affine=False):
-    """numpy NHWC / k-major inputs of the JAX package's layout."""
-    pad = (dil * (k - 1) + 1) // 2
-    ho = la.out_size(hi, k, stride, pad, dil)
-    wo = la.out_size(wi, k, stride, pad, dil)
-    rng = np.random.RandomState(seed)
-    x = rng.randn(n, hi, wi, c).astype(np.float32)
-    w = rng.randn(n, ho, wo, heads, k * k, cw).astype(np.float32)
-    s = b = None
-    if affine:
-        s = (1.0 + 0.5 * rng.randn(n, heads, k * k, cw)).astype(np.float32)
-        b = (0.5 * rng.randn(n, heads, k * k, cw)).astype(np.float32)
-    return x, w, s, b, pad
-
-
-def to_port(x, w, s=None, b=None):
-    """NHWC / k-major numpy -> NCHW / cw-major torch tensors."""
-    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
-    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(0, 3, 5, 4, 1, 2)))
-    if s is None:
-        return xt, wt, None, None
-    st, bt = (torch.from_numpy(np.ascontiguousarray(a.transpose(0, 1, 3, 2)))
-              for a in (s, b))
-    return xt, wt, st, bt
-
-
-def to_nhwc(y):
-    return y.detach().numpy().transpose(0, 2, 3, 1)
+from test_torch_hopper_gpu import make_inputs, to_nhwc, to_port  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("affine", [False, True])
@@ -188,103 +158,6 @@ def test_reset_counts_and_launch_key():
     assert la.launch_key(xt, wt, True, (1, 1), (pad, pad)) == (
         "float32", True, (2, 8, 9, 8), (2, 1, 4, 9, 9, 8), (1, 1),
         (pad, pad))
-
-
-def _need_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Hopper kernel has no CPU form)")
-
-
-@pytest.mark.gpu
-def test_hopper_grad_goes_through_the_kernels():
-    """A CUDA gradient is computed by the two backward kernels, one launch
-    each, and by no plain version."""
-    _need_cuda()
-    x, w, _, _, pad = make_inputs(0)
-    xt, wt = (t.cuda().requires_grad_() for t in to_port(x, w)[:2])
-    la.reset_counts()
-    la.local_aggregate(xt, wt, padding=pad).square().sum().backward()
-    torch.cuda.synchronize()
-    assert (la.LAUNCHES, la.BWD_LAUNCHES) == (1, {"dx": 1, "dw": 1})
-    assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
-    assert xt.grad.shape == xt.shape and wt.grad.shape == wt.shape
-    key = la.launch_key(xt, wt, False, (1, 1), (pad, pad))
-    assert la.BWD_LAUNCHES_BY_SHAPE == {("dx", key): 1, ("dw", key): 1}
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("impl", ["auto", "hopper"])
-def test_cuda_strided_call_is_refused(impl):
-    """The kernel computes stride 1 only; a strided CUDA call raises rather
-    than run the plain version on the card."""
-    _need_cuda()
-    x, w, _, _, pad = make_inputs(0, stride=2)
-    xt, wt = (t.cuda() for t in to_port(x, w)[:2])
-    plain = la.PLAIN_CALLS
-    with pytest.raises(NotImplementedError, match="stride 1"):
-        la.local_aggregate(xt, wt, stride=2, padding=pad, impl=impl)
-    assert la.PLAIN_CALLS == plain
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_hopper_matches_plain_on_card(dtype):
-    _need_cuda()
-    dt = getattr(torch, dtype)
-    x, w, s, b, pad = make_inputs(5, n=4, c=32, cw=8, hi=13, wi=11, heads=2,
-                                  k=5, dil=2, affine=True)
-    xt, wt, st, bt = (t.cuda() for t in to_port(x, w, s, b))
-    xt, wt = xt.to(dt), wt.to(dt)
-    launches = la.LAUNCHES
-    got = la.local_aggregate(xt, wt, kernel_size=5, padding=pad, dilation=2,
-                             w_scale=st, w_bias=bt)
-    torch.cuda.synchronize()
-    assert la.LAUNCHES == launches + 1
-    ref = la.local_aggregate(xt, wt, kernel_size=5, padding=pad, dilation=2,
-                             impl="torch", w_scale=st, w_bias=bt)
-    if dt == torch.float32:
-        rtol, atol = 1e-5, 1e-5          # summation order only
-    else:
-        # same bf16 inputs, f32 sums, one rounding: within 1 bf16 ulp
-        rtol, atol = 8e-3, 1e-3 * float(ref.float().abs().max())
-    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
-                               atol=atol)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("need", ["both", "dx", "dw"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_hopper_bwd_matches_plain_on_card(dtype, need):
-    """Both backward kernels against the plain backward on the card, and a
-    call that needs one gradient launches that kernel alone."""
-    _need_cuda()
-    dt = getattr(torch, dtype)
-    x, w, _, _, pad = make_inputs(5, n=4, c=32, cw=8, hi=13, wi=11, heads=2,
-                                  k=5, dil=2)
-    xt, wt = (t.cuda().to(dt) for t in to_port(x, w)[:2])
-    dy = torch.randn(4, 64, 13, 11, device="cuda",
-                     generator=torch.Generator("cuda").manual_seed(0)).to(dt)
-    need_dx, need_dw = need in ("both", "dx"), need in ("both", "dw")
-    la.reset_counts()
-    got = la.local_aggregate_bwd_hopper(
-        xt, wt, dy, kernel_size=(5, 5), dilation=(2, 2), padding=(pad, pad),
-        need_dx=need_dx, need_dw=need_dw)
-    torch.cuda.synchronize()
-    assert la.BWD_LAUNCHES == {"dx": int(need_dx), "dw": int(need_dw)}
-    xp = torch.nn.functional.pad(xt, (pad,) * 4)
-    dxp, dw = la.local_aggregate_bwd_plain(xp, wt, dy, (5, 5), (2, 2))
-    ref = (dxp[..., pad:pad + 13, pad:pad + 11], dw)
-    for g, r, wanted in zip(got, ref, (need_dx, need_dw)):
-        if not wanted:
-            assert g is None
-            continue
-        if dt == torch.float32:
-            rtol, atol = 1e-5, 1e-5      # summation order only
-        else:
-            # same bf16 inputs, f32 sums, one rounding: within 1 bf16 ulp
-            rtol, atol = 8e-3, 1e-3 * float(r.float().abs().max())
-        torch.testing.assert_close(g.float(), r.float(), rtol=rtol,
-                                   atol=atol)
 
 
 # ---- gradients on the CPU: the plain backward against the JAX package ------
@@ -476,20 +349,36 @@ def test_backward_computes_only_what_is_needed(need):
 
 @pytest.mark.parametrize("which", ["x", "w", "w_scale", "w_bias"])
 def test_affine_with_grad_is_refused(which):
-    """The GroupNorm fold has no backward yet: a call that would record a
-    gradient raises instead of returning a wrong one; under ``no_grad`` it
-    computes."""
+    """The name dates from when such a call raised; it is kept so that the
+    four cases stay the cases they were, and now they assert the opposite.
+    No call with the GroupNorm fold is refused any more: one that records
+    a gradient in any one of its four tensors computes, under either impl,
+    and its backward hands that tensor the gradient the all-four call gives
+    it and leaves the others alone; under ``no_grad`` it computes too."""
     x, w, s, b, pad = make_inputs(0, affine=True)
-    tensors = dict(zip(("x", "w", "w_scale", "w_bias"), to_port(x, w, s, b)))
-    tensors[which].requires_grad_()
-    args = (tensors["x"], tensors["w"])
-    kwargs = dict(padding=pad, w_scale=tensors["w_scale"],
-                  w_bias=tensors["w_bias"])
+    names = ("x", "w", "w_scale", "w_bias")
+    r = torch.from_numpy(_seeded_cotangent((2, 8, 9, 8)))
+
+    def grads(needing, impl):
+        tensors = dict(zip(names, to_port(x, w, s, b)))
+        for name in needing:
+            tensors[name].requires_grad_()
+        out = la.local_aggregate(
+            tensors["x"], tensors["w"], padding=pad, impl=impl,
+            w_scale=tensors["w_scale"], w_bias=tensors["w_bias"])
+        (out * r).sum().backward()
+        return {name: t.grad for name, t in tensors.items()}
+
+    want = grads(names, "torch")
     for impl in ("auto", "torch"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            la.local_aggregate(*args, impl=impl, **kwargs)
+        got = grads([which], impl)
+        assert [name for name in names if got[name] is not None] == [which]
+        np.testing.assert_array_equal(got[which].numpy(),
+                                      want[which].numpy())
     with torch.no_grad():
-        assert la.local_aggregate(*args, **kwargs).shape == (2, 8, 9, 8)
+        args = to_port(x, w, s, b)
+        assert la.local_aggregate(*args[:2], padding=pad, w_scale=args[2],
+                                  w_bias=args[3]).shape == (2, 8, 9, 8)
 
 
 def test_reset_counts_zeroes_the_backward_counts():
@@ -501,3 +390,4 @@ def test_reset_counts_zeroes_the_backward_counts():
     la.reset_counts()
     assert (la.PLAIN_BWD_CALLS, la.BWD_LAUNCHES,
             la.BWD_LAUNCHES_BY_SHAPE) == (0, {"dx": 0, "dw": 0}, {})
+    assert la.AFFINE_BWD_LAUNCHES == {"dx": 0, "dw": 0}
