@@ -38,18 +38,39 @@ printing the last line:
    and one step under torch.profiler: path A, the folded train step, and
    path B, the fused-embed eval, for both models; for cotnext50_2x48d its
    default eval and train steps as well.
-5. Kernels: each Hopper kernel against its plain PyTorch version on the
+5. SE-CoTNetD: se_cotnetd_152 with seeded random weights, calibrated
+   as in phase 2.  In f32 at bs4 and 256x256 with TF32 off: logits
+   through the kernels against the plain path, 21 forward launches and no
+   plain call; every dx and dw launch of one backward held against the
+   plain backward on the model's own tensors; five steps that lower the
+   loss.  Then its bf16 main paths: the eval step at 256x256 bs128 and the
+   train step at 256x256 bs64 under its recipe
+   (``cot_experiments/SE-CoTNetD-152_350epoch/config.yaml``: drop 0.25,
+   drop path 0.15, LR 0.2, the rest as CoTNet-50's), each with images/s,
+   peak memory, launches by kernel and input shape (21 a step, at the
+   pre-pool 32x32 and 16x16 maps too), no plain call and a profile.
+6. The op entry points: the mix op's main path, one autograd call of
+   ``local_aggregate_mix`` (and of ``_merge`` with the packed weight) at
+   cotnet50's four geometries in bf16 at bs128, each one launch of each
+   mix kernel and no plain call; ``local_aggregate_dilated`` with
+   dilations 1 and 2 in f32, forward and gradients against the plain
+   path, one forward, dx and dw launch per distinct dilation.
+7. Kernels: each Hopper kernel against its plain PyTorch version on the
    card.  The forward at the four aggregation geometries of cotnet50
-   (N=128) and the four per-group ones of cotnext50_2x48d (N=256), bf16,
-   with and without the GroupNorm affine, general f32 cases (heads=2, K=5
-   and 7, dilation 2, odd H != W) and a reflect-padded case; the backward
-   kernels (dx, dw, and with the affine dx and dw+ds+db) at the same
-   geometries, the reflect case through autograd as well; the fused embed
-   kernels at the eight model geometries and at general f32 cases (K=5
-   with dilation 2 and K=7, non-square maps, two groups).  CUDA-event
-   times of kernel and plain version beside the bound (data-sheet rates)
-   and the byte bound at the device copy rate measured first; each case's
-   launches in the main paths' runs (0 for a shape no main path launches).
+   (N=128), the four per-group ones of cotnext50_2x48d (N=256) and those
+   of se_cotnetd_152 (N=128 and 64), bf16, with and without the GroupNorm
+   affine, general f32 cases (heads=2, K=5 and 7, dilation 2, odd H != W)
+   and a reflect-padded case; the backward kernels (dx, dw, and with the
+   affine dx and dw+ds+db) at the same geometries, the reflect case
+   through autograd as well; the fused embed kernels at the eight
+   geometries of the two models with a fused-embed path and at general f32
+   cases (K=5 with dilation 2 and K=7, non-square maps, two groups); the
+   three mix kernels (forward, dx, dw) at cotnet50's four geometries in
+   bf16 and at a general f32 case (heads 2, 13x11, Cw dividing C four
+   times), the weights separate and packed.  CUDA-event times of kernel
+   and plain version beside the bound (data-sheet rates) and the byte
+   bound at the device copy rate measured first; each case's launches in
+   the main paths' runs (0 for a shape no main path launches).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -73,17 +94,29 @@ F32_FLOPS_PER_S = 67e12
 MATMUL_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
                       torch.float32: 67e12}
 L2_FLUSH_BYTES = 256 << 20
-BATCH, IMAGE = 128, 224
+# the main paths' batch; the train step of se_cotnetd_152 takes its
+# recipe's per-process batch instead (TRAIN_BATCH)
+BATCH = 128
+# the image size of cotnet50 and cotnext50_2x48d
+IMAGE = 224
 # (C, map size, CoT layers at that size): the launches per forward the
 # main path must make at each shape
 COTNET50_GEOMETRIES = ((64, 56, 3), (128, 28, 4), (256, 14, 6), (512, 7, 3))
-# model -> (channel groups of its CoT layers, geometries per group): the
-# groups of a CoXtLayer run as images of a batch BATCH * groups
+# se_cotnetd_152 at 256 px: stage 3's even blocks (the first before its
+# BlurPool, at 32x32) and all of stage 4 (the first at 16x16)
+SE_COTNETD_152_GEOMETRIES = ((256, 32, 1), (256, 16, 17), (512, 16, 1),
+                             (512, 8, 2))
+# model -> (channel groups of its CoT layers, geometries per group, image
+# size): the groups of a CoXtLayer run as images of a batch BATCH * groups
 MODELS = {
-    "cotnet50": (1, COTNET50_GEOMETRIES),
+    "cotnet50": (1, COTNET50_GEOMETRIES, 224),
     "cotnext50_2x48d": (2, ((48, 56, 3), (96, 28, 4), (192, 14, 6),
-                            (384, 7, 3))),
+                            (384, 7, 3)), 224),
+    "se_cotnetd_152": (1, SE_COTNETD_152_GEOMETRIES, 256),
 }
+# the models whose main paths include path B (the fused-embed eval)
+FUSED_MODELS = ("cotnet50", "cotnext50_2x48d")
+TRAIN_BATCH = {"se_cotnetd_152": 64}
 REPLACES = ("cotnet_tpu/ops/local_agg_pallas.py:447 _fwd_kernel, "
             ":451 _fwd_kernel_affine, :952 _fwd_chwn_kernel, "
             ":1066 _fwd_chwn_strip_kernel")
@@ -108,15 +141,29 @@ RECIPE = {
                    epochs=350, warmup_epochs=5, decay_rate=0.1),
     "ema_decay": 0.9999,
 }
+# the recipe of cot_experiments/SE-CoTNetD-152_350epoch/config.yaml: drop
+# path 0.15 and LR 0.2, the rest as CoTNet-50's
+RECIPES = {
+    "cotnet50": RECIPE,
+    "cotnext50_2x48d": RECIPE,
+    "se_cotnetd_152": dict(
+        RECIPE, model=dict(drop_rate=0.25, drop_path_rate=0.15),
+        solver=dict(RECIPE["solver"], lr=0.2)),
+}
+REPLACES_MIX = {
+    "fwd": "cotnet_tpu/ops/local_agg_pallas.py:2217 _mix_fwd_kernel",
+    "dx": "cotnet_tpu/ops/local_agg_pallas.py:2233 _mix_dx_kernel",
+    "dw": "cotnet_tpu/ops/local_agg_pallas.py:2248 _mix_dw_kernel",
+}
 REPLACES_AFFINE_BWD = {
     "dx": "cotnet_tpu/ops/local_agg_pallas.py:512 _dx_kernel_affine",
     "dw": "cotnet_tpu/ops/local_agg_pallas.py:697 _dw_kernel_affine",
 }
 REPLACES_EMBED_GN = "cotnet_tpu/ops/local_agg_pallas.py:1985 _fused_embed_kernel"
 IMAGENET_TRAIN_IMAGES = 1281167
-# the kernels a main path of each kind must launch 16 times a step
-# (cotnet50 and cotnext50_2x48d have 16 CoT layers); every other count,
-# the plain versions' included, must be 0
+# the kernels a main path of each kind must launch once per CoT layer a
+# step (16 in cotnet50 and cotnext50_2x48d, 21 in se_cotnetd_152); every
+# other count, the plain versions' and the mix kernels' included, must be 0
 PATH_KERNELS = {
     "eval": ("fwd_affine",),
     "eval_fused": ("embed_gn",),
@@ -204,11 +251,15 @@ def check_close(what, got, ref, dtype) -> tuple:
 
 def kernel_cases() -> list:
     cases = []
-    for groups, geometries in MODELS.values():
-        for c, hw, _ in geometries:
-            cases.append(dict(n=BATCH * groups, c=c, h=hw, w=hw, heads=1,
-                              cw=c // 8, k=3, dil=1, pad_mode="zeros",
-                              dtype=torch.bfloat16))
+    for name, (groups, geometries, _) in MODELS.items():
+        for batch in sorted({BATCH, TRAIN_BATCH.get(name, BATCH)},
+                            reverse=True):
+            for c, hw, _ in geometries:
+                case = dict(n=batch * groups, c=c, h=hw, w=hw, heads=1,
+                            cw=c // 8, k=3, dil=1, pad_mode="zeros",
+                            dtype=torch.bfloat16)
+                if case not in cases:
+                    cases.append(case)
     for k in (5, 7):
         cases.append(dict(n=4, c=32, h=13, w=11, heads=2, cw=8, k=k, dil=2,
                           pad_mode="zeros", dtype=torch.float32))
@@ -246,22 +297,25 @@ def launch_snapshot(la) -> dict:
         by_key[(kernel + ("_affine" if key[1] else ""), key)] = count
     for key, count in la.EMBED_GN_LAUNCHES_BY_SHAPE.items():
         by_key[("embed_gn", key)] = count
+    for (kernel, key), count in la.MIX_LAUNCHES_BY_SHAPE.items():
+        by_key[("mix_" + kernel, key)] = count
 
     def total(*kernels):
         return sum(c for (k, _), c in by_key.items() if k in kernels)
 
     # the totals and the counts by shape are kept apart in the wrappers
     if (la.LAUNCHES, la.BWD_LAUNCHES, la.AFFINE_BWD_LAUNCHES,
-            la.EMBED_GN_LAUNCHES) != (
+            la.EMBED_GN_LAUNCHES, la.MIX_LAUNCHES) != (
             total("fwd", "fwd_affine"),
             {"dx": total("dx"), "dw": total("dw")},
             {"dx": total("dx_affine"), "dw": total("dw_affine")},
-            total("embed_gn")):
+            total("embed_gn"),
+            {k: total("mix_" + k) for k in ("fwd", "dx", "dw")}):
         raise AssertionError("launch totals disagree with the counts by "
                              "shape")
     return {"by_key": by_key,
             "plain": (la.PLAIN_CALLS + la.PLAIN_BWD_CALLS
-                      + la.PLAIN_EMBED_GN_CALLS)}
+                      + la.PLAIN_EMBED_GN_CALLS + la.PLAIN_MIX_CALLS)}
 
 
 class PathCounts:
@@ -288,11 +342,12 @@ class PathCounts:
 
 
 def check_path_launches(snapshot: dict, kind: str, model_name: str,
-                        steps: int):
+                        steps: int, batch: int = BATCH):
     """Raise unless a main path's run launched exactly the kernels of its
-    kind, each once per CoT layer and step at the model's bf16 geometries,
-    and called no plain version."""
-    groups, geometries = MODELS[model_name]
+    kind, each once per CoT layer and step at the model's bf16 geometries
+    at ``batch``, no other kernel of the op (the mix kernels included), and
+    called no plain version."""
+    groups, geometries, _ = MODELS[model_name]
     want = {(c, hw): per_step * steps for c, hw, per_step in geometries}
     kernels = {kernel for kernel, _ in snapshot["by_key"]}
     for kernel in kernels | set(PATH_KERNELS[kind]):
@@ -300,12 +355,15 @@ def check_path_launches(snapshot: dict, kind: str, model_name: str,
         for (kern, key), count in snapshot["by_key"].items():
             if kern != kernel:
                 continue
+            if kernel not in PATH_KERNELS[kind]:
+                raise AssertionError(f"{model_name} {kind}: {kernel} "
+                                     f"launched {count} times at {key}")
             if kernel == "embed_gn":
                 dtype, (n, c, h, w), _, key_groups, *_ = key
                 n, c = n * key_groups, c // key_groups
             else:
                 dtype, _, (n, c, h, w), *_ = key
-            if not (dtype == "bfloat16" and n == BATCH * groups and h == w):
+            if not (dtype == "bfloat16" and n == batch * groups and h == w):
                 raise AssertionError(f"{model_name} {kind}: {kernel} "
                                      f"launched at {key}")
             got[(c, h)] = got.get((c, h), 0) + count
@@ -597,7 +655,8 @@ def embed_gn_cases() -> list:
     """x ``[n, c, h, w]``, w_pre ``[n, cp, h, w]`` as the models call the
     fused op (cp = c/2, Cw = c/8 over all groups), then general f32 cases."""
     cases = []
-    for groups, geometries in MODELS.values():
+    for name in FUSED_MODELS:
+        groups, geometries, _ = MODELS[name]
         for c, hw, _ in geometries:
             cases.append(dict(n=BATCH, c=c * groups, cp=c * groups // 2,
                               h=hw, w=hw, k=3, dil=1, groups=groups,
@@ -742,26 +801,25 @@ class tf32_off:
          torch.backends.cuda.matmul.allow_tf32) = self.old
 
 
-def images_f32():
-    """16 f32 images, each with its own contrast and brightness: with images
+def images_f32(n: int = 16, size: int = IMAGE):
+    """n f32 images, each with its own contrast and brightness: with images
     of one distribution the pooled vector that feeds each CotLayer's se BN
     is nearly the same for all samples, its one-pass variance cancels, and
     f32 rounding alone moves the train-mode gradients by 1e-4 relative."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.randn(16, 3, IMAGE, IMAGE, generator=gen, device="cuda")
-    return x * torch.linspace(0.3, 2.0, 16, device="cuda")[:, None, None, None] \
-        + torch.linspace(-1, 1, 16, device="cuda")[:, None, None, None]
+    x = torch.randn(n, 3, size, size, generator=gen, device="cuda")
+    return x * torch.linspace(0.3, 2.0, n, device="cuda")[:, None, None, None] \
+        + torch.linspace(-1, 1, n, device="cuda")[:, None, None, None]
 
 
-def bs128_batch() -> dict:
-    """The main paths' batch: bf16 images, labels, and 8 invalid samples."""
+def make_batch(n: int = BATCH, size: int = IMAGE) -> dict:
+    """A main path's batch: bf16 images, labels, and 8 invalid samples."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     return {
-        "image": torch.randn(BATCH, 3, IMAGE, IMAGE, generator=gen,
+        "image": torch.randn(n, 3, size, size, generator=gen,
                              device="cuda").to(torch.bfloat16),
-        "label": torch.randint(0, 1000, (BATCH,), generator=gen,
-                               device="cuda"),
-        "valid": (torch.arange(BATCH, device="cuda") < BATCH - 8).float(),
+        "label": torch.randint(0, 1000, (n,), generator=gen, device="cuda"),
+        "valid": (torch.arange(n, device="cuda") < n - 8).float(),
     }
 
 
@@ -822,7 +880,7 @@ def model_phase(la, paths: PathCounts) -> dict:
         f"|diff| {d_max:.4g}, mean |diff| {d_mean:.4g} of max|logit| "
         f"{scale:.3g} (limit 0.2 on the max)")
     eval_step = make_eval_step(model16)
-    batch = bs128_batch()
+    batch = make_batch()
     warmup, timed = 2, 10
     steps = warmup + timed
     la.reset_counts()
@@ -942,7 +1000,8 @@ def gradient_parity(la, model, plain, x):
         f"tensors: worst max|err| {strict:.3g} of max|ref| (limit 1e-5)")
 
 
-def backward_launches_match_plain(la, model, x, labels) -> float:
+def backward_launches_match_plain(la, model, x, labels,
+                                  layers: int = 16) -> float:
     """One more f32 loss and backward through the kernels, with every
     backward launch held, on the model's own x, w and dy, against the plain
     backward: ``max|err| <= 1e-5 * max|ref|`` for dx and for dw (f32 sums of
@@ -977,7 +1036,7 @@ def backward_launches_match_plain(la, model, x, labels) -> float:
         la.local_aggregate_bwd_hopper = launch
         model.zero_grad(set_to_none=True)
         model.eval()
-    if len(ratios) != 32 or not max(ratios) <= 1e-5:
+    if len(ratios) != 2 * layers or not max(ratios) <= 1e-5:
         raise AssertionError(f"backward launches in the model against the "
                              f"plain backward: {len(ratios)} gradients, "
                              f"max|err| / max|ref| {ratios}")
@@ -1013,9 +1072,9 @@ def loss_falls(la, model, x, steps: int = 5, lr: float = 0.01):
         f"loss {', '.join(f'{v:.4f}' for v in losses)}")
 
 
-def recipe_train_step(model):
-    """``make_train_step`` on ``model`` under the recipe; returns (step,
-    its TrainState with an EMA)."""
+def recipe_train_step(model, recipe=RECIPE, batch: int = BATCH):
+    """``make_train_step`` on ``model`` under ``recipe`` at ``batch`` images
+    a step; returns (step, its TrainState with an EMA)."""
     from cotnet_tpu_torch.data.mixup import Mixup
     from cotnet_tpu_torch.train.loss import create_loss_fn
     from cotnet_tpu_torch.train.optim import create_optimizer
@@ -1023,13 +1082,13 @@ def recipe_train_step(model):
     from cotnet_tpu_torch.train.state import TrainState
     from cotnet_tpu_torch.train.step import make_train_step
 
-    schedule_fn, _ = create_scheduler(RECIPE["solver"],
-                                      IMAGENET_TRAIN_IMAGES // BATCH)
-    optimizer = create_optimizer(RECIPE["solver"], model.parameters())
-    loss_fn, _ = create_loss_fn(RECIPE["loss"], mixup_active=True)
+    schedule_fn, _ = create_scheduler(recipe["solver"],
+                                      IMAGENET_TRAIN_IMAGES // batch)
+    optimizer = create_optimizer(recipe["solver"], model.parameters())
+    loss_fn, _ = create_loss_fn(recipe["loss"], mixup_active=True)
     step = make_train_step(model, optimizer, schedule_fn, loss_fn,
-                           ema_decay=RECIPE["ema_decay"],
-                           mixup_fn=Mixup(**RECIPE["mixup"]))
+                           ema_decay=recipe["ema_decay"],
+                           mixup_fn=Mixup(**recipe["mixup"]))
     return step, TrainState.create(model, optimizer, ema=True)
 
 
@@ -1211,25 +1270,29 @@ def switch_checks_f32(la, model_name: str, state=None):
                              f"{la.BWD_LAUNCHES}")
 
 
-def run_main_path(la, paths: PathCounts, model_name: str, kind: str, batch,
+def run_main_path(la, paths: PathCounts, model_name: str, kind: str,
                   timed: int):
-    """One bf16 main path at 224x224 bs128 with seeded random weights:
-    ``kind`` is eval, eval_fused (path B, ``mega_fuse``), train, or
-    train_fold (path A, ``gn_fold_train``); the train kinds run under the
-    recipe.  2 warm-up and ``timed`` timed steps; the launches are checked
-    against the kind's and recorded in ``paths``."""
+    """One bf16 main path at the model's image size with seeded random
+    weights: ``kind`` is eval, eval_fused (path B, ``mega_fuse``), train, or
+    train_fold (path A, ``gn_fold_train``); eval at bs128, the train kinds
+    at the model's train batch under its recipe.  2 warm-up and ``timed``
+    timed steps; the launches are checked against the kind's and recorded
+    in ``paths``."""
     from cotnet_tpu_torch.models import create_model
     from cotnet_tpu_torch.train.step import make_eval_step
 
     label = f"{model_name} {kind}"
     training = kind.startswith("train")
+    recipe, size = RECIPES[model_name], MODELS[model_name][2]
+    n = TRAIN_BATCH.get(model_name, BATCH) if training else BATCH
+    batch = make_batch(n, size)
     torch.cuda.reset_peak_memory_stats()
     model = create_model(
         model_name, device="cuda", dtype=torch.bfloat16, seed=0,
         gn_fold_train=kind == "train_fold", mega_fuse=kind == "eval_fused",
-        **(RECIPE["model"] if training else {}))
+        **(recipe["model"] if training else {}))
     if training:
-        step, state = recipe_train_step(model)
+        step, state = recipe_train_step(model, recipe, n)
         gen = torch.Generator(device="cuda").manual_seed(6)
         images = {"image": batch["image"], "label": batch["label"]}
 
@@ -1254,7 +1317,7 @@ def run_main_path(la, paths: PathCounts, model_name: str, kind: str, batch,
             times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     check_path_launches(paths.record(la, label, steps), kind, model_name,
-                        steps)
+                        steps, n)
     if training:
         values = [float(m[key]) for m in outs for key in ("loss", "grad_norm")]
         if not (all(v == v and abs(v) < float("inf") for v in values)
@@ -1264,15 +1327,18 @@ def run_main_path(la, paths: PathCounts, model_name: str, kind: str, batch,
         result = (f"loss {values[0]:.4f} -> {values[-2]:.4f}, peak memory "
                   f"{peak / 2 ** 30:.2f} GiB")
     else:
-        top1, top5, n = (float(outs[-1][key]) for key in
-                         ("top1_count", "top5_count", "n"))
-        if not (0 <= top1 <= top5 <= n == BATCH - 8):
-            raise AssertionError(f"{label}: top1 {top1} top5 {top5} n {n}")
-        result = f"top1 {top1:.0f} top5 {top5:.0f} of {n:.0f}"
+        top1, top5, valid = (float(outs[-1][key]) for key in
+                             ("top1_count", "top5_count", "n"))
+        if not (0 <= top1 <= top5 <= valid == n - 8):
+            raise AssertionError(f"{label}: top1 {top1} top5 {top5} n "
+                                 f"{valid}")
+        result = (f"top1 {top1:.0f} top5 {top5:.0f} of {valid:.0f}, peak "
+                  f"memory {peak / 2 ** 30:.2f} GiB")
     median = statistics.median(times)
-    log(f"bf16 {label} {IMAGE}x{IMAGE} bs{BATCH}: {BATCH / median:.1f} img/s "
+    layers = sum(per_step for _, _, per_step in MODELS[model_name][1])
+    log(f"bf16 {label} {size}x{size} bs{n}: {n / median:.1f} img/s "
         f"(median of {timed} steps, {median * 1e3:.1f} ms a step) on "
-        f"{nvidia_smi()}; {result}; per step 16 launches each of "
+        f"{nvidia_smi()}; {result}; per step {layers} launches each of "
         f"{', '.join(PATH_KERNELS[kind])}, no other kernel of the op, 0 "
         f"plain calls")
     profile_step(run, f"bf16 {label} step")
@@ -1285,14 +1351,227 @@ def switches_phase(la, paths: PathCounts, cotnet50_state):
     switch_checks_f32(la, "cotnet50", cotnet50_state)
     switch_checks_f32(la, "cotnext50_2x48d")
     torch.cuda.empty_cache()
-    batch = bs128_batch()
     for model_name, kinds in (
             ("cotnet50", ("train_fold", "eval_fused")),
             ("cotnext50_2x48d", ("eval", "train", "train_fold",
                                  "eval_fused"))):
         for kind in kinds:
-            run_main_path(la, paths, model_name, kind, batch,
+            run_main_path(la, paths, model_name, kind,
                           timed=6 if kind.startswith("train") else 8)
+
+
+def hybrid_phase(la, paths: PathCounts):
+    """Phase 5: se_cotnetd_152.  f32 at bs4 and 256x256, TF32 off: logits
+    through the kernels against the plain path, every backward launch
+    inside the model against the plain backward, five steps that lower the
+    loss; then its bf16 main paths, the eval step at 256 bs128 and the
+    train step at 256 bs64 under its recipe."""
+    from cotnet_tpu_torch.models import create_model
+
+    name = "se_cotnetd_152"
+    _, geometries, size = MODELS[name]
+    layers = sum(per_step for _, _, per_step in geometries)
+    x = images_f32(4, size)
+    model = create_model(name, device="cuda", seed=0)
+    calibrate_bn(model, x, seed=1)
+    plain = create_model(name, device="cuda", block_args=dict(impl="torch"))
+    plain.load_state_dict(model.state_dict())
+    with tf32_off(), torch.no_grad():
+        la.reset_counts()
+        got = model(x)
+        torch.cuda.synchronize()
+        counts = (la.LAUNCHES, la.PLAIN_CALLS)
+        ref = plain(x)
+    del plain
+    if counts != (layers, 0):
+        raise AssertionError(f"{name} f32 forward: {counts[0]} kernel "
+                             f"launches and {counts[1]} plain calls, want "
+                             f"{layers} and 0")
+    diff, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    if not (torch.isfinite(got).all() and got.shape == (4, 1000)
+            and diff <= 1e-3 * scale):
+        raise AssertionError(f"{name} f32 logits {tuple(got.shape)}: "
+                             f"max|diff| {diff}, max|logit| {scale}")
+    labels = torch.randint(0, 1000, (x.shape[0],), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(4))
+    strict = backward_launches_match_plain(la, model, x, labels, layers)
+    log(f"{name} f32, bs{x.shape[0]} {size}x{size}: logits through the "
+        f"kernels against the plain path max|diff| {diff:.3g} of max|logit| "
+        f"{scale:.3g} (limit 1e-3), {counts[0]} launches and no plain call "
+        f"a forward; each of the {layers} dx and {layers} dw launches of a "
+        f"backward against the plain backward on the model's own tensors: "
+        f"worst max|err|/max|ref| {strict:.3g} (limit 1e-5)")
+    loss_falls(la, model, x)
+    del model
+    torch.cuda.empty_cache()
+    run_main_path(la, paths, name, "eval", timed=6)
+    run_main_path(la, paths, name, "train", timed=4)
+
+
+def mix_cases() -> list:
+    """The mix kernels' cases: cotnet50's four CoT geometries in bf16 at
+    bs128 (heads 1, Cw = C/8), then a general f32 case (heads 2, 13x11, Cw
+    dividing C four times), each with the weights separate and packed."""
+    cases = [dict(n=BATCH, c=c, h=hw, w=hw, heads=1, cw=c // 8,
+                  dtype=torch.bfloat16) for c, hw, _ in COTNET50_GEOMETRIES]
+    cases.append(dict(n=4, c=32, h=13, w=11, heads=2, cw=8,
+                      dtype=torch.float32))
+    return [dict(cs, merged=merged) for cs in cases
+            for merged in (False, True)]
+
+
+def mix_tensors(cs, seed: int) -> tuple:
+    """x, w1, w2 (w1 packed and w2 None when ``merged``) and dy of a case."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, c, h, w, heads, cw, dt = (cs[key] for key in (
+        "n", "c", "h", "w", "heads", "cw", "dtype"))
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    x = randn(n, c, h, w)
+    w1, w2 = randn(n, heads, cw, 9, h, w), randn(n, heads, cw, 25, h, w)
+    if cs["merged"]:
+        w1, w2 = torch.cat([w1, w2], dim=3), None
+    return x, w1, w2, randn(n, 2 * heads * c, h, w)
+
+
+def mix_path(la, paths: PathCounts):
+    """The mix kernels' main path, the op's own entry points (no model of
+    the zoo calls them): one autograd call of ``local_aggregate_mix`` (or
+    ``local_aggregate_mix_merge`` for the packed weight) at each bf16 case,
+    each one launch of each mix kernel and no plain call or other
+    aggregation kernel; the counts are set to 0 before and read after."""
+    cases = [cs for cs in mix_cases() if cs["dtype"] == torch.bfloat16]
+    la.reset_counts()
+    for i, cs in enumerate(cases):
+        x, w1, w2, dy = mix_tensors(cs, seed=20 + i)
+        leaves = [t.requires_grad_() for t in (x, w1, w2) if t is not None]
+        before = dict(la.MIX_LAUNCHES)
+        if cs["merged"]:
+            out = la.local_aggregate_mix_merge(*leaves)
+        else:
+            out = la.local_aggregate_mix(*leaves)
+        out.backward(dy)
+        torch.cuda.synchronize()
+        if ({k: la.MIX_LAUNCHES[k] - before[k] for k in before}
+                != {"fwd": 1, "dx": 1, "dw": 1}
+                or not all(t.grad.shape == t.shape for t in leaves)):
+            raise AssertionError(f"mix op at {cs}: launches "
+                                 f"{la.MIX_LAUNCHES} after {before}")
+    snapshot = paths.record(la, "mix op", 1)
+    others = {kernel for kernel, _ in snapshot["by_key"]
+              if not kernel.startswith("mix_")}
+    if snapshot["plain"] or others or la.MIX_LAUNCHES != {
+            k: len(cases) for k in ("fwd", "dx", "dw")}:
+        raise AssertionError(f"mix op: {snapshot['plain']} plain calls, "
+                             f"other kernels {others}, launches "
+                             f"{la.MIX_LAUNCHES}")
+    log(f"mix op: one autograd call at each of {len(cases)} bf16 cases "
+        f"(cotnet50's geometries at bs128, weights separate and packed): "
+        f"launches {la.MIX_LAUNCHES}, 0 plain calls")
+
+
+def mix_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
+    """The three mix kernels against the plain mix on the card; returns
+    their entries."""
+    entries = []
+    for i, cs in enumerate(mix_cases()):
+        x, w1, w2, dy = mix_tensors(cs, seed=40 + i)
+        n, c, h, w, heads, dt = (cs[key] for key in (
+            "n", "c", "h", "w", "heads", "dtype"))
+        geometry = (f"N={n} C={c} {h}x{w} heads={heads} Cw={cs['cw']} "
+                    f"{str(dt).replace('torch.', '')}"
+                    f"{' packed' if cs['merged'] else ''}")
+        # taps inside the image, 3x3 (pad 1) and 5x5 (pad 2)
+        pairs = sum(valid_taps(h, h, k, k // 2, 1) * valid_taps(w, w, k,
+                                                                k // 2, 1)
+                    for k in (3, 5))
+        flops = 2 * n * heads * c * pairs
+        weights = w1.numel() + (0 if w2 is None else w2.numel())
+        # each pass reads or writes x (or dx), the weights (or dw) and dy
+        # (or out) once
+        nbytes = (x.numel() + weights + dy.numel()) * x.element_size()
+        bound, bound_by = bounds_ms(nbytes, flops)
+        for kernel in ("fwd", "dx", "dw"):
+            if kernel == "fwd":
+                def run():
+                    return la.local_aggregate_mix_hopper(x, w1, w2)
+
+                def plain():
+                    return la.local_aggregate_mix_plain(x, w1, w2)
+                pick = None
+            else:
+                need = dict(need_dx=kernel == "dx", need_dw=kernel == "dw")
+                pick = 0 if kernel == "dx" else 1
+
+                def run():
+                    return la.local_aggregate_mix_bwd_hopper(x, w1, w2, dy,
+                                                             **need)
+
+                def plain():
+                    return la.local_aggregate_mix_bwd_plain(x, w1, w2, dy,
+                                                            **need)
+            before = dict(la.MIX_LAUNCHES_BY_SHAPE)
+            with torch.no_grad():
+                got = run()
+                torch.cuda.synchronize()
+                launches = paths.entry(
+                    "mix_" + kernel, new_key(la.MIX_LAUNCHES_BY_SHAPE,
+                                             before)[1])
+                ref = plain()
+                if pick is not None:
+                    got, ref = got[pick:pick + 2], ref[pick:pick + 2]
+                else:
+                    got, ref = (got,), (ref,)
+                errs = [check_close(f"{geometry} {kernel}", g, r, dt)
+                        for g, r in zip(got, ref) if r is not None]
+                ms = device_ms(run)
+                plain_ms = device_ms(plain)
+            max_err, rtol, atol = max(errs)
+            entries.append({
+                "name": f"local_agg_mix_{kernel}", "route": "cuda",
+                "source": "cotnet_tpu_torch/ops/csrc/local_agg_mix.cu",
+                "replaces": REPLACES_MIX[kernel], "geometry": geometry,
+                **launches, "max_abs_err": max_err,
+                "tol": {"rtol": rtol, "atol": atol},
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": bound_by,
+                "bound_ms_at_copy_rate": nbytes / hbm_rate * 1e3,
+                "library_ms": None})
+            log_entry(entries[-1])
+    return entries
+
+
+def dilated_check(la):
+    """``local_aggregate_dilated`` on the card at cotnet50's first geometry
+    (56x56, C=64, Cw=8) in f32 at bs16 with dilations 1 and 2: forward and
+    gradients against the plain path (rtol/atol 1e-5); one forward, one dx
+    and one dw launch per distinct dilation, and no plain call."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    x0 = torch.randn(16, 64, 56, 56, generator=gen, device="cuda")
+    w0 = torch.randn(16, 1, 8, 9, 56, 56, generator=gen, device="cuda")
+    dy = torch.randn(16, 64, 56, 56, generator=gen, device="cuda")
+    dilations = (1, 2, 1, 1, 2, 2, 1, 2)
+    results = {}
+    for impl in ("hopper", "torch"):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        la.reset_counts()
+        out = la.local_aggregate_dilated(x, w, dilations, impl=impl)
+        out.backward(dy)
+        torch.cuda.synchronize()
+        results[impl] = (out.detach(), x.grad, w.grad)
+        counts = (la.LAUNCHES, dict(la.BWD_LAUNCHES), la.PLAIN_CALLS,
+                  la.PLAIN_BWD_CALLS)
+        if impl == "hopper" and counts != (2, {"dx": 2, "dw": 2}, 0, 0):
+            raise AssertionError(f"dilated op: (fwd, bwd launches, plain, "
+                                 f"plain bwd) = {counts}")
+    errs = [check_close(f"dilated op {name}", g, r, torch.float32)[0]
+            for name, g, r in zip(("out", "dx", "dw"), *results.values())]
+    log(f"dilated op (N=16 C=64 56x56 Cw=8 f32, dilations {dilations}): "
+        f"2 forward, 2 dx and 2 dw launches, 0 plain calls; max|err| "
+        f"against the plain path out {errs[0]:.3g}, dx {errs[1]:.3g}, dw "
+        f"{errs[2]:.3g} (rtol/atol 1e-5)")
 
 
 def profile_step(fn, label: str, top: int = 12):
@@ -1372,7 +1651,11 @@ def main() -> int:
     switches_phase(la, paths, state)
     del state
     torch.cuda.empty_cache()
-    log(f"model phases done at {time.perf_counter() - t0:.1f} s")
+    hybrid_phase(la, paths)
+    torch.cuda.empty_cache()
+    mix_path(la, paths)
+    dilated_check(la)
+    log(f"model and op phases done at {time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()
     log(f"device copy rate: {hbm_rate / 1e12:.3f} TB/s (data sheet "
@@ -1380,7 +1663,8 @@ def main() -> int:
     entries = (kernel_phase(la, hbm_rate, paths)
                + bwd_kernel_phase(la, hbm_rate, paths)
                + affine_bwd_kernel_phase(la, hbm_rate, paths)
-               + embed_gn_kernel_phase(la, hbm_rate, paths))
+               + embed_gn_kernel_phase(la, hbm_rate, paths)
+               + mix_kernel_phase(la, hbm_rate, paths))
     # every shape a main path launched was held against its plain version
     launched = sum(c for by in paths.by_key.values() for c, _ in by.values())
     if sum(e["launches"] for e in entries) != launched:

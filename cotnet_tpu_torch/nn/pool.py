@@ -9,7 +9,9 @@ import torch.nn.functional as F
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                count_include_pad=True):
     """torch.nn.AvgPool2d (the CotBottleneck avd pool uses
-    ``count_include_pad=True``)."""
+    ``count_include_pad=True``; the ResNet-D avg-down shortcut
+    ``ceil_mode=True, count_include_pad=False``, whose last window on an
+    odd map holds one row and column of the image, and divides by that)."""
     return F.avg_pool2d(x, kernel_size, stride, padding, ceil_mode,
                         count_include_pad)
 

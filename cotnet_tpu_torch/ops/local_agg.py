@@ -36,12 +36,20 @@ fold, in ``w_scale`` and ``w_bias`` (once: there is no double backward).
 the GroupNorm and the aggregation: ``local_aggregate_embed_gn_plain``
 beside the kernels of ``csrc/local_agg_embed_gn.cu``.
 
+``local_aggregate_mix`` / ``local_aggregate_mix_merge`` aggregate one input
+with a 3x3 and a 5x5 weight at once (``local_aggregate_mix_plain`` /
+``local_aggregate_mix_bwd_plain`` beside the three kernels of
+``csrc/local_agg_mix.cu``); ``local_aggregate_dilated`` gives each weight
+channel its own dilation through ``local_aggregate``.
+
 ``LAUNCHES`` / ``PLAIN_CALLS`` count the forward calls of each
 implementation, ``BWD_LAUNCHES`` and ``AFFINE_BWD_LAUNCHES`` (per kernel,
 ``"dx"`` and ``"dw"``) / ``PLAIN_BWD_CALLS`` the backward ones,
-``EMBED_GN_LAUNCHES`` / ``PLAIN_EMBED_GN_CALLS`` those of the fused op, so a
-run can show which one it went through; ``LAUNCHES_BY_SHAPE``,
-``BWD_LAUNCHES_BY_SHAPE`` and ``EMBED_GN_LAUNCHES_BY_SHAPE`` split the
+``EMBED_GN_LAUNCHES`` / ``PLAIN_EMBED_GN_CALLS`` those of the fused op,
+``MIX_LAUNCHES`` (``"fwd"``, ``"dx"``, ``"dw"``) / ``PLAIN_MIX_CALLS``
+those of the mix, so a run can show which one it went through;
+``LAUNCHES_BY_SHAPE``, ``BWD_LAUNCHES_BY_SHAPE``,
+``EMBED_GN_LAUNCHES_BY_SHAPE`` and ``MIX_LAUNCHES_BY_SHAPE`` split the
 launches by their input shapes.  ``reset_counts()`` zeroes them all.
 """
 
@@ -75,10 +83,17 @@ BWD_LAUNCHES_BY_SHAPE: Dict[tuple, int] = {}
 EMBED_GN_LAUNCHES = 0
 EMBED_GN_LAUNCHES_BY_SHAPE: Dict[tuple, int] = {}
 PLAIN_EMBED_GN_CALLS = 0
+# launches of the three mix kernels, by local_aggregate_mix_hopper and
+# local_aggregate_mix_bwd_hopper; keyed by (kernel, mix_key()); calls of
+# either plain mix version
+MIX_LAUNCHES: Dict[str, int] = {"fwd": 0, "dx": 0, "dw": 0}
+MIX_LAUNCHES_BY_SHAPE: Dict[tuple, int] = {}
+PLAIN_MIX_CALLS = 0
 
 _LIB_NAME = "local_agg_fwd"
 _BWD_LIB_NAME = "local_agg_bwd"
 _EMBED_GN_LIB_NAME = "local_agg_embed_gn"
+_MIX_LIB_NAME = "local_agg_mix"
 # the tap counts (K*K) the fused kernel is compiled for: it keeps them in
 # registers
 _EMBED_GN_TAPS = (9, 25, 49)
@@ -317,14 +332,16 @@ def _embed_gn_kernel():
 
 def reset_counts():
     global LAUNCHES, PLAIN_CALLS, PLAIN_BWD_CALLS, EMBED_GN_LAUNCHES, \
-        PLAIN_EMBED_GN_CALLS
+        PLAIN_EMBED_GN_CALLS, PLAIN_MIX_CALLS
     LAUNCHES = PLAIN_CALLS = PLAIN_BWD_CALLS = 0
-    EMBED_GN_LAUNCHES = PLAIN_EMBED_GN_CALLS = 0
+    EMBED_GN_LAUNCHES = PLAIN_EMBED_GN_CALLS = PLAIN_MIX_CALLS = 0
     LAUNCHES_BY_SHAPE.clear()
     BWD_LAUNCHES.update(dx=0, dw=0)
     AFFINE_BWD_LAUNCHES.update(dx=0, dw=0)
     BWD_LAUNCHES_BY_SHAPE.clear()
     EMBED_GN_LAUNCHES_BY_SHAPE.clear()
+    MIX_LAUNCHES.update(fwd=0, dx=0, dw=0)
+    MIX_LAUNCHES_BY_SHAPE.clear()
 
 
 def launch_key(x, w, affine, dilation, padding) -> tuple:
@@ -853,3 +870,397 @@ def local_aggregate_embed_gn(
         return local_aggregate_embed_gn_hopper(
             *(t.contiguous() for t in args), **geometry)
     return local_aggregate_embed_gn_plain(*args, **geometry)
+
+
+# ---- the dual-kernel ("mix") aggregation -----------------------------------
+
+# the fused geometry: a 3x3 and a 5x5 kernel, SAME zero pad, stride 1,
+# dilation 1 (the reference's LocalConvolutionMix asserts it)
+_MIX_TAPS = (9, 25)
+
+
+def _mix_halves(w1, w2):
+    """``(w1, w2)``; ``w2`` None means ``w1`` is the merged weight
+    ``[N, heads, Cw, 9 + 25, H, W]``, whose two tap ranges are returned as
+    views."""
+    if w2 is None:
+        return w1[:, :, :, :_MIX_TAPS[0]], w1[:, :, :, _MIX_TAPS[0]:]
+    return w1, w2
+
+
+def _mix_tap_offsets(kk):
+    """(tap, row offset, col offset) of a kk x kk SAME kernel in x padded by
+    2 on each side, taps in (kh, kw) order."""
+    off = 2 - kk // 2
+    return [(ikh * kk + ikw, off + ikh, off + ikw)
+            for ikh in range(kk) for ikw in range(kk)]
+
+
+def local_aggregate_mix_plain(x, w1, w2=None):
+    """The fused-geometry mix in plain PyTorch: x ``[N, C, H, W]``, w1
+    ``[N, heads, Cw, 9, H, W]``, w2 ``[N, heads, Cw, 25, H, W]`` (or w1 the
+    merged weight and w2 None) -> ``[N, 2*heads*C, H, W]``, kernel-major.
+    Each half as ``local_aggregate_plain`` computes it: f32 taps, one
+    rounding per output."""
+    global PLAIN_MIX_CALLS
+    PLAIN_MIX_CALLS += 1
+    w1, w2 = _mix_halves(w1, w2)
+    return torch.cat([
+        _aggregate_taps(_pad_input(x, (p, p), "zeros"), w, (k, k), (1, 1),
+                        (1, 1))
+        for w, k, p in ((w1, 3, 1), (w2, 5, 2))], dim=1)
+
+
+def local_aggregate_mix_bwd_plain(x, w1, w2, dy, need_dx: bool = True,
+                                  need_dw: bool = True):
+    """Gradients of ``local_aggregate_mix_plain`` in plain PyTorch, with the
+    TPU kernels' arithmetic (``_mix_dx_kernel``, ``_mix_dw_kernel``): dy
+    ``[N, 2*heads*C, H, W]`` -> ``(dx, dw1, dw2)`` of the shapes and dtypes
+    of x, w1 and w2, or ``(dx, dw, None)`` with dw merged when w2 is None.
+    dx sums both halves in one f32 buffer and is rounded once; each dw tap
+    is the f32 sum over the C/Cw channel groups.  What is not needed is
+    None."""
+    global PLAIN_MIX_CALLS
+    PLAIN_MIX_CALLS += 1
+    merged = w2 is None
+    w1, w2 = _mix_halves(w1, w2)
+    n, c, h, wd = x.shape
+    _, heads, cw, _, _, _ = w1.shape
+    g = c // cw
+    acc = _acc_dtype(x)
+    dyv = dy.to(acc).reshape(n, 2, heads, g, cw, h, wd)
+    dxp = dws = None
+    if need_dx:
+        dxp = torch.zeros(n, g, cw, h + 4, wd + 4, dtype=acc, device=x.device)
+    if need_dw:
+        xv = _pad_input(x, (2, 2), "zeros").to(acc).reshape(
+            n, 1, g, cw, h + 4, wd + 4)
+        dws = []
+    for half, (w, kk) in enumerate(((w1, 3), (w2, 5))):
+        dyh = dyv[:, half]
+        if need_dx:
+            wf = w.to(acc)
+        if need_dw:
+            dw = torch.empty(w.shape, dtype=acc, device=x.device)
+        for k, oh, ow in _mix_tap_offsets(kk):
+            if need_dw:
+                dw[:, :, :, k] = (xv[..., oh:oh + h, ow:ow + wd]
+                                  * dyh).sum(2)
+            if need_dx:
+                dxp[..., oh:oh + h, ow:ow + wd] += (
+                    wf[:, :, None, :, k] * dyh).sum(1)
+        if need_dw:
+            dws.append(dw.to(w.dtype))
+    dx = dw1 = dw2 = None
+    if need_dx:
+        dx = dxp[..., 2:2 + h, 2:2 + wd].reshape(n, c, h, wd).to(x.dtype)
+    if need_dw:
+        dw1, dw2 = (torch.cat(dws, dim=3), None) if merged else dws
+    return dx, dw1, dw2
+
+
+def _mix_fwd_kernel():
+    return _c_function(_MIX_LIB_NAME, "local_agg_mix_fwd_launch",
+                       [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+
+
+def _mix_bwd_kernel():
+    return _c_function(_MIX_LIB_NAME, "local_agg_mix_bwd_launch",
+                       [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+
+
+def mix_key(x, w1, w2) -> tuple:
+    """The key under which ``MIX_LAUNCHES_BY_SHAPE`` counts a launch: dtype,
+    x shape, heads, Cw, and whether the weight was merged."""
+    return (str(x.dtype).replace("torch.", ""), tuple(x.shape),
+            int(w1.shape[1]), int(w1.shape[2]), w2 is None)
+
+
+def _mix_pointers(t1, t2):
+    """(pointer, taps per row) of each half of a weight or its gradient:
+    the two tensors as they are, or one merged tensor's two tap ranges."""
+    if t2 is None:
+        plane = t1.shape[4] * t1.shape[5] * t1.element_size()
+        rows = sum(_MIX_TAPS)
+        return t1.data_ptr(), rows, t1.data_ptr() + _MIX_TAPS[0] * plane, rows
+    return t1.data_ptr(), _MIX_TAPS[0], t2.data_ptr(), _MIX_TAPS[1]
+
+
+def _check_mix_kernel_tensors(who, x, w1, w2, dy=None):
+    """What the mix kernels take: contiguous CUDA tensors of one dtype, the
+    shapes ``_check_mix_shapes`` takes, and dy's."""
+    tensors = [t for t in (x, w1, w2, dy) if t is not None]
+    _check_kernel_tensors(who, tensors, tensors)
+    _check_mix_shapes(x, w1, w2)
+    n, c, h, w = x.shape
+    if dy is not None and tuple(dy.shape) != (n, 2 * w1.shape[1] * c, h, w):
+        raise ValueError(f"{who}: dy shape {tuple(dy.shape)} != "
+                         f"{(n, 2 * w1.shape[1] * c, h, w)}")
+
+
+def _count_mix(kernel, key):
+    MIX_LAUNCHES[kernel] += 1
+    MIX_LAUNCHES_BY_SHAPE[(kernel, key)] = \
+        MIX_LAUNCHES_BY_SHAPE.get((kernel, key), 0) + 1
+
+
+def local_aggregate_mix_hopper(x, w1, w2=None):
+    """Launch ``local_agg_mix_fwd`` (``csrc/local_agg_mix.cu``): x
+    ``[N, C, H, W]``, w1 ``[N, heads, Cw, 9, H, W]``, w2
+    ``[N, heads, Cw, 25, H, W]``, or w1 the merged ``[N, heads, Cw, 34, H,
+    W]`` and w2 None; contiguous CUDA tensors of one dtype (f32/f16/bf16).
+    Returns ``[N, 2*heads*C, H, W]``, kernel-major; records no autograd
+    graph."""
+    _check_mix_kernel_tensors("local_aggregate_mix_hopper", x, w1, w2)
+    n, c, h, w = x.shape
+    heads, cw = w1.shape[1], w1.shape[2]
+    fn = _mix_fwd_kernel()
+    out = torch.empty(n, 2 * heads * c, h, w, dtype=x.dtype, device=x.device)
+    p1, rows1, p2, rows2 = _mix_pointers(w1, w2)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), p1, rows1, p2, rows2,
+                 out.data_ptr(), n, c, h, w, heads, cw, stream)
+    if err != 0:
+        raise RuntimeError(f"local_agg_mix_fwd launch failed: cudaError {err}")
+    _count_mix("fwd", mix_key(x, w1, w2))
+    return out
+
+
+def local_aggregate_mix_bwd_hopper(x, w1, w2, dy, *, need_dx: bool = True,
+                                   need_dw: bool = True):
+    """Launch the mix backward kernels ``local_agg_mix_dx`` and
+    ``local_agg_mix_dw``, each only when its gradient is needed.  Tensors
+    as ``local_aggregate_mix_hopper`` takes them, and dy
+    ``[N, 2*heads*C, H, W]``.  Returns ``(dx, dw1, dw2)``, or
+    ``(dx, dw, None)`` with dw merged when w2 is None; what is not needed
+    is None."""
+    _check_mix_kernel_tensors("local_aggregate_mix_bwd_hopper", x, w1, w2,
+                              dy)
+    if not (need_dx or need_dw):
+        return None, None, None
+    n, c, h, w = x.shape
+    heads, cw = w1.shape[1], w1.shape[2]
+    fn = _mix_bwd_kernel()
+    dx = torch.empty_like(x) if need_dx else None
+    dw1 = dw2 = None
+    if need_dw:
+        dw1 = torch.empty_like(w1)
+        dw2 = None if w2 is None else torch.empty_like(w2)
+    p1, rows1, p2, rows2 = _mix_pointers(w1, w2)
+    g1, _, g2, _ = _mix_pointers(dw1, dw2) if need_dw else (None,) * 4
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), p1, rows1, p2, rows2,
+                 dy.data_ptr(), dx.data_ptr() if need_dx else None, g1, g2,
+                 n, c, h, w, heads, cw, stream)
+    if err != 0:
+        raise RuntimeError(f"local_agg_mix backward launch failed: cudaError "
+                           f"{err}")
+    key = mix_key(x, w1, w2)
+    for kernel, launched in (("dx", need_dx), ("dw", need_dw)):
+        if launched:
+            _count_mix(kernel, key)
+    return dx, dw1, dw2
+
+
+class _AggregateMix(torch.autograd.Function):
+    """The fused-geometry mix as one autograd node: the Hopper kernels
+    (``use_kernel``) or the plain versions, in forward and backward alike.
+    ``w2`` None means ``w1`` is the merged weight, whose gradient then
+    comes back merged.  Saves x, w1 and w2."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2, use_kernel):
+        ctx.use_kernel = use_kernel
+        if use_kernel:
+            x, w1 = x.contiguous(), w1.contiguous()
+            w2 = None if w2 is None else w2.contiguous()
+            out = local_aggregate_mix_hopper(x, w1, w2)
+        else:
+            out = local_aggregate_mix_plain(x, w1, w2)
+        ctx.save_for_backward(x, w1, w2)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w1, w2 = ctx.saved_tensors
+        need_dx, need_w1, need_w2 = ctx.needs_input_grad[:3]
+        # one kernel writes both weight gradients
+        kwargs = dict(need_dx=need_dx, need_dw=need_w1 or need_w2)
+        if ctx.use_kernel:
+            # autograd may hand over a strided gradient
+            dx, dw1, dw2 = local_aggregate_mix_bwd_hopper(
+                x, w1, w2, dy.contiguous(), **kwargs)
+        else:
+            dx, dw1, dw2 = local_aggregate_mix_bwd_plain(x, w1, w2, dy,
+                                                         **kwargs)
+        return (dx, dw1 if need_w1 else None, dw2 if need_w2 else None,
+                None)
+
+
+def _mix_use_kernel(x, impl):
+    if impl not in ("auto", "hopper", "torch"):
+        raise ValueError(f"unknown impl {impl!r}")
+    on_cuda = x.device.type == "cuda"
+    if impl == "hopper" and not on_cuda:
+        raise ValueError("impl='hopper' launches the CUDA kernels: x must be "
+                         "a CUDA tensor")
+    return impl != "torch" and on_cuda
+
+
+def _mix_fused_geometry(kernel_size1, kernel_size2, stride, padding1,
+                        padding2, dilation, pad_mode) -> bool:
+    """The geometry of the fused kernels (JAX ``local_agg.py:470-477``): 3x3
+    and 5x5, SAME zero pad, stride 1, dilation 1."""
+    return (pad_mode == "zeros" and _pair(stride) == (1, 1)
+            and _pair(dilation) == (1, 1)
+            and _pair(kernel_size1) == (3, 3)
+            and _pair(kernel_size2) == (5, 5)
+            and padding1 in (None, 1, (1, 1))
+            and padding2 in (None, 2, (2, 2)))
+
+
+def _check_mix_shapes(x, w1, w2):
+    """w1 ``[N, heads, Cw, 9, H, W]`` and w2 ``[N, heads, Cw, 25, H, W]``
+    for x ``[N, C, H, W]``, or w1 the merged ``[N, heads, Cw, 34, H, W]``
+    and w2 None."""
+    n, c, h, w = x.shape
+    if w2 is None:
+        want = [(n, w1.shape[1], w1.shape[2], sum(_MIX_TAPS), h, w)]
+    else:
+        want = [(n, w1.shape[1], w1.shape[2], k, h, w) for k in _MIX_TAPS]
+    got = [tuple(t.shape) for t in (w1, w2) if t is not None]
+    if got != want or c % w1.shape[2]:
+        raise ValueError(f"x {tuple(x.shape)} with weights {got}: need "
+                         f"{want} and Cw dividing C")
+
+
+def local_aggregate_mix(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    *,
+    kernel_size1=3,
+    kernel_size2=5,
+    stride=1,
+    padding1=None,
+    padding2=None,
+    dilation=1,
+    pad_mode: str = "zeros",
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Dual-kernel aggregation: ``x`` aggregated with the K1 x K1 weight
+    ``w1`` and the K2 x K2 weight ``w2``, concatenated on channels.
+
+    Args:
+      x: ``[N, C, H, W]``.
+      w1, w2: ``[N, heads, Cw, K1*K1, Ho, Wo]`` and
+        ``[N, heads, Cw, K2*K2, Ho, Wo]``.
+      kernel_size1/2, stride, padding1/2, dilation, pad_mode: as
+        ``local_aggregate``'s, for each half.
+      impl: ``'auto'`` (the kernels for CUDA tensors, the plain version for
+        CPU tensors), ``'hopper'`` (the kernels; raises for a CPU tensor)
+        or ``'torch'`` (the plain version).
+
+    Returns:
+      ``[N, 2*heads*C, Ho, Wo]``, kernel-major: channel
+      ``(half*heads + head)*C + c``, half 0 the K1 aggregation.
+
+    On the fused geometry (3x3 and 5x5, SAME zero pad, stride 1, dilation
+    1) one launch per pass computes both halves (``_AggregateMix``): x is
+    read once, the halves are written into one buffer, and dx sums both
+    halves before its one rounding.  Any other geometry is two
+    ``local_aggregate`` calls and a ``torch.cat``, as in the JAX package.
+    """
+    use_kernel = _mix_use_kernel(x, impl)
+    if _mix_fused_geometry(kernel_size1, kernel_size2, stride, padding1,
+                           padding2, dilation, pad_mode):
+        _check_mix_shapes(x, w1, w2)
+        return _AggregateMix.apply(x, w1, w2, use_kernel)
+    common = dict(stride=stride, dilation=dilation, pad_mode=pad_mode,
+                  impl=impl)
+    return torch.cat([
+        local_aggregate(x, w1, kernel_size=kernel_size1, padding=padding1,
+                        **common),
+        local_aggregate(x, w2, kernel_size=kernel_size2, padding=padding2,
+                        **common)], dim=1)
+
+
+def local_aggregate_mix_merge(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    kernel_size1=3,
+    kernel_size2=5,
+    stride=1,
+    padding1=None,
+    padding2=None,
+    dilation=1,
+    pad_mode: str = "zeros",
+    impl: str = "auto",
+) -> torch.Tensor:
+    """``local_aggregate_mix`` with one packed weight ``w``
+    ``[N, heads, Cw, K1*K1 + K2*K2, Ho, Wo]``, the K1 taps first.  On the
+    fused geometry the kernels read (and the backward writes) the packed
+    tensor in place: nothing is copied."""
+    use_kernel = _mix_use_kernel(x, impl)
+    if _mix_fused_geometry(kernel_size1, kernel_size2, stride, padding1,
+                           padding2, dilation, pad_mode):
+        _check_mix_shapes(x, w, None)
+        return _AggregateMix.apply(x, w, None, use_kernel)
+    k1sq = _pair(kernel_size1)[0] * _pair(kernel_size1)[1]
+    return local_aggregate_mix(
+        x, w[:, :, :, :k1sq], w[:, :, :, k1sq:], kernel_size1=kernel_size1,
+        kernel_size2=kernel_size2, stride=stride, padding1=padding1,
+        padding2=padding2, dilation=dilation, pad_mode=pad_mode, impl=impl)
+
+
+def local_aggregate_dilated(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    dilations,
+    *,
+    kernel_size=3,
+    stride=1,
+    padding=None,
+    pad_mode: str = "zeros",
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Per-weight-channel dilation: weight channel ``cw`` aggregates its
+    neighbourhood at dilation ``dilations[cw]``, SAME-padded at that
+    dilation, so every channel keeps the input's size (JAX
+    ``local_agg.py:521-560``).  ``padding`` is ignored, as there.
+
+    One ``local_aggregate`` per distinct dilation (on the card the forward
+    kernel, and the backward kernels under autograd); each result is
+    multiplied by its 0/1 channel mask and summed in f32 (f64 for f64), and
+    the sum is cast once to x's dtype.  It has no kernel of its own: the
+    JAX package has none either."""
+    del padding
+    dilations = tuple(int(d) for d in dilations)
+    cw = w.shape[2]
+    if len(dilations) != cw:
+        raise ValueError(f"need one dilation per weight channel ({cw}), got "
+                         f"{len(dilations)}")
+    c = x.shape[1]
+    heads = w.shape[1]
+    acc = _acc_dtype(x)
+    out = None
+    for d in sorted(set(dilations)):
+        yd = local_aggregate(x, w, kernel_size=kernel_size, stride=stride,
+                             padding=None, dilation=d, pad_mode=pad_mode,
+                             impl=impl)
+        # output channel head*C + c uses dilation dilations[c % Cw]
+        cw_mask = torch.tensor([dd == d for dd in dilations], dtype=acc,
+                               device=x.device)
+        mask = cw_mask.repeat(heads * c // cw).view(1, -1, 1, 1)
+        out = yd * mask if out is None else out + yd * mask
+    return out.to(x.dtype)

@@ -37,6 +37,16 @@ def make_inputs(seed, n=2, c=8, cw=4, hi=9, wi=8, heads=1, k=3, stride=1,
     return x, w, s, b, pad
 
 
+def make_mix_inputs(seed, n=2, c=8, cw=4, hi=7, wi=6, heads=1):
+    """numpy x ``[N, H, W, C]`` with the mix's 3x3 and 5x5 weights
+    ``[N, H, W, heads, 9 | 25, Cw]``, the JAX package's layout."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, hi, wi, c).astype(np.float32)
+    w1 = rng.randn(n, hi, wi, heads, 9, cw).astype(np.float32)
+    w2 = rng.randn(n, hi, wi, heads, 25, cw).astype(np.float32)
+    return x, w1, w2
+
+
 def to_port(x, w, s=None, b=None):
     """NHWC / k-major numpy -> NCHW / cw-major torch tensors."""
     xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
@@ -211,3 +221,91 @@ def test_hopper_embed_gn_matches_plain_on_card(dtype, groups):
         rtol, atol = 8e-3, 4e-3 * scale
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
                                atol=atol)
+
+
+def _mix_on_card(seed, dt, merged, n=4, c=32, cw=8, hi=13, wi=11, heads=2):
+    """CUDA x, w1, w2 (w1 the packed weight and w2 None when ``merged``)
+    and a cotangent dy, from ``make_mix_inputs``."""
+    x, w1, w2 = make_mix_inputs(seed, n=n, c=c, cw=cw, hi=hi, wi=wi,
+                                heads=heads)
+    xt, w1t = (t.cuda().to(dt) for t in to_port(x, w1)[:2])
+    w2t = to_port(x, w2)[1].cuda().to(dt)
+    if merged:
+        w1t, w2t = torch.cat([w1t, w2t], dim=3), None
+    dy = torch.randn(n, 2 * heads * c, hi, wi, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(seed)
+                     ).to(dt)
+    return xt, w1t, w2t, dy
+
+
+def _close(got, ref, dt):
+    if dt == torch.float32:
+        rtol, atol = 1e-5, 1e-5          # summation order only
+    else:
+        # same bf16 inputs, f32 sums, one rounding: within 1 bf16 ulp
+        rtol, atol = 8e-3, 1e-3 * float(ref.float().abs().max())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("merged", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mix_kernels_match_plain_on_card(dtype, merged):
+    """The three mix kernels against the plain mix at heads 2 with Cw
+    dividing C four times, on a 13x11 map, the weights separate and packed:
+    the forward, dx (both halves in one f32 sum) and dw, one launch each."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    x, w1, w2, dy = _mix_on_card(3, dt, merged)
+    la.reset_counts()
+    out = la.local_aggregate_mix_hopper(x, w1, w2)
+    grads = la.local_aggregate_mix_bwd_hopper(x, w1, w2, dy)
+    torch.cuda.synchronize()
+    assert la.MIX_LAUNCHES == {"fwd": 1, "dx": 1, "dw": 1}
+    assert la.PLAIN_MIX_CALLS == 0
+    _close(out, la.local_aggregate_mix_plain(x, w1, w2), dt)
+    ref = la.local_aggregate_mix_bwd_plain(x, w1, w2, dy)
+    assert (grads[2] is None) == merged
+    for g, r in zip(grads, ref):
+        if r is not None:
+            _close(g, r, dt)
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_mix_grad_goes_through_the_kernels(merged):
+    """A gradient through ``local_aggregate_mix`` (or ``_merge``) on CUDA
+    tensors is one launch of each mix kernel and no plain call."""
+    _need_cuda()
+    x, w1, w2, dy = _mix_on_card(4, torch.float32, merged)
+    leaves = [t.requires_grad_() for t in (x, w1, w2) if t is not None]
+    la.reset_counts()
+    if merged:
+        out = la.local_aggregate_mix_merge(*leaves)
+    else:
+        out = la.local_aggregate_mix(*leaves)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert la.MIX_LAUNCHES == {"fwd": 1, "dx": 1, "dw": 1}
+    assert (la.PLAIN_MIX_CALLS, la.LAUNCHES) == (0, 0)
+    assert all(t.grad.shape == t.shape for t in leaves)
+
+
+def test_dilated_goes_through_the_aggregation_kernels():
+    """``local_aggregate_dilated`` with dilations 1 and 2: one forward and
+    one dx and dw launch per distinct dilation, no plain call, and the
+    plain path's values and gradients (f32, rtol/atol 1e-5)."""
+    _need_cuda()
+    x, w, _, _, _ = make_inputs(6, n=2, c=16, cw=4, hi=9, wi=10)
+    grads = {}
+    for impl in ("hopper", "torch"):
+        xt, wt = (t.cuda().requires_grad_() for t in to_port(x, w)[:2])
+        la.reset_counts()
+        out = la.local_aggregate_dilated(xt, wt, (1, 2, 2, 1), impl=impl)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        grads[impl] = (out.detach(), xt.grad, wt.grad)
+        if impl == "hopper":
+            assert (la.LAUNCHES, la.BWD_LAUNCHES) == (2, {"dx": 2, "dw": 2})
+            assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
+    for g, r in zip(*grads.values()):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
