@@ -9,7 +9,8 @@ printing the last line:
 1. Device: the card's name and power limit (nvidia-smi), and the set-up
    time, which includes building the CUDA kernels from the sources in
    ``cotnet_tpu_torch/ops/csrc`` with nvcc, one compiler per source, all
-   started together.
+   started together; per kernel function, its registers, shared memory
+   and spills (ptxas) and its SASS instruction count (cuobjdump).
 2. Model, eval: cotnet50 with seeded random weights (random BN running
    stats and a non-zero ``bn3`` scale, so every residual branch reaches the
    logits).  f32 logits through the kernel against the plain path; the
@@ -59,10 +60,13 @@ printing the last line:
    card.  The forward at the four aggregation geometries of cotnet50
    (N=128), the four per-group ones of cotnext50_2x48d (N=256) and those
    of se_cotnetd_152 (N=128 and 64), bf16, with and without the GroupNorm
-   affine, general f32 cases (heads=2, K=5 and 7, dilation 2, odd H != W)
-   and a reflect-padded case; the backward kernels (dx, dw, and with the
-   affine dx and dw+ds+db) at the same geometries, the reflect case
-   through autograd as well; the fused embed kernels at the eight
+   affine, general f32 cases (heads=2, K=5 and 7, dilation 2, odd H != W),
+   a reflect-padded case and the edges of the forward's and dx's tiling
+   in bf16 (a 3x3 map, 57x57, 13x11 with Cw=6, N=1 at 56x56), each forward
+   and dx entry naming the instantiation that ran (``variant``: ``k3`` or
+   ``general``); the backward kernels (dx, dw, and with the affine dx and
+   dw+ds+db) at the same geometries, the reflect case through autograd as
+   well; the fused embed kernels at the eight
    geometries of the two models with a fused-embed path and at general f32
    cases (K=5 with dilation 2 and K=7, non-square maps, two groups); the
    three mix kernels (forward, dx, dw) at cotnet50's four geometries in
@@ -265,7 +269,29 @@ def kernel_cases() -> list:
                           pad_mode="zeros", dtype=torch.float32))
     cases.append(dict(n=8, c=64, h=14, w=14, heads=1, cw=8, k=3, dil=1,
                       pad_mode="reflect", dtype=torch.float32))
+    # the edges of the forward's and dx's row tiles and vectors: a map
+    # smaller than one tile, a height no multiple of the tile, an odd width
+    # with Cw no multiple of the vector width, N = 1
+    for n, c, cw, h, w in ((2, 64, 8, 3, 3), (2, 64, 8, 57, 57),
+                           (4, 48, 6, 13, 11), (1, 64, 8, 56, 56)):
+        cases.append(dict(n=n, c=c, h=h, w=w, heads=1, cw=cw, k=3, dil=1,
+                          pad_mode="zeros", dtype=torch.bfloat16))
     return cases
+
+
+def variant(kernel: str, k: int, dil: int, pad: int, heads: int) -> str:
+    """The instantiation of ``local_agg_fwd`` or ``local_agg_bwd_dx`` that a
+    launch at K x K, this dilation, the kernel's own padding and heads runs,
+    as the kernel's library says."""
+    from cotnet_tpu_torch.ops import _build
+
+    if kernel == "fwd":
+        code = _build.load("local_agg_fwd").local_agg_fwd_variant(
+            k, k, dil, dil, pad)
+    else:
+        code = _build.load("local_agg_bwd").local_agg_bwd_dx_variant(
+            k, k, dil, dil, pad, heads)
+    return {3: "k3", 0: "general"}[code]
 
 
 def describe(cs, pad, affine=False) -> str:
@@ -426,7 +452,11 @@ def kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
             entries.append({
                 "name": "local_agg_fwd", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_fwd.cu",
-                "replaces": REPLACES, "geometry": geometry, **launches,
+                "replaces": REPLACES, "geometry": geometry,
+                "variant": variant(
+                    "fwd", k, dil,
+                    0 if cs["pad_mode"] == "reflect" else pad, heads),
+                **launches,
                 "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
@@ -437,7 +467,8 @@ def kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
 
 
 def log_entry(e):
-    log(f"kernel {e['name']} {e['geometry']}: max|err| "
+    variant_note = f" ({e['variant']})" if "variant" in e else ""
+    log(f"kernel {e['name']}{variant_note} {e['geometry']}: max|err| "
         f"{e['max_abs_err']:.3g} (rtol {e['tol']['rtol']}, atol "
         f"{e['tol']['atol']:.3g}); kernel {e['ms']:.4f} ms, plain "
         f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
@@ -524,6 +555,8 @@ def bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "name": f"local_agg_bwd_{kernel}", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_bwd.cu",
                 "replaces": REPLACES_BWD[kernel], "geometry": geometry,
+                **({"variant": variant("dx", k, dil, kpad, heads)}
+                   if kernel == "dx" else {}),
                 **launches, "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
@@ -641,6 +674,8 @@ def affine_bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "name": f"local_agg_bwd_{kernel}_affine", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_bwd.cu",
                 "replaces": REPLACES_AFFINE_BWD[kernel], "geometry": geometry,
+                **({"variant": variant("dx", k, dil, kpad, heads)}
+                   if kernel == "dx" else {}),
                 **launches, "max_abs_err": max_err,
                 "tol": {"rtol": rtol, "atol": atol}, **extra,
                 "ms": ms, "plain_ms": plain_ms,
@@ -1616,15 +1651,74 @@ def profile_step(fn, label: str, top: int = 12):
 
 
 def per_step_summary(entries, path: str):
-    """Each case a main path launched, at its launches per step there."""
+    """Each case a main path launched, at its launches per step there; and
+    by kernel, the ms a step it loses to its bound, launches x (ms - bound),
+    which ranks the kernels for speed work."""
     per_step = [(e, by["launches"] / by["steps"]) for e in entries
                 for label, by in e["launches_by_path"].items()
                 if label == path]
+    lost = {}
+    for e, n in per_step:
+        lost[e["name"]] = lost.get(e["name"], 0.0) + n * (
+            e["ms"] - e["bound_ms"])
     log(f"aggregation kernels per step of {path} "
         f"({sum(n for _, n in per_step):.0f} launches): " + ", ".join(
             f"{key} {sum(e[key] * n for e, n in per_step):.4f} ms"
             for key in ("ms", "plain_ms", "bound_ms",
-                        "bound_ms_at_copy_rate")))
+                        "bound_ms_at_copy_rate"))
+        + "; lost to the bound: " + ", ".join(
+            f"{name} {ms:.4f} ms" for name, ms in lost.items()))
+
+
+def build_report(build):
+    """Build every kernel source (``build`` is the port's ``ops._build``)
+    and log, per kernel function, what ``nvcc -Xptxas=-v`` reported for it
+    (registers, shared memory, spills; nothing for a library that was built
+    already) and the number of SASS instructions in the built library
+    (``cuobjdump -sass``)."""
+    import re
+    import shutil
+
+    outputs = build.build_all()
+    cuobjdump = (shutil.which("cuobjdump")
+                 or "/usr/local/cuda/bin/cuobjdump")
+    for source in build.sources():
+        ptxas, fn = {}, None
+        for line in outputs[source].splitlines():
+            m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn and ("spill" in line or "Used" in line):
+                ptxas.setdefault(fn, []).append(
+                    line.replace("ptxas info    :", "").strip())
+        sass = {}
+        try:
+            dump = subprocess.run(
+                [cuobjdump, "-sass", str(build.library_path(source))],
+                check=True, capture_output=True, text=True,
+                timeout=120).stdout
+        except (OSError, subprocess.CalledProcessError) as err:
+            log(f"build {source}: SASS not measured ({err})")
+            dump = ""
+        for line in dump.splitlines():
+            m = re.match(r"\s*Function : (\w+)", line)
+            if m:
+                fn = m.group(1)
+                sass[fn] = 0
+            elif fn in sass and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+                sass[fn] += 1
+        names = sorted(set(ptxas) | set(sass))
+        demangled = dict(zip(names, subprocess.run(
+            ["c++filt"], input="\n".join(names), capture_output=True,
+            text=True).stdout.splitlines())) if shutil.which("c++filt") \
+            else {}
+        for fn in names:
+            short = demangled.get(fn, fn).replace(
+                "(anonymous namespace)::", "").replace("void ", "").split(
+                "(")[0]
+            log(f"build {source}: {short}: "
+                + "; ".join(ptxas.get(fn, []))
+                + f"; {sass.get(fn, 'not measured')} SASS instructions")
 
 
 def main() -> int:
@@ -1639,10 +1733,7 @@ def main() -> int:
     log(f"device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
-    for source, output in _build.build_all().items():
-        for line in output.splitlines():
-            if "ptxas" in line and "Used" in line:
-                log(f"build {source}: {line.strip()}")
+    build_report(_build)
     torch.zeros(1, device="cuda")
     log(f"set-up (kernel build included): {time.perf_counter() - t0:.1f} s")
 

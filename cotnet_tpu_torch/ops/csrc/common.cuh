@@ -7,6 +7,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -55,6 +56,319 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
   return v;
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// Halo tiles: what the aggregation forward (local_agg_fwd.cu) and its dx
+// kernel (local_agg_bwd.cu) share.
+//
+// Both compute, at each position of an output "plane", a sum over the K*K
+// taps of a weight times a source element at a shifted position, for each
+// of the G = C/Cw channels that share one weight channel.  A block owns
+// ``planes`` whole planes (small maps) or one plane's tile of ``rows`` rows
+// (large maps); a thread item is V neighbouring positions of one row, ``q``
+// items a row.  The block walks the G channel groups (times the heads, for
+// dx); for each, it stages the source rows the tile reads, halo included,
+// in shared memory, kStages groups deep.  Shared memory holds each source
+// row at a fixed ``stride`` with ``pl`` zero columns before it and zero
+// columns after it, and a row outside the image as zeros: the zeros are
+// written once, when the block starts, and the stages copy only the image's
+// rows, with cp.async in units of 16, 8 or 4 bytes (``unit``, the widest
+// that every row start allows; 0: element by element).  So the taps read
+// shared memory without a mask: the padding is the zeros.
+
+namespace {
+
+constexpr int kMaxThreads = 512;   // threads of a block, at most
+constexpr int kMaxPlanes = 32;     // planes of a block, at most
+constexpr int kStages = 4;         // channel groups in shared memory at once
+constexpr int kMaxK = 7;           // the general instantiation's largest K
+constexpr int kTargetItems = 128;  // a block's thread items, at most
+constexpr int kSmemAim = 48 * 1024;  // a block's shared memory, when it can
+constexpr int kMaxSmem = 232448;   // shared memory of one block on sm_90
+
+struct Tiling {
+  int q, rows, tiles, planes;  // items a row, rows a tile, tiles, planes
+  int staged, stride, pl;      // staged rows, their stride and left zeros
+  int region, unit;            // bytes of a plane's stage; copy unit
+};
+
+// The tiling of ``plane_count`` planes of out_h x out_w positions, V =
+// ``vec`` positions a thread item.  A tile of R rows reads R + ``halo``
+// rows of a src_h x src_w source plane of ``elem``-byte elements, and an
+// item at positions [c, c + V) reads source columns [c + col_lo,
+// c + V - 1 + col_hi].  ``unit``: the staging copy unit in bytes.  False
+// when no block can hold one row (a row wider than kMaxThreads items, or
+// its stages larger than a block's shared memory) or the grid is too large.
+inline bool plan_tiles(int64_t plane_count, int out_h, int out_w, int src_h,
+                       int src_w, int halo, int col_lo, int col_hi, int elem,
+                       int vec, int unit, Tiling* t, unsigned* blocks,
+                       unsigned* threads, size_t* smem) {
+  if (plane_count <= 0 || out_h <= 0 || out_w <= 0) return false;
+  const int q = (out_w + vec - 1) / vec;
+  if (q > kMaxThreads) return false;
+  const int per16 = 16 / elem;  // elements of 16 bytes
+  const int pl = (std::max(0, -col_lo) + per16 - 1) / per16 * per16;
+  const int pr = std::max(0, q * vec - 1 + col_hi - (src_w - 1));
+  const int64_t stride =
+      (int64_t(pl) + src_w + pr + per16 - 1) / per16 * per16;
+  // whole rows up to kTargetItems items: a tile of one plane's rows, or
+  // at a map of fewer rows, whole planes
+  const int per_block = std::max(1, kTargetItems / q);
+  int rows = std::min(per_block, out_h), planes = 1;
+  if (per_block > out_h) {
+    planes = std::max(1, std::min(per_block / out_h, kMaxPlanes));
+  }
+  int64_t region;
+  for (;;) {
+    region = (rows + int64_t(halo)) * stride * elem;
+    if (kStages * planes * region <= kSmemAim || (planes == 1 && rows == 1))
+      break;
+    if (planes > 1) {
+      planes = (planes + 1) / 2;
+    } else {
+      rows = (rows + 1) / 2;
+    }
+  }
+  const int64_t bytes = kStages * planes * region;
+  const int tiles = (out_h + rows - 1) / rows;
+  const int64_t count = (plane_count + planes - 1) / planes * tiles;
+  if (bytes > kMaxSmem || count > 0x7fffffff) return false;
+  *t = Tiling{q, rows, tiles, planes, rows + halo, int(stride), pl,
+              int(region), unit};
+  *blocks = unsigned(count);
+  *threads = unsigned((int64_t(planes) * rows * q + 31) / 32 * 32);
+  *smem = size_t(bytes);
+  return true;
+}
+
+// The widest copy unit (16, 8 or 4 bytes; 0: none) that divides a tensor's
+// address and its rows' bytes, so that every row of it starts on a unit.
+inline int copy_unit(const void* base, int64_t row_bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base) | uintptr_t(row_bytes);
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 0;
+}
+
+// Opt a kernel in to more than the default 48 KB of dynamic shared memory
+// when a launch needs it.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+}
+
+// The instantiation a geometry takes: 3 for K = 3 at dilation 1 and
+// column padding 1 (every main path), 0 for the general one (any K up to
+// kMaxK), -1 for none.
+inline int agg_variant(int kh, int kw, int dh, int dw, int pw) {
+  if (kh == 3 && kw == 3 && dh == 1 && dw == 1 && pw == 1) return 3;
+  if (kh >= 1 && kw >= 1 && kh <= kMaxK && kw <= kMaxK && dh >= 1 && dw >= 1)
+    return 0;
+  return -1;
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = unsigned(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(BYTES)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Zero every stage of the block's shared memory (``bytes``, a multiple of
+// 16): the padding columns and the rows outside the image stay so.
+__device__ __forceinline__ void zero_stages(char* stages, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(stages)[i] = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// One stage: for each plane p of the block, the image rows [h_lo, h_hi) of
+// the source plane at src[p] + offset (src[p] null: no such plane), each
+// row of ``w`` elements to its place in buf + p * region: row h at
+// (h - first) * stride + pl.  The threads take the rows' copy units side
+// by side; with no copy unit, the elements, each thread several at once.
+// The caller commits the cp.async group.
+template <typename T>
+__device__ __forceinline__ void stage_rows(char* buf, const Tiling& t,
+                                           const T* const* src,
+                                           int64_t offset, int h_lo,
+                                           int h_hi, int first, int w) {
+  const int n_rows = h_hi - h_lo;
+  if (n_rows <= 0) return;
+  const int per_row = t.unit == 0 ? w : w * int(sizeof(T)) / t.unit;
+  const int per_plane = n_rows * per_row;
+  const int total = t.planes * per_plane;
+  if (t.unit == 0) {
+    // kBatch loads in flight a thread, then their stores
+    constexpr int kBatch = 4;
+    T* out = reinterpret_cast<T*>(buf);
+    for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * blockDim.x) {
+      T v[kBatch];
+      int at[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = i0 + k * blockDim.x;
+        const int p = i / per_plane;
+        const int r = (i - p * per_plane) / w;
+        const int col = i - p * per_plane - r * w;
+        at[k] = -1;
+        if (i < total && src[p] != nullptr) {
+          v[k] = src[p][offset + int64_t(h_lo + r) * w + col];
+          at[k] = p * (t.region / int(sizeof(T))) +
+                  (h_lo + r - first) * t.stride + t.pl + col;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (at[k] >= 0) out[at[k]] = v[k];
+      }
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int p = t.planes == 1 ? 0 : i / per_plane;
+    const int r = (i - p * per_plane) / per_row;
+    const int j = i - p * per_plane - r * per_row;
+    if (src[p] == nullptr) continue;
+    char* dst = buf + p * t.region +
+                ((h_lo + r - first) * t.stride + t.pl) * int(sizeof(T)) +
+                j * t.unit;
+    const char* from = reinterpret_cast<const char*>(
+                           src[p] + offset + int64_t(h_lo + r) * w) +
+                       j * t.unit;
+    if (t.unit == 16) {
+      cp_async<16>(dst, from);
+    } else if (t.unit == 8) {
+      cp_async<8>(dst, from);
+    } else {
+      cp_async<4>(dst, from);
+    }
+  }
+}
+
+template <int BYTES>
+struct Raw;
+template <>
+struct Raw<4> {
+  using type = unsigned;
+};
+template <>
+struct Raw<8> {
+  using type = uint2;
+};
+template <>
+struct Raw<16> {
+  using type = uint4;
+};
+
+// V elements at p, widened to f32, in loads of B bytes (p aligned to B).
+template <int B, typename T, int V>
+__device__ __forceinline__ void load_pieces(const T* __restrict__ p,
+                                            float (&v)[V]) {
+  using R = typename Raw<B>::type;
+  constexpr int E = B / int(sizeof(T));
+#pragma unroll
+  for (int i = 0; i < V; i += E) {
+    const R raw = *reinterpret_cast<const R*>(p + i);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < E; ++k) v[i + k] = to_f32(e[k]);
+  }
+}
+
+// V f32 values rounded to T, to p, in stores of B bytes (p aligned to B).
+template <int B, typename T, int V>
+__device__ __forceinline__ void store_pieces(T* __restrict__ p,
+                                             const float (&v)[V]) {
+  using R = typename Raw<B>::type;
+  constexpr int E = B / int(sizeof(T));
+#pragma unroll
+  for (int i = 0; i < V; i += E) {
+    R raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < E; ++k) e[k] = from_f32<T>(v[i + k]);
+    *reinterpret_cast<R*>(p + i) = raw;
+  }
+}
+
+// 2N elements of shared memory from p, an even element index, widened to
+// f32, in N loads of two elements.
+template <typename T, int N>
+__device__ __forceinline__ void load_pairs(const T* p, float (&v)[2 * N]) {
+  using R = typename Raw<2 * int(sizeof(T))>::type;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const R raw = reinterpret_cast<const R*>(p)[k];
+    const T* e = reinterpret_cast<const T*>(&raw);
+    v[2 * k] = to_f32(e[0]);
+    v[2 * k + 1] = to_f32(e[1]);
+  }
+}
+
+// The first n of V elements at p, widened to f32 (the rest 0): all V in
+// the widest loads p's alignment allows when n == V, else one by one.
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, int n,
+                                         float (&v)[V]) {
+  constexpr int kBytes = V * int(sizeof(T));
+  const unsigned a = unsigned(reinterpret_cast<uintptr_t>(p));
+  if (n == V) {
+    if constexpr (kBytes % 16 == 0) {
+      if (a % 16 == 0) return load_pieces<16>(p, v);
+    }
+    if constexpr (kBytes % 8 == 0 && sizeof(T) <= 8) {
+      if (a % 8 == 0) return load_pieces<8>(p, v);
+    }
+    if constexpr (kBytes % 4 == 0 && sizeof(T) <= 4) {
+      if (a % 4 == 0) return load_pieces<4>(p, v);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) v[i] = i < n ? to_f32(p[i]) : 0.f;
+}
+
+// The first n of V f32 values, rounded to T, to p: in the widest stores
+// p's alignment allows when n == V, else one by one.
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, int n,
+                                          const float (&v)[V]) {
+  constexpr int kBytes = V * int(sizeof(T));
+  const unsigned a = unsigned(reinterpret_cast<uintptr_t>(p));
+  if (n == V) {
+    if constexpr (kBytes % 16 == 0) {
+      if (a % 16 == 0) return store_pieces<16>(p, v);
+    }
+    if constexpr (kBytes % 8 == 0 && sizeof(T) <= 8) {
+      if (a % 8 == 0) return store_pieces<8>(p, v);
+    }
+    if constexpr (kBytes % 4 == 0 && sizeof(T) <= 4) {
+      if (a % 4 == 0) return store_pieces<4>(p, v);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    if (i < n) p[i] = from_f32<T>(v[i]);
+  }
 }
 
 }  // namespace

@@ -22,14 +22,42 @@
 // output is rounded to T.
 //
 // Bound on this card: about one flop per byte, so the least time is the
-// bytes over the HBM rate: (x + w + out) bytes / 3.35 TB/s on an H100 SXM.
-// The K*K reads of each x element are meant to hit L1/L2, not HBM.
+// bytes over the HBM rate: (x + w + out) bytes / 3.35 TB/s on an H100 SXM,
+// 0.0479 ms at cotnet50's 56x56 C=64 Cw=8 bs128 bf16 (x 51.4 MB, w 57.8 MB,
+// out 51.4 MB).  The design reads each of those bytes from HBM once.
 //
-// Design (simple and right first): one thread per output element, wo
-// fastest, 256 threads a block, so neighbouring threads read neighbouring
-// x and w addresses and the loads coalesce.  Left for later: shared-memory
-// halo tiles of x reused across the K*K taps and the G = C/Cw channel
-// groups that share one weight channel, 16-byte vector loads, and TMA.
+// Design (the halo tiles of common.cuh):
+// - A block owns one weight channel (n, head, cw), the "plane" of Ho x Wo
+//   positions whose K*K weights the G = C/Cw channels c = cw + g*Cw share,
+//   and a tile of whole rows of it, at most kTargetItems thread items; at a
+//   map of fewer rows than that, several whole planes.
+// - A thread item is V neighbouring positions of one output row.  The
+//   thread reads the K*K weights of its positions once, in the widest loads
+//   their alignment allows (8 bytes at V = 4 in bf16), forms w*s + b in f32
+//   once per weight with the affine, and keeps them in registers for all G
+//   channels.
+// - The block walks the G channels.  For each it stages x's halo tile (the
+//   tile's rows plus (K-1)*dh, the whole width) in shared memory with
+//   cp.async in the widest unit the rows' alignment allows (16 bytes at
+//   56x56 in bf16), kStages channels deep, so that the next channels' tiles
+//   land while this one is summed.  The staged rows sit between zero
+//   columns, and rows outside the image are zero rows: both are written
+//   once, when the block starts, so the zero padding costs the taps nothing.
+// - The taps are summed in f32 and the V outputs of channel head*C + c
+//   stored in the widest stores their alignment allows.  At K = 3 a thread
+//   reads its V + 2 columns of a row in (V + 4) / 2 shared loads of two
+//   elements.
+// - Index arithmetic is done once per block and thread, in 32 bits (the
+//   launcher checks the sizes).
+// Two instantiations: K = 3 at dilation 1 and column padding 1, compile-
+// time and fully unrolled (every main path), V = 4, at most 64 registers;
+// and a general one, runtime K <= kMaxK, dilation, padding and heads, V =
+// 1, its 7x7 taps unrolled under runtime guards.  The launcher picks one
+// from the geometry (agg_variant).  A row of more than kMaxThreads items
+// or a halo tile beyond shared memory is refused with
+// cudaErrorInvalidConfiguration.
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -37,68 +65,200 @@ namespace {
 
 // x [N, C, Hi, Wi]; w [N, heads, Cw, Kh*Kw, Ho, Wo];
 // s, b [N, heads, Cw, Kh*Kw] f32 (AFFINE only); out [N, heads*C, Ho, Wo].
-template <typename T, bool AFFINE>
-__global__ void __launch_bounds__(kThreads)
+// KC = 3: K = 3 at dilation 1; KC = 0: any K up to kMaxK.  The K = 3
+// instantiation is held to 64 registers (two blocks of kMaxThreads): its
+// blocks have at most kTargetItems threads, so eight fit on an SM, and the
+// card ran it faster than with more registers and fewer blocks.
+template <typename T, bool AFFINE, int KC>
+__global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
     local_agg_fwd(const T* __restrict__ x, const T* __restrict__ w,
                   const float* __restrict__ s, const float* __restrict__ b,
-                  T* __restrict__ out, Geometry g) {
-  const int64_t total = int64_t(g.n) * g.heads * g.c * g.ho * g.wo;
-  const int64_t idx = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int wo = int(idx % g.wo);
-  int64_t r = idx / g.wo;
-  const int ho = int(r % g.ho);
-  r /= g.ho;
-  const int c = int(r % g.c);
-  r /= g.c;
-  const int head = int(r % g.heads);
-  const int n = int(r / g.heads);
+                  T* __restrict__ out, Geometry g, Tiling t) {
+  constexpr int KT = KC == 3 ? 3 : kMaxK;        // taps unrolled per axis
+  constexpr int V = KC == 3 ? 4 : 1;             // positions of an item
+  constexpr int NE = KC == 3 ? V + KT - 1 : KT;  // x columns an item reads
+  const int kh = KC == 3 ? 3 : g.kh, kw = KC == 3 ? 3 : g.kw;
+  const int dh = KC == 3 ? 1 : g.dh, dw = KC == 3 ? 1 : g.dw;
+  const int k2 = kh * kw;
+  const int hw_in = g.hi * g.wi, hw_out = g.ho * g.wo;
 
-  const int k2 = g.kh * g.kw;
-  const int64_t plane = int64_t(g.ho) * g.wo;
-  // (n, head, c % Cw, tap 0): the row of s/b, and of w in units of a plane
-  const int64_t row = ((int64_t(n) * g.heads + head) * g.cw + c % g.cw) * k2;
-  const T* wp = w + row * plane + int64_t(ho) * g.wo + wo;
-  const T* xp = x + (int64_t(n) * g.c + c) * g.hi * g.wi;
+  extern __shared__ __align__(16) char stages[];
+  __shared__ const T* src[kMaxPlanes];
 
-  float acc = 0.f;
-  for (int i = 0; i < g.kh; ++i) {
-    const int h = ho - g.ph + i * g.dh;
-    const bool h_in = h >= 0 && h < g.hi;
-    for (int j = 0; j < g.kw; ++j) {
-      const int k = i * g.kw + j;
-      float wk = to_f32(wp[k * plane]);
-      if (AFFINE) wk = wk * s[row + k] + b[row + k];
-      const int col = wo - g.pw + j * g.dw;
-      const float xv = (h_in && col >= 0 && col < g.wi)
-                           ? to_f32(xp[int64_t(h) * g.wi + col])
-                           : 0.f;
-      acc += xv * wk;
+  // the block: planes plane0 .. plane0 + t.planes - 1 and rows r0 ..
+  // r0 + t.rows - 1; staged row 0 is x row ``first``, and x's rows
+  // [h_lo, h_hi) are the image's among the staged ones
+  const int tile = blockIdx.x % t.tiles;
+  const int plane0 = int(blockIdx.x / t.tiles) * t.planes;
+  const int planes = g.n * g.heads * g.cw;  // < 2^31: checked at launch
+  const int r0 = tile * t.rows;
+  const int first = r0 - g.ph;
+  const int h_lo = max(0, first), h_hi = min(g.hi, first + t.staged);
+  if (threadIdx.x < t.planes) {
+    // plane (n * heads + head) * Cw + cw reads x channels n*C + cw + g*Cw
+    const int plane = plane0 + threadIdx.x;
+    const T* xp = nullptr;
+    if (plane < planes) {
+      const int nh = plane / g.cw;
+      xp = x + (int64_t(nh / g.heads) * g.c + (plane - nh * g.cw)) * hw_in;
+    }
+    src[threadIdx.x] = xp;
+  }
+  zero_stages(stages, kStages * t.planes * t.region);
+
+  // the thread: plane p of the block, row ho, positions wo0 .. wo0 + nv - 1
+  const int items = t.rows * t.q;
+  const int p = threadIdx.x / items;
+  const int rem = threadIdx.x - p * items;
+  const int row = rem / t.q;
+  const int wo0 = (rem - row * t.q) * V;
+  const int ho = r0 + row;
+  const int plane = plane0 + p;
+  const bool active = p < t.planes && plane < planes && ho < g.ho;
+  const int nv = min(V, g.wo - wo0);
+
+  // the K*K weights of the thread's positions, once, into registers; w*s
+  // + b in f32 once per weight with the affine
+  float wr[KT * KT][V];
+  T* op = nullptr;
+  if (active) {
+    const T* wp = w + int64_t(plane) * k2 * hw_out + ho * g.wo + wo0;
+#pragma unroll
+    for (int i = 0; i < KT; ++i) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        if (i < kh && j < kw) {
+          const int k = i * kw + j;
+          load_vec<T, V>(wp + k * hw_out, nv, wr[i * KT + j]);
+          if (AFFINE) {
+            const float sk = s[int64_t(plane) * k2 + k];
+            const float bk = b[int64_t(plane) * k2 + k];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              wr[i * KT + j][v] = wr[i * KT + j][v] * sk + bk;
+            }
+          }
+        }
+      }
+    }
+    const int nh = plane / g.cw;
+    op = out + (int64_t(nh) * g.c + (plane - nh * g.cw)) * hw_out +
+         ho * g.wo + wo0;
+  }
+  // where tap (0, 0) of position 0 reads in the plane's stage
+  const int base = p * (t.region / int(sizeof(T))) + row * t.stride + t.pl +
+                   wo0 - g.pw;
+  __syncthreads();  // src[], the zeros
+
+  const int groups = g.c / g.cw;
+  const int64_t x_step = int64_t(g.cw) * hw_in;  // channel c to c + Cw
+  const int64_t out_step = int64_t(g.cw) * hw_out;
+  const int stage_bytes = t.planes * t.region;
+#pragma unroll 1
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < groups) {
+      stage_rows(stages + st * stage_bytes, t, src, st * x_step, h_lo, h_hi,
+                 first, g.wi);
+    }
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int grp = 0; grp < groups; ++grp) {
+    cp_async_wait<kStages - 2>();  // this group's stage has landed
+    // every thread is past the previous group's sum, so its buffer is free
+    __syncthreads();
+    const int ahead = grp + kStages - 1;
+    if (ahead < groups) {
+      stage_rows(stages + (ahead % kStages) * stage_bytes, t, src,
+                 ahead * x_step, h_lo, h_hi, first, g.wi);
+    }
+    cp_async_commit();
+    if (active) {
+      const T* buf =
+          reinterpret_cast<const T*>(stages + (grp % kStages) * stage_bytes) +
+          base;
+      float acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0.f;
+#pragma unroll
+      for (int i = 0; i < KT; ++i) {
+        if (i < kh) {
+          const T* rp = buf + i * dh * t.stride;
+          // K = 3: the item's V + 2 columns from the even one before them
+          // (pad 1 makes ``buf`` odd), in V/2 + 2 loads of two
+          float xs[KC == 3 ? NE + 2 : NE];
+          if constexpr (KC == 3) {
+            load_pairs<T, V / 2 + 2>(rp - 1, xs);
+          } else {
+#pragma unroll
+            for (int e = 0; e < NE; ++e) {
+              xs[e] = e < kw ? to_f32(rp[e * dw]) : 0.f;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < KT; ++j) {
+            if (j < kw) {
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                acc[v] += wr[i * KT + j][v] * xs[KC == 3 ? v + j + 1 : j];
+              }
+            }
+          }
+        }
+      }
+      store_vec<T, V>(op + grp * out_step, nv, acc);
     }
   }
-  out[idx] = from_f32<T>(acc);
 }
 
-template <typename T, bool AFFINE>
+template <typename T, bool AFFINE, int KC>
 int launch(const void* x, const void* w, const void* s, const void* b,
            void* out, const Geometry& g, cudaStream_t stream) {
-  const int64_t total = int64_t(g.n) * g.heads * g.c * g.ho * g.wo;
-  if (total == 0) return int(cudaSuccess);
-  unsigned blocks;
-  if (!grid_for(total, &blocks)) return int(cudaErrorInvalidConfiguration);
-  local_agg_fwd<T, AFFINE><<<blocks, kThreads, 0, stream>>>(
+  constexpr int V = KC == 3 ? 4 : 1;
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_tiles(int64_t(g.n) * g.heads * g.cw, g.ho, g.wo, g.hi, g.wi,
+                  (g.kh - 1) * g.dh, -g.pw, (g.kw - 1) * g.dw - g.pw,
+                  int(sizeof(T)), V,
+                  copy_unit(x, int64_t(g.wi) * int(sizeof(T))), &t, &blocks,
+                  &threads, &smem)) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  const auto kernel = local_agg_fwd<T, AFFINE, KC>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<blocks, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(s), static_cast<const float*>(b),
-      static_cast<T*>(out), g);
+      static_cast<T*>(out), g, t);
   return int(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_affine(int affine, const void* x, const void* w, const void* s,
-                    const void* b, void* out, const Geometry& g,
-                    cudaStream_t stream) {
-  return affine ? launch<T, true>(x, w, s, b, out, g, stream)
-                : launch<T, false>(x, w, s, b, out, g, stream);
+int dispatch(int affine, const void* x, const void* w, const void* s,
+             const void* b, void* out, const Geometry& g,
+             cudaStream_t stream) {
+  if (int64_t(g.n) * g.heads * g.c * g.ho * g.wo == 0) {
+    return int(cudaSuccess);
+  }
+  // offsets within a plane (and within a weight channel's K*K planes) are
+  // 32-bit
+  if (int64_t(g.hi) * g.wi > INT_MAX ||
+      int64_t(g.kh) * g.kw * g.ho * g.wo > INT_MAX ||
+      int64_t(g.n) * g.heads * g.cw > INT_MAX) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  switch (agg_variant(g.kh, g.kw, g.dh, g.dw, g.pw)) {
+    case 3:
+      return affine ? launch<T, true, 3>(x, w, s, b, out, g, stream)
+                    : launch<T, false, 3>(x, w, s, b, out, g, stream);
+    case 0:
+      return affine ? launch<T, true, 0>(x, w, s, b, out, g, stream)
+                    : launch<T, false, 0>(x, w, s, b, out, g, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -115,12 +275,20 @@ extern "C" int local_agg_fwd_launch(int dtype, int affine, const void* x,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_affine<float>(affine, x, w, s, b, out, g, st);
+      return dispatch<float>(affine, x, w, s, b, out, g, st);
     case 1:
-      return dispatch_affine<__half>(affine, x, w, s, b, out, g, st);
+      return dispatch<__half>(affine, x, w, s, b, out, g, st);
     case 2:
-      return dispatch_affine<__nv_bfloat16>(affine, x, w, s, b, out, g, st);
+      return dispatch<__nv_bfloat16>(affine, x, w, s, b, out, g, st);
     default:
       return int(cudaErrorInvalidValue);
   }
+}
+
+// The instantiation a launch at this geometry runs: 3 (K = 3, dilation 1,
+// column padding 1), 0 (the general one) or -1 (none: the launch is
+// refused).
+extern "C" int local_agg_fwd_variant(int kh, int kw, int dh, int dw,
+                                     int pw) {
+  return agg_variant(kh, kw, dh, dw, pw);
 }

@@ -309,3 +309,127 @@ def test_dilated_goes_through_the_aggregation_kernels():
             assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
     for g, r in zip(*grads.values()):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+
+
+# (N, C, Cw, H, W, heads, K, dilation): the tiling edges of the forward and
+# dx kernels.  K = 3 at dilation 1 (and pad 1, one head) runs the K = 3
+# instantiation: a map smaller than one row tile, a height that is not a
+# multiple of the row tile, an odd width with Cw not a multiple of the
+# vector width, N = 1 at the largest main-path map.  The rest run the
+# general one.
+TILING_EDGES = {
+    "3x3": (2, 64, 8, 3, 3, 1, 3, 1),
+    "57x57": (2, 64, 8, 57, 57, 1, 3, 1),
+    "13x11_cw6": (4, 48, 6, 13, 11, 1, 3, 1),
+    "n1_56x56": (1, 64, 8, 56, 56, 1, 3, 1),
+    "heads2_k5_dil2": (3, 32, 8, 13, 11, 2, 5, 2),
+    "heads2_k7_dil2": (2, 24, 6, 15, 9, 2, 7, 2),
+}
+
+
+def _edge_tensors(geometry, dt, affine, seed):
+    """CUDA x, w, s, b (None without the affine) and dy of one geometry."""
+    n, c, cw, h, w, heads, k, dil = geometry
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    x, wt = randn(n, c, h, w).to(dt), randn(n, heads, cw, k * k, h, w).to(dt)
+    s = b = None
+    if affine:
+        s, b = 1.0 + 0.5 * randn(n, heads, cw, k * k), 0.5 * randn(
+            n, heads, cw, k * k)
+    return x, wt, s, b, randn(n, heads * c, h, w).to(dt)
+
+
+def _tolerance(dt, ref):
+    if dt == torch.float32:
+        return 1e-5, 1e-5                # summation order only
+    # the same 16-bit inputs, f32 sums, one rounding: within 1 ulp of the
+    # reference (2^-8 relative in bf16, 2^-11 in f16)
+    rtol = 8e-3 if dt == torch.bfloat16 else 1e-3
+    return rtol, 1e-3 * float(ref.float().abs().max())
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("edge", sorted(TILING_EDGES))
+def test_fwd_dx_tiling_edges_match_plain_on_card(edge, dtype, affine):
+    """The forward and dx kernels (each instantiation, with and without the
+    affine) against their plain versions at the edges of their tiling, one
+    launch each and no plain call, and the instantiation each ran."""
+    _need_cuda()
+    from cotnet_tpu_torch.ops import _build
+
+    dt = getattr(torch, dtype)
+    geometry = TILING_EDGES[edge]
+    k, dil = geometry[6:]
+    pad = (dil * (k - 1) + 1) // 2
+    x, wt, s, b, dy = _edge_tensors(geometry, dt, affine, seed=len(edge))
+    geo = dict(kernel_size=(k, k), dilation=(dil, dil), padding=(pad, pad))
+    la.reset_counts()
+    out = la.local_aggregate_hopper(x, wt, s, b, **geo)
+    if affine:
+        dx = la.local_aggregate_bwd_affine_hopper(x, wt, s, b, dy, **geo,
+                                                  need_dw=False)[0]
+    else:
+        dx = la.local_aggregate_bwd_hopper(x, wt, dy, **geo, need_dw=False)[0]
+    torch.cuda.synchronize()
+    assert la.LAUNCHES == 1
+    assert (la.AFFINE_BWD_LAUNCHES if affine else la.BWD_LAUNCHES)["dx"] == 1
+    assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
+    heads = geometry[5]
+    assert _build.load("local_agg_fwd").local_agg_fwd_variant(
+        k, k, dil, dil, pad) == (3 if (k, dil) == (3, 1) else 0)
+    assert _build.load("local_agg_bwd").local_agg_bwd_dx_variant(
+        k, k, dil, dil, pad, heads) == (3 if (k, dil, heads) == (3, 1, 1)
+                                        else 0)
+    xp = torch.nn.functional.pad(x, (pad,) * 4)
+    ref = la.local_aggregate_plain(xp, wt, (k, k), (1, 1), (dil, dil), s, b)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **dict(zip(("rtol", "atol"),
+                                          _tolerance(dt, ref))))
+    if affine:
+        ref_dx = la.local_aggregate_bwd_affine_plain(
+            xp, wt, s, b, dy, (k, k), (dil, dil), need_dw=False)[0]
+    else:
+        ref_dx = la.local_aggregate_bwd_plain(xp, wt, dy, (k, k), (dil, dil),
+                                              need_dw=False)[0]
+    ref_dx = ref_dx[..., pad:pad + x.shape[2], pad:pad + x.shape[3]]
+    torch.testing.assert_close(dx.float(), ref_dx.float(),
+                               **dict(zip(("rtol", "atol"),
+                                          _tolerance(dt, ref_dx))))
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("k", [3, 5])
+def test_fwd_dx_on_a_prepadded_input_match_plain_on_card(k, affine):
+    """Hi != Ho: the reflect path hands both kernels a pre-padded x with pad
+    0.  The forward and dx kernels against their plain versions there."""
+    _need_cuda()
+    n, c, cw, h, w = 2, 32, 8, 14, 13
+    pad = (k - 1) // 2
+    x, wt, s, b, dy = _edge_tensors((n, c, cw, h, w, 1, k, 1), torch.bfloat16,
+                                    affine, seed=k)
+    xp = torch.nn.functional.pad(x.float(), (pad,) * 4,
+                                 mode="reflect").to(x.dtype)
+    geo = dict(kernel_size=(k, k), dilation=(1, 1), padding=(0, 0))
+    out = la.local_aggregate_hopper(xp, wt, s, b, **geo)
+    if affine:
+        dxp = la.local_aggregate_bwd_affine_hopper(xp, wt, s, b, dy, **geo,
+                                                   need_dw=False)[0]
+        ref_dx = la.local_aggregate_bwd_affine_plain(
+            xp, wt, s, b, dy, (k, k), (1, 1), need_dw=False)[0]
+    else:
+        dxp = la.local_aggregate_bwd_hopper(xp, wt, dy, **geo,
+                                            need_dw=False)[0]
+        ref_dx = la.local_aggregate_bwd_plain(xp, wt, dy, (k, k), (1, 1),
+                                              need_dw=False)[0]
+    torch.cuda.synchronize()
+    assert dxp.shape == xp.shape and xp.shape[2:] != out.shape[2:]
+    ref = la.local_aggregate_plain(xp, wt, (k, k), (1, 1), (1, 1), s, b)
+    for got, want in ((out, ref), (dxp, ref_dx)):
+        torch.testing.assert_close(
+            got.float(), want.float(),
+            **dict(zip(("rtol", "atol"), _tolerance(torch.bfloat16, want))))
