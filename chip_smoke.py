@@ -61,10 +61,13 @@ printing the last line:
    (N=128), the four per-group ones of cotnext50_2x48d (N=256) and those
    of se_cotnetd_152 (N=128 and 64), bf16, with and without the GroupNorm
    affine, general f32 cases (heads=2, K=5 and 7, dilation 2, odd H != W),
-   a reflect-padded case and the edges of the forward's and dx's tiling
-   in bf16 (a 3x3 map, 57x57, 13x11 with Cw=6, N=1 at 56x56), each forward
-   and dx entry naming the instantiation that ran (``variant``: ``k3`` or
-   ``general``); the backward kernels (dx, dw, and with the affine dx and
+   a reflect-padded case, the edges of the halo tiles in bf16 (a 3x3 map,
+   57x57, 13x11 with Cw=6, N=1 at 56x56) and the geometries beyond them
+   (K=5 on 3x513 and K=3 on 2x2049 in bf16, K=9 in bf16, K=7 at dilation
+   8 on 16x256 in f32), each forward, dx and dw entry naming the route its
+   launcher took (``variant``: ``k3``, ``general`` or ``pointwise``; the
+   geometries beyond the tiles must take ``pointwise``, every main path
+   ``k3``); the backward kernels (dx, dw, and with the affine dx and
    dw+ds+db) at the same geometries, the reflect case through autograd as
    well; the fused embed kernels at the eight
    geometries of the two models with a fused-embed path and at general f32
@@ -276,22 +279,34 @@ def kernel_cases() -> list:
                            (4, 48, 6, 13, 11), (1, 64, 8, 56, 56)):
         cases.append(dict(n=n, c=c, h=h, w=w, heads=1, cw=cw, k=3, dil=1,
                           pad_mode="zeros", dtype=torch.bfloat16))
+    # the geometries the halo tiles do not take, which the forward, dx and
+    # dw run on their pointwise route: a row of more than 512 thread items
+    # in the general instantiation (K = 5, Wo = 513) and at K = 3 (Wo =
+    # 2049), K = 9, and an f32 halo tile beyond a block's shared memory
+    # (K = 7 at dilation 8 on 16x256: 49 staged rows of 304 elements, four
+    # stages, 238 KB)
+    for n, c, cw, h, w, k, dil, dt in (
+            (1, 16, 8, 3, 513, 5, 1, torch.bfloat16),
+            (1, 16, 8, 2, 2049, 3, 1, torch.bfloat16),
+            (2, 16, 4, 13, 11, 9, 1, torch.bfloat16),
+            (1, 16, 8, 16, 256, 7, 8, torch.float32)):
+        cases.append(dict(n=n, c=c, h=h, w=w, heads=1, cw=cw, k=k, dil=dil,
+                          pad_mode="zeros", dtype=dt, route="pointwise"))
     return cases
 
 
-def variant(kernel: str, k: int, dil: int, pad: int, heads: int) -> str:
-    """The instantiation of ``local_agg_fwd`` or ``local_agg_bwd_dx`` that a
-    launch at K x K, this dilation, the kernel's own padding and heads runs,
-    as the kernel's library says."""
-    from cotnet_tpu_torch.ops import _build
-
-    if kernel == "fwd":
-        code = _build.load("local_agg_fwd").local_agg_fwd_variant(
-            k, k, dil, dil, pad)
-    else:
-        code = _build.load("local_agg_bwd").local_agg_bwd_dx_variant(
-            k, k, dil, dil, pad, heads)
-    return {3: "k3", 0: "general"}[code]
+def route(la, kernel: str, cs, x, w, pad: int) -> str:
+    """The route (``k3``, ``general`` or ``pointwise``) that the launcher of
+    ``kernel`` (fwd, dx or dw) takes for x and w with the kernel's own
+    padding, as the kernel's library decides it; raises unless it is the
+    case's own (``route``, where the case names one)."""
+    k, dil = cs["k"], cs["dil"]
+    got = la.kernel_route(kernel, x, w, kernel_size=(k, k),
+                          dilation=(dil, dil), padding=(pad, pad))
+    if got != cs.get("route", got):
+        raise AssertionError(f"{kernel} at {describe(cs, pad)} took the "
+                             f"{got} route, not {cs['route']}")
+    return got
 
 
 def describe(cs, pad, affine=False) -> str:
@@ -421,6 +436,12 @@ def kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
             pad = (dil * (k - 1) + 1) // 2
             x = randn(n, c, h, w, dtype=dt)
             wt = randn(n, heads, cw, k * k, h, w, dtype=dt)
+            # what the kernel sees: a reflect pad is made outside it
+            xk, kpad = x, pad
+            if cs["pad_mode"] == "reflect":
+                xk = x.new_empty(n, c, h + 2 * pad, w + 2 * pad,
+                                 device="meta")
+                kpad = 0
             s = b = None
             if affine:
                 s = randn(n, heads, cw, k * k, scale=0.5, shift=1.0)
@@ -453,9 +474,7 @@ def kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "name": "local_agg_fwd", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_fwd.cu",
                 "replaces": REPLACES, "geometry": geometry,
-                "variant": variant(
-                    "fwd", k, dil,
-                    0 if cs["pad_mode"] == "reflect" else pad, heads),
+                "variant": route(la, "fwd", cs, xk, wt, kpad),
                 **launches,
                 "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
                 "ms": ms, "plain_ms": plain_ms,
@@ -555,8 +574,7 @@ def bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "name": f"local_agg_bwd_{kernel}", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_bwd.cu",
                 "replaces": REPLACES_BWD[kernel], "geometry": geometry,
-                **({"variant": variant("dx", k, dil, kpad, heads)}
-                   if kernel == "dx" else {}),
+                "variant": route(la, kernel, cs, x, wt, kpad),
                 **launches, "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
@@ -674,7 +692,7 @@ def affine_bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "name": f"local_agg_bwd_{kernel}_affine", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_bwd.cu",
                 "replaces": REPLACES_AFFINE_BWD[kernel], "geometry": geometry,
-                **({"variant": variant("dx", k, dil, kpad, heads)}
+                **({"variant": route(la, "dx", cs, x, wt, kpad)}
                    if kernel == "dx" else {}),
                 **launches, "max_abs_err": max_err,
                 "tol": {"rtol": rtol, "atol": atol}, **extra,
@@ -1762,6 +1780,13 @@ def main() -> int:
         raise AssertionError(
             f"the main paths made {launched} launches, the kernel phase "
             f"accounts for {sum(e['launches'] for e in entries)}")
+    # every main path runs the K = 3 route of the forward, dx and dw
+    off_route = sorted({f"{e['name']} ({e['variant']}) {e['geometry']}"
+                        for e in entries
+                        if e["launches"] and e.get("variant", "k3") != "k3"})
+    if off_route:
+        raise AssertionError(f"main-path launches off the k3 route: "
+                             f"{off_route}")
     path_labels = []
     for by_path in paths.by_key.values():
         path_labels += [label for label in by_path

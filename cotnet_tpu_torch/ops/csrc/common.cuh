@@ -8,6 +8,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -39,6 +40,10 @@ struct Geometry {
   int n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw;
 };
 
+// The C entries' dtype codes: 0 float32, 1 float16, 2 bfloat16; the size
+// of one element.
+inline int elem_size(int dtype) { return dtype == 0 ? 4 : 2; }
+
 constexpr int kThreads = 256;
 
 // Blocks of kThreads threads for one thread per element; false when the
@@ -61,23 +66,34 @@ __device__ __forceinline__ float warp_sum(float v) {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// Halo tiles: what the aggregation forward (local_agg_fwd.cu) and its dx
-// kernel (local_agg_bwd.cu) share.
+// Halo tiles: what the aggregation forward (local_agg_fwd.cu) and its dx and
+// dw kernels (local_agg_bwd.cu) share.
 //
-// Both compute, at each position of an output "plane", a sum over the K*K
-// taps of a weight times a source element at a shifted position, for each
-// of the G = C/Cw channels that share one weight channel.  A block owns
-// ``planes`` whole planes (small maps) or one plane's tile of ``rows`` rows
-// (large maps); a thread item is V neighbouring positions of one row, ``q``
-// items a row.  The block walks the G channel groups (times the heads, for
-// dx); for each, it stages the source rows the tile reads, halo included,
-// in shared memory, kStages groups deep.  Shared memory holds each source
-// row at a fixed ``stride`` with ``pl`` zero columns before it and zero
-// columns after it, and a row outside the image as zeros: the zeros are
-// written once, when the block starts, and the stages copy only the image's
-// rows, with cp.async in units of 16, 8 or 4 bytes (``unit``, the widest
-// that every row start allows; 0: element by element).  So the taps read
-// shared memory without a mask: the padding is the zeros.
+// All three compute, at each position of an output "plane", a sum over the
+// G = C/Cw channels that share one weight channel: the forward and dx sum
+// K*K taps of a weight times a source element at a shifted position; dw
+// keeps the K*K taps apart, each the product of x at the shifted position
+// and dy at the position itself.  A block owns ``planes`` whole planes
+// (small maps) or one plane's tile of ``rows`` rows (large maps); a thread
+// item is V neighbouring positions of one row, ``q`` items a row.  The
+// block walks the G channel groups (times the heads, for dx); for each, it
+// stages the source rows the tile reads, halo included, in shared memory,
+// kStages groups deep (dw stages dy's ``rows`` rows besides, after the
+// halo tile).  Shared memory holds each source row at a fixed ``stride``
+// with ``pl`` zero columns before it and zero columns after it, and a row
+// outside the image as zeros: the zeros are written once, when the block
+// starts, and the stages copy only the image's rows, with cp.async in
+// units of 16, 8 or 4 bytes (``unit``, the widest that every row start
+// allows; 0: element by element).  So the taps read shared memory without
+// a mask: the padding is the zeros.
+//
+// Three routes, chosen before any launch from the geometry alone
+// (agg_route): ``k3``, the tiles with K = 3 at dilation 1 and column
+// padding 1 compile-time and unrolled (every main path); ``general``, the
+// tiles with runtime K <= kMaxK; and ``pointwise``, one thread per output
+// with no limit on K, width or dilation, for every geometry whose tiles do
+// not fit (K > kMaxK, a row of more than kMaxThreads items, a halo tile
+// beyond a block's shared memory, offsets beyond 32 bits).
 
 namespace {
 
@@ -85,9 +101,14 @@ constexpr int kMaxThreads = 512;   // threads of a block, at most
 constexpr int kMaxPlanes = 32;     // planes of a block, at most
 constexpr int kStages = 4;         // channel groups in shared memory at once
 constexpr int kMaxK = 7;           // the general instantiation's largest K
-constexpr int kTargetItems = 128;  // a block's thread items, at most
+constexpr int kTargetItems = 128;  // a forward or dx block's thread items
+// dw's: its stage holds dy's rows besides x's halo tile, and the card ran
+// it faster with whole 28x28 planes in a block (fewer halo rows and block
+// prologues), within 3% at the other maps
+constexpr int kDwTargetItems = 256;
 constexpr int kSmemAim = 48 * 1024;  // a block's shared memory, when it can
 constexpr int kMaxSmem = 232448;   // shared memory of one block on sm_90
+constexpr int kStaticSmem = 1024;  // a kernel's static shared memory, at most
 
 struct Tiling {
   int q, rows, tiles, planes;  // items a row, rows a tile, tiles, planes
@@ -96,34 +117,39 @@ struct Tiling {
 };
 
 // The tiling of ``plane_count`` planes of out_h x out_w positions, V =
-// ``vec`` positions a thread item.  A tile of R rows reads R + ``halo``
+// ``vec`` positions a thread item, at most ``items`` thread items a block
+// (kMaxThreads where one row is wider).  A tile of R rows reads R + ``halo``
 // rows of a src_h x src_w source plane of ``elem``-byte elements, and an
 // item at positions [c, c + V) reads source columns [c + col_lo,
-// c + V - 1 + col_hi].  ``unit``: the staging copy unit in bytes.  False
-// when no block can hold one row (a row wider than kMaxThreads items, or
-// its stages larger than a block's shared memory) or the grid is too large.
+// c + V - 1 + col_hi]; with ``own_rows`` a stage also holds the tile's R
+// rows of an out_h x out_w plane (dw's dy), q * V columns each, after the
+// halo tile.  ``unit``: the staging copy unit in bytes.  False when no
+// block can hold one row (a row wider than kMaxThreads items, or its stages
+// larger than a block's shared memory) or the grid is too large.
 inline bool plan_tiles(int64_t plane_count, int out_h, int out_w, int src_h,
-                       int src_w, int halo, int col_lo, int col_hi, int elem,
-                       int vec, int unit, Tiling* t, unsigned* blocks,
-                       unsigned* threads, size_t* smem) {
+                       int src_w, int halo, bool own_rows, int col_lo,
+                       int col_hi, int elem, int vec, int items, int unit,
+                       Tiling* t, unsigned* blocks, unsigned* threads,
+                       size_t* smem) {
   if (plane_count <= 0 || out_h <= 0 || out_w <= 0) return false;
   const int q = (out_w + vec - 1) / vec;
   if (q > kMaxThreads) return false;
   const int per16 = 16 / elem;  // elements of 16 bytes
   const int pl = (std::max(0, -col_lo) + per16 - 1) / per16 * per16;
   const int pr = std::max(0, q * vec - 1 + col_hi - (src_w - 1));
-  const int64_t stride =
-      (int64_t(pl) + src_w + pr + per16 - 1) / per16 * per16;
-  // whole rows up to kTargetItems items: a tile of one plane's rows, or
-  // at a map of fewer rows, whole planes
-  const int per_block = std::max(1, kTargetItems / q);
+  const int64_t stride = std::max<int64_t>(
+      (int64_t(pl) + src_w + pr + per16 - 1) / per16 * per16,
+      own_rows ? (int64_t(q) * vec + per16 - 1) / per16 * per16 : 0);
+  // whole rows up to ``items`` items: a tile of one plane's rows, or at a
+  // map of fewer rows, whole planes
+  const int per_block = std::max(1, items / q);
   int rows = std::min(per_block, out_h), planes = 1;
   if (per_block > out_h) {
     planes = std::max(1, std::min(per_block / out_h, kMaxPlanes));
   }
   int64_t region;
   for (;;) {
-    region = (rows + int64_t(halo)) * stride * elem;
+    region = (rows * (own_rows ? 2 : 1) + int64_t(halo)) * stride * elem;
     if (kStages * planes * region <= kSmemAim || (planes == 1 && rows == 1))
       break;
     if (planes > 1) {
@@ -135,7 +161,7 @@ inline bool plan_tiles(int64_t plane_count, int out_h, int out_w, int src_h,
   const int64_t bytes = kStages * planes * region;
   const int tiles = (out_h + rows - 1) / rows;
   const int64_t count = (plane_count + planes - 1) / planes * tiles;
-  if (bytes > kMaxSmem || count > 0x7fffffff) return false;
+  if (bytes > kMaxSmem - kStaticSmem || count > 0x7fffffff) return false;
   *t = Tiling{q, rows, tiles, planes, rows + halo, int(stride), pl,
               int(region), unit};
   *blocks = unsigned(count);
@@ -151,23 +177,65 @@ inline int copy_unit(const void* base, int64_t row_bytes) {
   return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 0;
 }
 
-// Opt a kernel in to more than the default 48 KB of dynamic shared memory
-// when a launch needs it.
+// Opt a kernel in to more dynamic shared memory than the default allows
+// (48 KB with its static shared memory) when a launch needs it.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+  if (smem + kStaticSmem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
 }
 
-// The instantiation a geometry takes: 3 for K = 3 at dilation 1 and
-// column padding 1 (every main path), 0 for the general one (any K up to
-// kMaxK), -1 for none.
-inline int agg_variant(int kh, int kw, int dh, int dw, int pw) {
-  if (kh == 3 && kw == 3 && dh == 1 && dw == 1 && pw == 1) return 3;
-  if (kh >= 1 && kw >= 1 && kh <= kMaxK && kw <= kMaxK && dh >= 1 && dw >= 1)
-    return 0;
-  return -1;
+// The three kernels of the halo tiles, and their routes (the numbers the
+// C entries *_variant return).
+enum AggKernel { kAggFwd, kAggDx, kAggDw };
+constexpr int kRouteGeneral = 0;
+constexpr int kRoutePointwise = 1;
+constexpr int kRouteK3 = 3;
+
+// The tiling of ``kernel``'s tiled routes at geometry g: the forward and dw
+// tile the output (Ho x Wo) over x's halo rows, one plane per (n, head, cw)
+// (dw staging dy's rows besides); dx tiles dx (Hi x Wi) over dy's halo
+// rows, one plane per (n, cw).
+inline bool plan_agg(AggKernel kernel, const Geometry& g, int elem, int vec,
+                     int unit, Tiling* t, unsigned* blocks, unsigned* threads,
+                     size_t* smem) {
+  const int halo = (g.kh - 1) * g.dh;
+  if (kernel == kAggDx) {
+    return plan_tiles(int64_t(g.n) * g.cw, g.hi, g.wi, g.ho, g.wo, halo,
+                      false, g.pw - (g.kw - 1) * g.dw, g.pw, elem, vec,
+                      kTargetItems, unit, t, blocks, threads, smem);
+  }
+  const bool dw = kernel == kAggDw;
+  return plan_tiles(int64_t(g.n) * g.heads * g.cw, g.ho, g.wo, g.hi, g.wi,
+                    halo, dw, -g.pw, (g.kw - 1) * g.dw - g.pw, elem, vec,
+                    dw ? kDwTargetItems : kTargetItems, unit, t, blocks,
+                    threads, smem);
+}
+
+// The route a launch of ``kernel`` at geometry g with ``elem``-byte
+// elements takes: kRouteK3 for K = 3 at dilation 1 and column padding 1
+// (and, for dx, one head) when its tiles fit; kRouteGeneral for any K up
+// to kMaxK when its tiles fit; kRoutePointwise for every other geometry.
+inline int agg_route(AggKernel kernel, const Geometry& g, int elem) {
+  const bool k3 = g.kh == 3 && g.kw == 3 && g.dh == 1 && g.dw == 1 &&
+                  g.pw == 1 && (kernel != kAggDx || g.heads == 1);
+  const bool general = g.kh >= 1 && g.kw >= 1 && g.kh <= kMaxK &&
+                       g.kw <= kMaxK && g.dh >= 1 && g.dw >= 1;
+  // the tiled kernels' offsets within a plane (and within a weight
+  // channel's K*K planes) and their plane numbers are 32-bit
+  const bool narrow = int64_t(g.hi) * g.wi <= INT_MAX &&
+                      int64_t(g.kh) * g.kw * g.ho * g.wo <= INT_MAX &&
+                      int64_t(g.n) * g.heads * g.cw <= INT_MAX;
+  if (!(k3 || general) || !narrow) return kRoutePointwise;
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_agg(kernel, g, elem, k3 ? 4 : 1, 0, &t, &blocks, &threads,
+                &smem)) {
+    return kRoutePointwise;
+  }
+  return k3 ? kRouteK3 : kRouteGeneral;
 }
 
 template <int BYTES>

@@ -73,18 +73,45 @@
 //   path), and a general one (runtime K <= kMaxK, dilation, padding, heads;
 //   V = 1), which reads the weights of each head again for every channel
 //   group.
-// dw and the affine dw keep the first design, one thread per output
-// element, neighbouring threads on neighbouring addresses.  The affine dw:
-// one block per (n, head, cw, tap) row of ds and db; its threads stride
-// over the row's Ho*Wo positions, store dw, and keep private f32 sums that
-// the block then reduces through warp shuffles and shared memory in a fixed
-// order.  The TPU kernel reduces a whole image inside one grid step; here
-// the row's owner is the block.  Each output has exactly one owner: no
-// atomics, and the result is deterministic.  Left for later: one launch
-// that reads dy once for dx and dw, and shared-memory tiles for dw (its K*K
-// taps re-read the same x and dy planes through L1/L2).
-
-#include <climits>
+// dw (the halo tiles of common.cuh; the forward's design with the roles of
+// the weight and the output swapped, each byte of x (per head), dy and dw
+// read or written from HBM once):
+// - A block owns one (n, head, cw) plane, whose dw rows sum the G = C/Cw
+//   channels c = cw + g*Cw, and a tile of whole rows of it (at most
+//   kDwTargetItems thread items, twice the forward's: a whole 28x28 plane),
+//   or at small maps several planes: the forward's tiling, source x with
+//   its halo.
+// - A thread item is V neighbouring positions of one row.  It keeps the
+//   K*K x V f32 sums of its dw elements in registers (36 at K = 3, V = 4:
+//   the count of weights the forward holds there).
+// - The block walks the G groups in order.  For each it stages x's halo
+//   tile and dy's rows of the tile (no halo) in one cp.async stage,
+//   kStages deep, between the zero columns and zero rows written once; a
+//   thread reads its V dy values and, tap row by tap row, its x columns,
+//   and adds x * dy, both widened to f32, to each tap's sums.
+// - At the end each of the K*K rows of the thread's positions is stored
+//   once, rounded once, in the widest stores the alignment allows.  Every
+//   dw element has one owner, which sums the groups in order g = 0..G-1 as
+//   the pointwise kernel does: no atomics, deterministic.
+// - The same two instantiations as the forward (K = 3 at dilation 1 and
+//   column padding 1, V = 4, held to 64 registers; general, V = 1).
+// dx and dw each have a third route for the geometries their tiles do not
+// take (K > kMaxK, a row of more than kMaxThreads items, a halo tile beyond
+// shared memory): one thread per output element, the fastest-varying index
+// on the thread index, the taps read through L1/L2 with no limit on K,
+// width or dilation (local_agg_bwd_dx_pointwise, local_agg_bwd_dw_pointwise).
+// The launcher picks the route from the geometry before it launches
+// (agg_route, common.cuh) and launches exactly that kernel.
+// The affine dw keeps the first design, one thread per output element,
+// neighbouring threads on neighbouring addresses: one block per (n, head,
+// cw, tap) row of ds and db; its threads stride over the row's Ho*Wo
+// positions, store dw, and keep private f32 sums that the block then
+// reduces through warp shuffles and shared memory in a fixed order.  The
+// TPU kernel reduces a whole image inside one grid step; here the row's
+// owner is the block.  Each output has exactly one owner: no atomics, and
+// the result is deterministic.  Left for later: one launch that reads dy
+// once for dx and dw, and halo tiles for the affine dw (its ds and db sum
+// across a plane's row tiles).
 
 #include "common.cuh"
 
@@ -295,6 +322,208 @@ __global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
   }
 }
 
+// The pointwise route of dx, for the geometries the tiles do not take.  w,
+// s, b, dy, dx as above; one thread per dx element.
+template <typename T, bool AFFINE>
+__global__ void __launch_bounds__(kThreads)
+    local_agg_bwd_dx_pointwise(const T* __restrict__ w,
+                               const float* __restrict__ s,
+                               const float* __restrict__ b,
+                               const T* __restrict__ dy, T* __restrict__ dx,
+                               Geometry g) {
+  const int64_t total = int64_t(g.n) * g.c * g.hi * g.wi;
+  const int64_t idx = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int col = int(idx % g.wi);
+  int64_t r = idx / g.wi;
+  const int h = int(r % g.hi);
+  r /= g.hi;
+  const int c = int(r % g.c);
+  const int n = int(r / g.c);
+
+  const int k2 = g.kh * g.kw;
+  const int64_t plane = int64_t(g.ho) * g.wo;
+  float acc = 0.f;
+  for (int head = 0; head < g.heads; ++head) {
+    const int64_t nh = int64_t(n) * g.heads + head;
+    const T* dyp = dy + (nh * g.c + c) * plane;
+    // (n, head, c % Cw, tap 0): the row of s/b, and of w in units of a plane
+    const int64_t row = (nh * g.cw + c % g.cw) * k2;
+    const T* wp = w + row * plane;
+    for (int i = 0; i < g.kh; ++i) {
+      const int ho = h + g.ph - i * g.dh;
+      if (ho < 0 || ho >= g.ho) continue;
+      for (int j = 0; j < g.kw; ++j) {
+        const int wo = col + g.pw - j * g.dw;
+        if (wo < 0 || wo >= g.wo) continue;
+        const int64_t at = int64_t(ho) * g.wo + wo;
+        const int k = i * g.kw + j;
+        float wk = to_f32(wp[k * plane + at]);
+        if (AFFINE) wk = wk * s[row + k] + b[row + k];
+        acc += to_f32(dyp[at]) * wk;
+      }
+    }
+  }
+  dx[idx] = from_f32<T>(acc);
+}
+
+// x [N, C, Hi, Wi]; dy [N, heads*C, Ho, Wo];
+// dw [N, heads, Cw, Kh*Kw, Ho, Wo].  The halo tiles of common.cuh with the
+// forward's planes and tiles (source x, halo included), a stage holding
+// dy's rows of the tile besides, after x's halo tile, copied in units of
+// ``dy_unit`` bytes.  KC = 3: K = 3 at dilation 1; KC = 0: any K up to
+// kMaxK.  The K = 3 instantiation is held to 64 registers, as the
+// forward's.
+template <typename T, int KC>
+__global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
+    local_agg_bwd_dw(const T* __restrict__ x, const T* __restrict__ dy,
+                     T* __restrict__ dw, Geometry g, Tiling t, int dy_unit) {
+  constexpr int KT = KC == 3 ? 3 : kMaxK;        // taps unrolled per axis
+  constexpr int V = KC == 3 ? 4 : 1;             // positions of an item
+  constexpr int NE = KC == 3 ? V + KT - 1 : KT;  // x columns an item reads
+  const int kh = KC == 3 ? 3 : g.kh, kw = KC == 3 ? 3 : g.kw;
+  const int dil_h = KC == 3 ? 1 : g.dh, dil_w = KC == 3 ? 1 : g.dw;
+  const int k2 = kh * kw;
+  const int hw_in = g.hi * g.wi, hw_out = g.ho * g.wo;
+
+  extern __shared__ __align__(16) char stages[];
+  __shared__ const T* x_src[kMaxPlanes];
+  __shared__ const T* dy_src[kMaxPlanes];
+
+  // the block: planes plane0 .. plane0 + t.planes - 1 and rows r0 ..
+  // r0 + t.rows - 1; staged row 0 is x row ``first``, x's rows [h_lo, h_hi)
+  // are the image's among the staged ones, and dy's rows [r0, y_hi) follow
+  // them at staged row t.staged
+  const int tile = blockIdx.x % t.tiles;
+  const int plane0 = int(blockIdx.x / t.tiles) * t.planes;
+  const int planes = g.n * g.heads * g.cw;  // < 2^31: checked at launch
+  const int r0 = tile * t.rows;
+  const int first = r0 - g.ph;
+  const int h_lo = max(0, first), h_hi = min(g.hi, first + t.staged);
+  const int y_hi = min(g.ho, r0 + t.rows);
+  if (threadIdx.x < t.planes) {
+    // plane (n * heads + head) * Cw + cw reads x channels n*C + cw + g*Cw
+    // and dy channels (n * heads + head)*C + cw + g*Cw
+    const int plane = plane0 + threadIdx.x;
+    const T* xp = nullptr;
+    const T* yp = nullptr;
+    if (plane < planes) {
+      const int nh = plane / g.cw;
+      const int cw = plane - nh * g.cw;
+      xp = x + (int64_t(nh / g.heads) * g.c + cw) * hw_in;
+      yp = dy + (int64_t(nh) * g.c + cw) * hw_out;
+    }
+    x_src[threadIdx.x] = xp;
+    dy_src[threadIdx.x] = yp;
+  }
+  zero_stages(stages, kStages * t.planes * t.region);
+
+  // the thread: plane p of the block, row ho, positions wo0 .. wo0 + nv - 1
+  const int items = t.rows * t.q;
+  const int p = threadIdx.x / items;
+  const int rem = threadIdx.x - p * items;
+  const int row = rem / t.q;
+  const int wo0 = (rem - row * t.q) * V;
+  const int ho = r0 + row;
+  const int plane = plane0 + p;
+  const bool active = p < t.planes && plane < planes && ho < g.ho;
+  const int nv = min(V, g.wo - wo0);
+  // where tap (0, 0) of position 0 reads x, and where position 0 reads dy,
+  // in the plane's stage
+  const int region = t.region / int(sizeof(T));
+  const int x_base = p * region + row * t.stride + t.pl + wo0 - g.pw;
+  const int dy_base = p * region + (t.staged + row) * t.stride + wo0;
+  // dy's rows sit after x's halo tile, with no zero columns before them
+  Tiling ty = t;
+  ty.pl = 0;
+  ty.unit = dy_unit;
+  const int dy_at = t.staged * t.stride * int(sizeof(T));
+
+  float acc[KT * KT][V];
+#pragma unroll
+  for (int k = 0; k < KT * KT; ++k) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[k][v] = 0.f;
+  }
+  __syncthreads();  // x_src[], dy_src[], the zeros
+
+  const int groups = g.c / g.cw;
+  const int64_t x_step = int64_t(g.cw) * hw_in;  // channel c to c + Cw
+  const int64_t dy_step = int64_t(g.cw) * hw_out;
+  const int stage_bytes = t.planes * t.region;
+#pragma unroll 1
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < groups) {
+      char* buf = stages + st * stage_bytes;
+      stage_rows(buf, t, x_src, st * x_step, h_lo, h_hi, first, g.wi);
+      stage_rows(buf + dy_at, ty, dy_src, st * dy_step, r0, y_hi, r0, g.wo);
+    }
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int grp = 0; grp < groups; ++grp) {
+    cp_async_wait<kStages - 2>();  // this group's stage has landed
+    // every thread is past the previous group's sums, so its buffer is free
+    __syncthreads();
+    const int ahead = grp + kStages - 1;
+    if (ahead < groups) {
+      char* buf = stages + (ahead % kStages) * stage_bytes;
+      stage_rows(buf, t, x_src, ahead * x_step, h_lo, h_hi, first, g.wi);
+      stage_rows(buf + dy_at, ty, dy_src, ahead * dy_step, r0, y_hi, r0,
+                 g.wo);
+    }
+    cp_async_commit();
+    if (active) {
+      const T* buf =
+          reinterpret_cast<const T*>(stages + (grp % kStages) * stage_bytes);
+      float ys[V];
+      if constexpr (V == 1) {
+        ys[0] = to_f32(buf[dy_base]);
+      } else {
+        load_pieces<V * int(sizeof(T))>(buf + dy_base, ys);
+      }
+#pragma unroll
+      for (int i = 0; i < KT; ++i) {
+        if (i < kh) {
+          const T* rp = buf + x_base + i * dil_h * t.stride;
+          // K = 3: the item's V + 2 columns from the even one before them
+          // (pad 1 makes ``rp`` odd), in V/2 + 2 loads of two
+          float xs[KC == 3 ? NE + 2 : NE];
+          if constexpr (KC == 3) {
+            load_pairs<T, V / 2 + 2>(rp - 1, xs);
+          } else {
+#pragma unroll
+            for (int e = 0; e < NE; ++e) {
+              xs[e] = e < kw ? to_f32(rp[e * dil_w]) : 0.f;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < KT; ++j) {
+            if (j < kw) {
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                acc[i * KT + j][v] += xs[KC == 3 ? v + j + 1 : j] * ys[v];
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  if (active) {
+    T* dwp = dw + int64_t(plane) * k2 * hw_out + ho * g.wo + wo0;
+#pragma unroll
+    for (int i = 0; i < KT; ++i) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        if (i < kh && j < kw) {
+          store_vec<T, V>(dwp + (i * kw + j) * hw_out, nv, acc[i * KT + j]);
+        }
+      }
+    }
+  }
+}
+
 // The gradient of the (normalized) weight at one element:
 // sum over the C/Cw channel groups of x's tap times dy; 0 for a tap outside
 // the image.
@@ -322,12 +551,13 @@ __device__ __forceinline__ float weight_grad(const T* __restrict__ x,
   return acc;
 }
 
-// x [N, C, Hi, Wi]; dy [N, heads*C, Ho, Wo];
-// dw [N, heads, Cw, Kh*Kw, Ho, Wo].  One thread per dw element.
+// The pointwise route of dw, for the geometries the tiles do not take.  x,
+// dy, dw as above; one thread per dw element.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    local_agg_bwd_dw(const T* __restrict__ x, const T* __restrict__ dy,
-                     T* __restrict__ dw, Geometry g) {
+    local_agg_bwd_dw_pointwise(const T* __restrict__ x,
+                               const T* __restrict__ dy, T* __restrict__ dw,
+                               Geometry g) {
   const int k2 = g.kh * g.kw;
   const int64_t total = int64_t(g.n) * g.heads * g.cw * k2 * g.ho * g.wo;
   const int64_t idx = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -398,13 +628,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dx's instantiation: the forward's, but K = 3 only with one head (every
-// main path), whose weights it reads once.
-inline int dx_variant(const Geometry& g) {
-  const int v = agg_variant(g.kh, g.kw, g.dh, g.dw, g.pw);
-  return v == 3 && g.heads != 1 ? 0 : v;
-}
-
 template <typename T, bool AFFINE, int KC>
 int launch_dx_variant(const void* w, const void* s, const void* b,
                       const void* dy, void* dx, const Geometry& g,
@@ -413,11 +636,9 @@ int launch_dx_variant(const void* w, const void* s, const void* b,
   Tiling t;
   unsigned blocks, threads;
   size_t smem;
-  if (!plan_tiles(int64_t(g.n) * g.cw, g.hi, g.wi, g.ho, g.wo,
-                  (g.kh - 1) * g.dh, g.pw - (g.kw - 1) * g.dw, g.pw,
-                  int(sizeof(T)), V,
-                  copy_unit(dy, int64_t(g.wo) * int(sizeof(T))), &t, &blocks,
-                  &threads, &smem)) {
+  if (!plan_agg(kAggDx, g, int(sizeof(T)), V,
+                copy_unit(dy, int64_t(g.wo) * int(sizeof(T))), &t, &blocks,
+                &threads, &smem)) {
     return int(cudaErrorInvalidConfiguration);
   }
   const auto kernel = local_agg_bwd_dx<T, AFFINE, KC>;
@@ -433,21 +654,69 @@ int launch_dx_variant(const void* w, const void* s, const void* b,
 template <typename T, bool AFFINE>
 int launch_dx(const void* w, const void* s, const void* b, const void* dy,
               void* dx, const Geometry& g, cudaStream_t stream) {
-  if (int64_t(g.n) * g.c * g.hi * g.wi == 0) return int(cudaSuccess);
-  // offsets within a plane (and within a weight channel's K*K planes) are
-  // 32-bit
-  if (int64_t(g.hi) * g.wi > INT_MAX ||
-      int64_t(g.kh) * g.kw * g.ho * g.wo > INT_MAX ||
-      int64_t(g.n) * g.heads * g.cw > INT_MAX) {
+  const int64_t total = int64_t(g.n) * g.c * g.hi * g.wi;
+  if (total == 0) return int(cudaSuccess);
+  switch (agg_route(kAggDx, g, int(sizeof(T)))) {
+    case kRouteK3:
+      return launch_dx_variant<T, AFFINE, 3>(w, s, b, dy, dx, g, stream);
+    case kRouteGeneral:
+      return launch_dx_variant<T, AFFINE, 0>(w, s, b, dy, dx, g, stream);
+    default: {
+      unsigned blocks;
+      if (!grid_for(total, &blocks)) {
+        return int(cudaErrorInvalidConfiguration);
+      }
+      local_agg_bwd_dx_pointwise<T, AFFINE><<<blocks, kThreads, 0, stream>>>(
+          static_cast<const T*>(w), static_cast<const float*>(s),
+          static_cast<const float*>(b), static_cast<const T*>(dy),
+          static_cast<T*>(dx), g);
+      return int(cudaGetLastError());
+    }
+  }
+}
+
+template <typename T, int KC>
+int launch_dw_variant(const void* x, const void* dy, void* dw,
+                      const Geometry& g, cudaStream_t stream) {
+  constexpr int V = KC == 3 ? 4 : 1;
+  const int elem = int(sizeof(T));
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_agg(kAggDw, g, elem, V, copy_unit(x, int64_t(g.wi) * elem), &t,
+                &blocks, &threads, &smem)) {
     return int(cudaErrorInvalidConfiguration);
   }
-  switch (dx_variant(g)) {
-    case 3:
-      return launch_dx_variant<T, AFFINE, 3>(w, s, b, dy, dx, g, stream);
-    case 0:
-      return launch_dx_variant<T, AFFINE, 0>(w, s, b, dy, dx, g, stream);
-    default:
-      return int(cudaErrorInvalidValue);
+  const auto kernel = local_agg_bwd_dw<T, KC>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<T*>(dw), g, t, copy_unit(dy, int64_t(g.wo) * elem));
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dw(const void* x, const void* dy, void* dw, const Geometry& g,
+              cudaStream_t stream) {
+  const int64_t total =
+      int64_t(g.n) * g.heads * g.cw * g.kh * g.kw * g.ho * g.wo;
+  if (total == 0) return int(cudaSuccess);
+  switch (agg_route(kAggDw, g, int(sizeof(T)))) {
+    case kRouteK3:
+      return launch_dw_variant<T, 3>(x, dy, dw, g, stream);
+    case kRouteGeneral:
+      return launch_dw_variant<T, 0>(x, dy, dw, g, stream);
+    default: {
+      unsigned blocks;
+      if (!grid_for(total, &blocks)) {
+        return int(cudaErrorInvalidConfiguration);
+      }
+      local_agg_bwd_dw_pointwise<T><<<blocks, kThreads, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(dy),
+          static_cast<T*>(dw), g);
+      return int(cudaGetLastError());
+    }
   }
 }
 
@@ -458,19 +727,7 @@ int launch(const void* x, const void* w, const void* dy, void* dx, void* dw,
     const int err = launch_dx<T, false>(w, nullptr, nullptr, dy, dx, g, stream);
     if (err != int(cudaSuccess)) return err;
   }
-  if (dw != nullptr) {
-    const int64_t total =
-        int64_t(g.n) * g.heads * g.cw * g.kh * g.kw * g.ho * g.wo;
-    unsigned blocks;
-    if (!grid_for(total, &blocks)) return int(cudaErrorInvalidConfiguration);
-    if (total > 0) {
-      local_agg_bwd_dw<T><<<blocks, kThreads, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(dy),
-          static_cast<T*>(dw), g);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return int(err);
-    }
-  }
+  if (dw != nullptr) return launch_dw<T>(x, dy, dw, g, stream);
   return int(cudaSuccess);
 }
 
@@ -556,12 +813,22 @@ extern "C" int local_agg_bwd_affine_launch(
   }
 }
 
-// The instantiation a dx launch at this geometry runs: 3 (K = 3, dilation
-// 1, column padding 1, one head), 0 (the general one) or -1 (none: the
-// launch is refused).
-extern "C" int local_agg_bwd_dx_variant(int kh, int kw, int dh, int dw,
-                                        int pw, int heads) {
-  Geometry g{};
-  g.kh = kh, g.kw = kw, g.dh = dh, g.dw = dw, g.pw = pw, g.heads = heads;
-  return dx_variant(g);
+// The route a dx or dw launch at this geometry runs, decided as the
+// launcher decides it: 3 (k3: K = 3, dilation 1, column padding 1; for dx
+// one head too), 0 (general: K up to kMaxK) or 1 (pointwise: every geometry
+// whose tiles do not fit).  dtype as above.
+extern "C" int local_agg_bwd_dx_variant(int dtype, int n, int c, int hi,
+                                        int wi, int heads, int cw, int kh,
+                                        int kw, int ho, int wo, int ph,
+                                        int pw, int dh, int dw) {
+  const Geometry g{n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw};
+  return agg_route(kAggDx, g, elem_size(dtype));
+}
+
+extern "C" int local_agg_bwd_dw_variant(int dtype, int n, int c, int hi,
+                                        int wi, int heads, int cw, int kh,
+                                        int kw, int ho, int wo, int ph,
+                                        int pw, int dh, int dw) {
+  const Geometry g{n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw};
+  return agg_route(kAggDw, g, elem_size(dtype));
 }

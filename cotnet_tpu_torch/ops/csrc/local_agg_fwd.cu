@@ -52,12 +52,13 @@
 // Two instantiations: K = 3 at dilation 1 and column padding 1, compile-
 // time and fully unrolled (every main path), V = 4, at most 64 registers;
 // and a general one, runtime K <= kMaxK, dilation, padding and heads, V =
-// 1, its 7x7 taps unrolled under runtime guards.  The launcher picks one
-// from the geometry (agg_variant).  A row of more than kMaxThreads items
-// or a halo tile beyond shared memory is refused with
-// cudaErrorInvalidConfiguration.
-
-#include <climits>
+// 1, its 7x7 taps unrolled under runtime guards.  A geometry whose tiles do
+// not fit (K > kMaxK, a row of more than kMaxThreads items, a halo tile
+// beyond shared memory) takes a third route, local_agg_fwd_pointwise: one
+// thread per output, wo fastest, its taps read through L1/L2, with no
+// limit on K, width or dilation.  The launcher picks the route from the
+// geometry before it launches (agg_route, common.cuh) and launches exactly
+// that kernel.
 
 #include "common.cuh"
 
@@ -211,6 +212,67 @@ __global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
   }
 }
 
+// The pointwise route, for the geometries the tiles do not take.  x, w, s,
+// b, out as above; one thread per output element, wo fastest, so
+// neighbouring threads read neighbouring x and w addresses.
+template <typename T, bool AFFINE>
+__global__ void __launch_bounds__(kThreads)
+    local_agg_fwd_pointwise(const T* __restrict__ x, const T* __restrict__ w,
+                            const float* __restrict__ s,
+                            const float* __restrict__ b, T* __restrict__ out,
+                            Geometry g) {
+  const int64_t total = int64_t(g.n) * g.heads * g.c * g.ho * g.wo;
+  const int64_t idx = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int wo = int(idx % g.wo);
+  int64_t r = idx / g.wo;
+  const int ho = int(r % g.ho);
+  r /= g.ho;
+  const int c = int(r % g.c);
+  r /= g.c;
+  const int head = int(r % g.heads);
+  const int n = int(r / g.heads);
+
+  const int k2 = g.kh * g.kw;
+  const int64_t plane = int64_t(g.ho) * g.wo;
+  // (n, head, c % Cw, tap 0): the row of s/b, and of w in units of a plane
+  const int64_t row = ((int64_t(n) * g.heads + head) * g.cw + c % g.cw) * k2;
+  const T* wp = w + row * plane + int64_t(ho) * g.wo + wo;
+  const T* xp = x + (int64_t(n) * g.c + c) * g.hi * g.wi;
+
+  float acc = 0.f;
+  for (int i = 0; i < g.kh; ++i) {
+    const int h = ho - g.ph + i * g.dh;
+    const bool h_in = h >= 0 && h < g.hi;
+    for (int j = 0; j < g.kw; ++j) {
+      const int k = i * g.kw + j;
+      float wk = to_f32(wp[k * plane]);
+      if (AFFINE) wk = wk * s[row + k] + b[row + k];
+      const int col = wo - g.pw + j * g.dw;
+      const float xv = (h_in && col >= 0 && col < g.wi)
+                           ? to_f32(xp[int64_t(h) * g.wi + col])
+                           : 0.f;
+      acc += xv * wk;
+    }
+  }
+  out[idx] = from_f32<T>(acc);
+}
+
+template <typename T, bool AFFINE>
+int launch_pointwise(const void* x, const void* w, const void* s,
+                     const void* b, void* out, const Geometry& g,
+                     cudaStream_t stream) {
+  unsigned blocks;
+  if (!grid_for(int64_t(g.n) * g.heads * g.c * g.ho * g.wo, &blocks)) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  local_agg_fwd_pointwise<T, AFFINE><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const float*>(s), static_cast<const float*>(b),
+      static_cast<T*>(out), g);
+  return int(cudaGetLastError());
+}
+
 template <typename T, bool AFFINE, int KC>
 int launch(const void* x, const void* w, const void* s, const void* b,
            void* out, const Geometry& g, cudaStream_t stream) {
@@ -218,11 +280,9 @@ int launch(const void* x, const void* w, const void* s, const void* b,
   Tiling t;
   unsigned blocks, threads;
   size_t smem;
-  if (!plan_tiles(int64_t(g.n) * g.heads * g.cw, g.ho, g.wo, g.hi, g.wi,
-                  (g.kh - 1) * g.dh, -g.pw, (g.kw - 1) * g.dw - g.pw,
-                  int(sizeof(T)), V,
-                  copy_unit(x, int64_t(g.wi) * int(sizeof(T))), &t, &blocks,
-                  &threads, &smem)) {
+  if (!plan_agg(kAggFwd, g, int(sizeof(T)), V,
+                copy_unit(x, int64_t(g.wi) * int(sizeof(T))), &t, &blocks,
+                &threads, &smem)) {
     return int(cudaErrorInvalidConfiguration);
   }
   const auto kernel = local_agg_fwd<T, AFFINE, KC>;
@@ -242,22 +302,16 @@ int dispatch(int affine, const void* x, const void* w, const void* s,
   if (int64_t(g.n) * g.heads * g.c * g.ho * g.wo == 0) {
     return int(cudaSuccess);
   }
-  // offsets within a plane (and within a weight channel's K*K planes) are
-  // 32-bit
-  if (int64_t(g.hi) * g.wi > INT_MAX ||
-      int64_t(g.kh) * g.kw * g.ho * g.wo > INT_MAX ||
-      int64_t(g.n) * g.heads * g.cw > INT_MAX) {
-    return int(cudaErrorInvalidConfiguration);
-  }
-  switch (agg_variant(g.kh, g.kw, g.dh, g.dw, g.pw)) {
-    case 3:
+  switch (agg_route(kAggFwd, g, int(sizeof(T)))) {
+    case kRouteK3:
       return affine ? launch<T, true, 3>(x, w, s, b, out, g, stream)
                     : launch<T, false, 3>(x, w, s, b, out, g, stream);
-    case 0:
+    case kRouteGeneral:
       return affine ? launch<T, true, 0>(x, w, s, b, out, g, stream)
                     : launch<T, false, 0>(x, w, s, b, out, g, stream);
     default:
-      return int(cudaErrorInvalidValue);
+      return affine ? launch_pointwise<T, true>(x, w, s, b, out, g, stream)
+                    : launch_pointwise<T, false>(x, w, s, b, out, g, stream);
   }
 }
 
@@ -285,10 +339,13 @@ extern "C" int local_agg_fwd_launch(int dtype, int affine, const void* x,
   }
 }
 
-// The instantiation a launch at this geometry runs: 3 (K = 3, dilation 1,
-// column padding 1), 0 (the general one) or -1 (none: the launch is
-// refused).
-extern "C" int local_agg_fwd_variant(int kh, int kw, int dh, int dw,
-                                     int pw) {
-  return agg_variant(kh, kw, dh, dw, pw);
+// The route a launch at this geometry runs, decided as the launcher decides
+// it: 3 (k3: K = 3, dilation 1, column padding 1), 0 (general: K up to
+// kMaxK) or 1 (pointwise: every geometry whose tiles do not fit).
+extern "C" int local_agg_fwd_variant(int dtype, int n, int c, int hi, int wi,
+                                     int heads, int cw, int kh, int kw,
+                                     int ho, int wo, int ph, int pw, int dh,
+                                     int dw) {
+  const Geometry g{n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw};
+  return agg_route(kAggFwd, g, elem_size(dtype));
 }

@@ -27,7 +27,12 @@ Two implementations compute the function and its gradients:
   ``local_aggregate_bwd_affine_hopper``: the CUDA kernels
   ``csrc/local_agg_fwd.cu`` and ``csrc/local_agg_bwd.cu`` (one kernel for
   dx, one for dw, one for dw, ds and db together with the affine),
-  launched on PyTorch's current stream for CUDA tensors at stride 1.
+  launched on PyTorch's current stream for CUDA tensors at stride 1.  The
+  forward, dx and dw kernels each take one of three routes, which the
+  launcher picks from the geometry before it launches and
+  ``kernel_route`` reports: ``k3`` and ``general``, halo tiles in shared
+  memory (K = 3 at dilation 1 unrolled; any K up to 7), and ``pointwise``,
+  one thread per output, for every geometry whose tiles do not fit.
 
 ``local_aggregate`` is differentiable in x and w and, with the GroupNorm
 fold, in ``w_scale`` and ``w_bias`` (once: there is no double backward).
@@ -328,6 +333,31 @@ def _embed_gn_kernel():
                        [ctypes.c_int] + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 15 + [ctypes.c_float,
                                                 ctypes.c_void_p])
+
+
+# the route of a forward, dx or dw launch, by the code its library's
+# *_variant function returns for the geometry
+ROUTES = {3: "k3", 0: "general", 1: "pointwise"}
+_ROUTE_FUNCTIONS = {
+    "fwd": (_LIB_NAME, "local_agg_fwd_variant"),
+    "dx": (_BWD_LIB_NAME, "local_agg_bwd_dx_variant"),
+    "dw": (_BWD_LIB_NAME, "local_agg_bwd_dw_variant"),
+}
+
+
+def kernel_route(kernel: str, x, w, *, kernel_size, dilation,
+                 padding) -> str:
+    """The route (``"k3"``, ``"general"`` or ``"pointwise"``) that a launch
+    of ``kernel`` (``"fwd"``, ``"dx"`` or ``"dw"``; with the affine or
+    without) takes for x ``[N, C, Hi, Wi]`` and w ``[N, heads, Cw, K2, Ho,
+    Wo]`` in x's dtype, as the kernel's launcher decides it from the
+    geometry before it launches.  Builds the kernel's library."""
+    lib, name = _ROUTE_FUNCTIONS[kernel]
+    fn = _c_function(lib, name, [ctypes.c_int] * 15)
+    n, c, hi, wi = x.shape
+    _, heads, cw, _, ho, wo = w.shape
+    return ROUTES[fn(_DTYPE_CODES[x.dtype], n, c, hi, wi, heads, cw,
+                     *kernel_size, ho, wo, *padding, *dilation)]
 
 
 def reset_counts():

@@ -360,8 +360,6 @@ def test_fwd_dx_tiling_edges_match_plain_on_card(edge, dtype, affine):
     affine) against their plain versions at the edges of their tiling, one
     launch each and no plain call, and the instantiation each ran."""
     _need_cuda()
-    from cotnet_tpu_torch.ops import _build
-
     dt = getattr(torch, dtype)
     geometry = TILING_EDGES[edge]
     k, dil = geometry[6:]
@@ -380,11 +378,10 @@ def test_fwd_dx_tiling_edges_match_plain_on_card(edge, dtype, affine):
     assert (la.AFFINE_BWD_LAUNCHES if affine else la.BWD_LAUNCHES)["dx"] == 1
     assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
     heads = geometry[5]
-    assert _build.load("local_agg_fwd").local_agg_fwd_variant(
-        k, k, dil, dil, pad) == (3 if (k, dil) == (3, 1) else 0)
-    assert _build.load("local_agg_bwd").local_agg_bwd_dx_variant(
-        k, k, dil, dil, pad, heads) == (3 if (k, dil, heads) == (3, 1, 1)
-                                        else 0)
+    assert la.kernel_route("fwd", x, wt, **geo) == (
+        "k3" if (k, dil) == (3, 1) else "general")
+    assert la.kernel_route("dx", x, wt, **geo) == (
+        "k3" if (k, dil, heads) == (3, 1, 1) else "general")
     xp = torch.nn.functional.pad(x, (pad,) * 4)
     ref = la.local_aggregate_plain(xp, wt, (k, k), (1, 1), (dil, dil), s, b)
     torch.testing.assert_close(out.float(), ref.float(),
@@ -433,3 +430,117 @@ def test_fwd_dx_on_a_prepadded_input_match_plain_on_card(k, affine):
         torch.testing.assert_close(
             got.float(), want.float(),
             **dict(zip(("rtol", "atol"), _tolerance(torch.bfloat16, want))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("edge", sorted(TILING_EDGES))
+def test_dw_tiling_edges_match_plain_on_card(edge, dtype):
+    """The dw kernel's halo tiles against the plain backward at the edges
+    of their tiling (the forward's), one launch and no plain call, and the
+    route each took: ``k3`` at K = 3, dilation 1 (any heads), else
+    ``general``."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    geometry = TILING_EDGES[edge]
+    k, dil = geometry[6:]
+    pad = (dil * (k - 1) + 1) // 2
+    x, wt, _, _, dy = _edge_tensors(geometry, dt, False, seed=len(edge) + 1)
+    geo = dict(kernel_size=(k, k), dilation=(dil, dil), padding=(pad, pad))
+    la.reset_counts()
+    dw = la.local_aggregate_bwd_hopper(x, wt, dy, **geo, need_dx=False)[1]
+    torch.cuda.synchronize()
+    assert la.BWD_LAUNCHES == {"dx": 0, "dw": 1}
+    assert la.PLAIN_BWD_CALLS == 0
+    assert la.kernel_route("dw", x, wt, **geo) == (
+        "k3" if (k, dil) == (3, 1) else "general")
+    xp = torch.nn.functional.pad(x, (pad,) * 4)
+    ref = la.local_aggregate_bwd_plain(xp, wt, dy, (k, k), (dil, dil),
+                                       need_dx=False)[1]
+    torch.testing.assert_close(dw.float(), ref.float(),
+                               **dict(zip(("rtol", "atol"),
+                                          _tolerance(dt, ref))))
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_dw_on_a_prepadded_input_matches_plain_on_card(k):
+    """Hi != Ho: the reflect path hands dw a pre-padded x with pad 0 (the
+    general route).  dw against the plain backward there."""
+    _need_cuda()
+    n, c, cw, h, w = 2, 32, 8, 14, 13
+    pad = (k - 1) // 2
+    x, wt, _, _, dy = _edge_tensors((n, c, cw, h, w, 1, k, 1),
+                                    torch.bfloat16, False, seed=k + 10)
+    xp = torch.nn.functional.pad(x.float(), (pad,) * 4,
+                                 mode="reflect").to(x.dtype)
+    geo = dict(kernel_size=(k, k), dilation=(1, 1), padding=(0, 0))
+    dw = la.local_aggregate_bwd_hopper(xp, wt, dy, **geo, need_dx=False)[1]
+    torch.cuda.synchronize()
+    assert la.kernel_route("dw", xp, wt, **geo) == "general"
+    ref = la.local_aggregate_bwd_plain(xp, wt, dy, (k, k), (1, 1),
+                                       need_dx=False)[1]
+    torch.testing.assert_close(
+        dw.float(), ref.float(),
+        **dict(zip(("rtol", "atol"), _tolerance(torch.bfloat16, ref))))
+
+
+# (N, C, Cw, H, W, heads, K, dilation, dtype): geometries the halo tiles do
+# not take, which the forward, dx and dw run on their pointwise route: a
+# row of more than 512 thread items in the general instantiation (K = 5,
+# Wo = 513) and at K = 3 (Wo = 2049, 513 items of 4), K = 9 beyond the
+# general instantiation's 7, and a halo tile beyond a block's shared memory
+# (f32, K = 7 at dilation 8 on 16x256: 49 staged rows of 304 elements, four
+# stages, 238 KB of the 227 KB a block may have)
+BEYOND_TILES = {
+    "w513_k5": (1, 16, 8, 3, 513, 1, 5, 1, "bfloat16"),
+    "w513_k5_f32": (1, 16, 8, 3, 513, 1, 5, 1, "float32"),
+    "w2049_k3": (1, 16, 8, 2, 2049, 1, 3, 1, "bfloat16"),
+    "w2049_k3_f32": (1, 16, 8, 2, 2049, 1, 3, 1, "float32"),
+    "k9": (2, 16, 4, 13, 11, 1, 9, 1, "bfloat16"),
+    "k9_heads2_f32": (2, 16, 4, 13, 11, 2, 9, 1, "float32"),
+    "k7_dil8_f32": (1, 16, 8, 16, 256, 1, 7, 8, "float32"),
+}
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("edge", sorted(BEYOND_TILES))
+def test_geometries_beyond_the_tiles_match_plain_on_card(edge, affine):
+    """The forward, dx and dw (with the affine: dw, ds and db) against their
+    plain versions at the geometries the halo tiles do not take, one launch
+    of each and no plain call; the forward, dx and dw launchers take the
+    pointwise route there."""
+    _need_cuda()
+    *geometry, dtype = BEYOND_TILES[edge]
+    dt = getattr(torch, dtype)
+    k, dil = geometry[6:]
+    pad = (dil * (k - 1) + 1) // 2
+    x, wt, s, b, dy = _edge_tensors(geometry, dt, affine, seed=len(edge))
+    geo = dict(kernel_size=(k, k), dilation=(dil, dil), padding=(pad, pad))
+    for kernel in ("fwd", "dx", "dw"):
+        assert la.kernel_route(kernel, x, wt, **geo) == "pointwise", kernel
+    la.reset_counts()
+    out = la.local_aggregate_hopper(x, wt, s, b, **geo)
+    if affine:
+        got = la.local_aggregate_bwd_affine_hopper(x, wt, s, b, dy, **geo)
+    else:
+        got = la.local_aggregate_bwd_hopper(x, wt, dy, **geo)
+    torch.cuda.synchronize()
+    assert la.LAUNCHES == 1
+    assert (la.AFFINE_BWD_LAUNCHES if affine else la.BWD_LAUNCHES) == {
+        "dx": 1, "dw": 1}
+    assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
+    xp = torch.nn.functional.pad(x, (pad,) * 4)
+    ref_out = la.local_aggregate_plain(xp, wt, (k, k), (1, 1), (dil, dil), s,
+                                       b)
+    if affine:
+        ref = la.local_aggregate_bwd_affine_plain(xp, wt, s, b, dy, (k, k),
+                                                  (dil, dil))
+    else:
+        ref = la.local_aggregate_bwd_plain(xp, wt, dy, (k, k), (dil, dil))
+    ref = (ref[0][..., pad:pad + x.shape[2], pad:pad + x.shape[3]],) + ref[1:]
+    for g, r in ((out, ref_out), *zip(got[:2], ref[:2])):
+        torch.testing.assert_close(g.float(), r.float(),
+                                   **dict(zip(("rtol", "atol"),
+                                              _tolerance(dt, r))))
+    for g, r in zip(got[2:], ref[2:]):
+        # ds, db: f32 sums in another order, held as a whole
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())

@@ -203,6 +203,51 @@ def test_grads_match_jax_xla(k, dil, heads, pad_mode):
                                    err_msg=name)
 
 
+# geometries the port's halo-tile kernels do not take, which they run on
+# their pointwise route: K = 9 beyond the tiles' 7, a row of 513 positions
+# (more than 512 thread items in the general instantiation, and at K = 3
+# the width class of 2049), and K = 7 at dilation 8, whose f32 halo tile is
+# larger than a block's shared memory
+_BEYOND_TILES = {
+    "k9": dict(n=2, c=16, cw=4, hi=13, wi=11, k=9),
+    "w513_k3": dict(n=1, c=16, cw=8, hi=3, wi=513, k=3),
+    "w513_k5": dict(n=1, c=16, cw=8, hi=3, wi=513, k=5),
+    "k7_dil8": dict(n=1, c=16, cw=8, hi=16, wi=256, k=7, dil=8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BEYOND_TILES))
+def test_plain_matches_jax_xla_beyond_the_tiles(case):
+    """The plain forward against the XLA formulation at the geometries the
+    kernels run pointwise (rtol/atol 1e-5: f32 sums in another order)."""
+    geo = _BEYOND_TILES[case]
+    x, w, _, _, pad = make_inputs(31, **geo)
+    kwargs = dict(kernel_size=geo["k"], padding=pad,
+                  dilation=geo.get("dil", 1))
+    ref = jax_aggregate(jnp.asarray(x), jnp.asarray(w), impl="xla", **kwargs)
+    xt, wt, _, _ = to_port(x, w)
+    got = la.local_aggregate(xt, wt, impl="torch", **kwargs)
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(_BEYOND_TILES))
+def test_grads_match_jax_xla_beyond_the_tiles(case):
+    """dx and dw of ``sum(out * r)`` through the plain backward against
+    ``jax.grad`` of the XLA formulation at the same geometries (rtol/atol
+    1e-5)."""
+    geo = _BEYOND_TILES[case]
+    x, w, _, _, pad = make_inputs(32, **geo)
+    r = _seeded_cotangent(x.shape)
+    kwargs = dict(kernel_size=geo["k"], padding=pad,
+                  dilation=geo.get("dil", 1))
+    got = _port_grads(x, w, r, **kwargs)
+    ref = _jax_grads(x, w, r, impl="xla", **kwargs)
+    for name, g, want in zip(("dx", "dw"), got, ref):
+        np.testing.assert_allclose(g, np.asarray(want), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("pad_mode", ["zeros", "reflect"])
 def test_strided_grads_match_jax_xla(pad_mode):
     """Stride 2 runs the plain forward alone; autograd differentiates it."""
