@@ -64,12 +64,13 @@ printing the last line:
    a reflect-padded case, the edges of the halo tiles in bf16 (a 3x3 map,
    57x57, 13x11 with Cw=6, N=1 at 56x56) and the geometries beyond them
    (K=5 on 3x513 and K=3 on 2x2049 in bf16, K=9 in bf16, K=7 at dilation
-   8 on 16x256 in f32), each forward, dx and dw entry naming the route its
-   launcher took (``variant``: ``k3``, ``general`` or ``pointwise``; the
-   geometries beyond the tiles must take ``pointwise``, every main path
-   ``k3``); the backward kernels (dx, dw, and with the affine dx and
-   dw+ds+db) at the same geometries, the reflect case through autograd as
-   well; the fused embed kernels at the eight
+   8 on 16x256 in f32), each forward, dx, dw and affine dw entry naming
+   the route its launcher took (``variant``: ``k3``, ``general`` or
+   ``pointwise``; the geometries beyond the tiles must take ``pointwise``,
+   every main path ``k3``); the backward kernels (dx, dw, and with the
+   affine dx and dw+ds+db) at the same geometries, the reflect case
+   through autograd as well, each affine dw launched twice and its dw, ds
+   and db bit-identical; the fused embed kernels at the eight
    geometries of the two models with a fused-embed path and at general f32
    cases (K=5 with dilation 2 and K=7, non-square maps, two groups); the
    three mix kernels (forward, dx, dw) at cotnet50's four geometries in
@@ -297,9 +298,9 @@ def kernel_cases() -> list:
 
 def route(la, kernel: str, cs, x, w, pad: int) -> str:
     """The route (``k3``, ``general`` or ``pointwise``) that the launcher of
-    ``kernel`` (fwd, dx or dw) takes for x and w with the kernel's own
-    padding, as the kernel's library decides it; raises unless it is the
-    case's own (``route``, where the case names one)."""
+    ``kernel`` (fwd, dx, dw or dw_affine) takes for x and w with the
+    kernel's own padding, as the kernel's library decides it; raises unless
+    it is the case's own (``route``, where the case names one)."""
     k, dil = cs["k"], cs["dil"]
     got = la.kernel_route(kernel, x, w, kernel_size=(k, k),
                           dilation=(dil, dil), padding=(pad, pad))
@@ -673,11 +674,27 @@ def affine_bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
             else:
                 max_err, rtol, atol = check_close(f"{geometry} dw", got[1],
                                                   ref[1], dt)
+                # a second launch gives the same bits: ds and db are summed
+                # in a fixed order, across a plane's row tiles too
+                again = la.local_aggregate_bwd_affine_hopper(
+                    x, wt, s, b, dy, **geo, **need)
+                if not all(torch.equal(a, g)
+                           for a, g in zip(again[1:], got[1:])):
+                    raise AssertionError(f"affine dw at {geometry}: a second "
+                                         "launch gave other bits")
+                # ds's and db's partial sums across a plane's row tiles,
+                # written once and read once (0: one tile a plane)
+                part = la.dw_affine_workspace_bytes(x, wt, **geo)
                 extra = {"ds_max_abs_err": check_sums(f"{geometry} ds",
                                                       got[2], ref[2]),
                          "db_max_abs_err": check_sums(f"{geometry} db",
                                                       got[3], ref[3]),
-                         "sums_tol": "1e-5 * max|ref|"}
+                         "sums_tol": "1e-5 * max|ref|",
+                         "deterministic": True, "workspace_bytes": part,
+                         "bound_ms_with_workspace": (
+                             ((x.numel() + dy.numel() + 2 * wt.numel())
+                              * item + 3 * s.numel() * 4 + 2 * part)
+                             / HBM_BYTES_PER_S * 1e3)}
                 # reads x, dy, w and s, writes dw, ds and db; the group sum
                 # per in-image tap, then gn*s, gn*w summed and gn summed
                 nbytes = (x.numel() + dy.numel() + 2 * wt.numel()) * item \
@@ -692,8 +709,8 @@ def affine_bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "name": f"local_agg_bwd_{kernel}_affine", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_bwd.cu",
                 "replaces": REPLACES_AFFINE_BWD[kernel], "geometry": geometry,
-                **({"variant": route(la, "dx", cs, x, wt, kpad)}
-                   if kernel == "dx" else {}),
+                "variant": route(la, "dx" if kernel == "dx" else "dw_affine",
+                                 cs, x, wt, kpad),
                 **launches, "max_abs_err": max_err,
                 "tol": {"rtol": rtol, "atol": atol}, **extra,
                 "ms": ms, "plain_ms": plain_ms,
@@ -1651,10 +1668,12 @@ def profile_step(fn, label: str, top: int = 12):
         return
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    # a template's name ends at its "<"
-    agg = {name: sum(r[0] for r in rows if f"{name}<" in r[2])
+    # a template's name ends at its "<", any other at its "("
+    agg = {name: sum(r[0] for r in rows
+                     if f"{name}<" in r[2] or f"{name}(" in r[2])
            for name in ("local_agg_fwd", "local_agg_bwd_dx",
                         "local_agg_bwd_dw", "local_agg_bwd_dw_affine",
+                        "local_agg_bwd_dw_affine_sums",
                         "embed_gn_stats", "embed_gn_agg")}
     log(f"profile of one {label}: {sum(r[1] for r in rows)} device kernels "
         f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "

@@ -87,6 +87,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // allows; 0: element by element).  So the taps read shared memory without
 // a mask: the padding is the zeros.
 //
+// The affine dw (dw, ds and db in one pass, local_agg_bwd.cu) runs dw's
+// tiles with another store.
+//
 // Three routes, chosen before any launch from the geometry alone
 // (agg_route): ``k3``, the tiles with K = 3 at dilation 1 and column
 // padding 1 compile-time and unrolled (every main path); ``general``, the
@@ -102,9 +105,10 @@ constexpr int kMaxPlanes = 32;     // planes of a block, at most
 constexpr int kStages = 4;         // channel groups in shared memory at once
 constexpr int kMaxK = 7;           // the general instantiation's largest K
 constexpr int kTargetItems = 128;  // a forward or dx block's thread items
-// dw's: its stage holds dy's rows besides x's halo tile, and the card ran
-// it faster with whole 28x28 planes in a block (fewer halo rows and block
-// prologues), within 3% at the other maps
+// dw's and the affine dw's: its stage holds dy's rows besides x's halo
+// tile, and the card ran it faster with whole 28x28 planes in a block
+// (fewer halo rows and block prologues), within 3% at the other maps (the
+// affine dw, too, ran fastest at 256 of 128, 192, 256 and 384)
 constexpr int kDwTargetItems = 256;
 constexpr int kSmemAim = 48 * 1024;  // a block's shared memory, when it can
 constexpr int kMaxSmem = 232448;   // shared memory of one block on sm_90
@@ -186,9 +190,9 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
 }
 
-// The three kernels of the halo tiles, and their routes (the numbers the
-// C entries *_variant return).
-enum AggKernel { kAggFwd, kAggDx, kAggDw };
+// The kernels of the halo tiles, and their routes (the numbers the C
+// entries *_variant return).  The affine dw (dw, ds and db) tiles as dw.
+enum AggKernel { kAggFwd, kAggDx, kAggDw, kAggDwAffine };
 constexpr int kRouteGeneral = 0;
 constexpr int kRoutePointwise = 1;
 constexpr int kRouteK3 = 3;
@@ -196,7 +200,9 @@ constexpr int kRouteK3 = 3;
 // The tiling of ``kernel``'s tiled routes at geometry g: the forward and dw
 // tile the output (Ho x Wo) over x's halo rows, one plane per (n, head, cw)
 // (dw staging dy's rows besides); dx tiles dx (Hi x Wi) over dy's halo
-// rows, one plane per (n, cw).
+// rows, one plane per (n, cw).  The affine dw tiles as dw, and after the
+// last stage its threads' partial sums of ds and db (K*K float2 a thread)
+// take the same shared memory: ``smem`` is the larger of the two.
 inline bool plan_agg(AggKernel kernel, const Geometry& g, int elem, int vec,
                      int unit, Tiling* t, unsigned* blocks, unsigned* threads,
                      size_t* smem) {
@@ -206,11 +212,19 @@ inline bool plan_agg(AggKernel kernel, const Geometry& g, int elem, int vec,
                       false, g.pw - (g.kw - 1) * g.dw, g.pw, elem, vec,
                       kTargetItems, unit, t, blocks, threads, smem);
   }
-  const bool dw = kernel == kAggDw;
-  return plan_tiles(int64_t(g.n) * g.heads * g.cw, g.ho, g.wo, g.hi, g.wi,
-                    halo, dw, -g.pw, (g.kw - 1) * g.dw - g.pw, elem, vec,
-                    dw ? kDwTargetItems : kTargetItems, unit, t, blocks,
-                    threads, smem);
+  const bool dw = kernel == kAggDw || kernel == kAggDwAffine;
+  if (!plan_tiles(int64_t(g.n) * g.heads * g.cw, g.ho, g.wo, g.hi, g.wi,
+                  halo, dw, -g.pw, (g.kw - 1) * g.dw - g.pw, elem, vec,
+                  dw ? kDwTargetItems : kTargetItems, unit, t, blocks,
+                  threads, smem)) {
+    return false;
+  }
+  if (kernel == kAggDwAffine) {
+    const int64_t sums = int64_t(g.kh) * g.kw * *threads * 8;
+    if (sums > kMaxSmem - kStaticSmem) return false;
+    *smem = std::max(*smem, size_t(sums));
+  }
+  return true;
 }
 
 // The route a launch of ``kernel`` at geometry g with ``elem``-byte

@@ -101,17 +101,30 @@
 // on the thread index, the taps read through L1/L2 with no limit on K,
 // width or dilation (local_agg_bwd_dx_pointwise, local_agg_bwd_dw_pointwise).
 // The launcher picks the route from the geometry before it launches
-// (agg_route, common.cuh) and launches exactly that kernel.
-// The affine dw keeps the first design, one thread per output element,
-// neighbouring threads on neighbouring addresses: one block per (n, head,
-// cw, tap) row of ds and db; its threads stride over the row's Ho*Wo
-// positions, store dw, and keep private f32 sums that the block then
-// reduces through warp shuffles and shared memory in a fixed order.  The
-// TPU kernel reduces a whole image inside one grid step; here the row's
-// owner is the block.  Each output has exactly one owner: no atomics, and
-// the result is deterministic.  Left for later: one launch that reads dy
-// once for dx and dw, and halo tiles for the affine dw (its ds and db sum
-// across a plane's row tiles).
+// (agg_route, common.cuh) and launches exactly that kernel; so does the
+// affine dw's.
+// The affine dw (local_agg_bwd_dw_affine, dw, ds and db in one pass) runs
+// dw's halo tiles, its group walk and its K*K x V sums; only the store
+// differs (dw_affine_epilogue).  For each tap a thread reads its V values
+// of w, stores dw = gn * s once and forms its partial sums of gn * w and
+// gn; the block sums those by (plane, tap) in a fixed order through the
+// shared memory the stages free.  kStages - 1 groups before the last, the
+// block asks L2 for its w rows (prefetch.global.L2), so the epilogue's
+// loads of w wait less (staging w in shared memory by cp.async instead
+// kept more registers live through the group walk, spilled, and the card
+// ran it slower).  ds and db sum over a whole plane, and at
+// large maps a plane spans several row tiles (4 at 56x56): then each block
+// writes its partial sums to a workspace [tiles, planes, K*K] of float2 and
+// a second kernel, local_agg_bwd_dw_affine_sums, adds the tiles in order
+// 0..tiles-1 (at 28x28 and below a block holds whole planes and writes ds
+// and db itself).  The workspace is the caller's (PyTorch's allocator);
+// local_agg_bwd_dw_affine_workspace gives its size.  No atomics: the result
+// is the same bits from run to run.  Bound as dw's, plus one read of w and
+// s and the writes of ds and db.  Its third route,
+// local_agg_bwd_dw_affine_pointwise (the first design, one block per (n, head,
+// cw, tap) row of ds and db, its threads striding over the row's positions
+// and reading x and dy through L1/L2 for each tap), takes what dw's tiles
+// do not.  Left for later: one launch that reads dy once for dx and dw.
 
 #include "common.cuh"
 
@@ -367,17 +380,144 @@ __global__ void __launch_bounds__(kThreads)
   dx[idx] = from_f32<T>(acc);
 }
 
+// The affine dw's store, after dw_tiles' last channel group: acc holds the
+// thread's gn sums, K*K rows of V positions at ``at`` = ho*Wo + wo0 of its
+// plane (nv of them in the map), ``active`` as there.
+// - Each tap's row: w's V values in the widest loads their alignment
+//   allows, dw = gn * s stored once in the widest stores, and the thread's
+//   partial sums of gn * w and of gn over its positions (v = 0..nv-1 in
+//   order), kept in registers as acc's rows die.  An inactive thread's
+//   partials are 0.
+// - Once every thread is past the last group (a barrier only now, so that
+//   no thread waits for the others before its loads and stores), the
+//   partials go to shared memory, float2 [K*K][threads], over the stages.
+// - The block then sums each (plane, tap) over the plane's ``items``
+//   thread items in a fixed order: where a plane has at most 64 items
+//   (14x14 and below), one thread a (plane, tap), the items in turn;
+//   else a warp, lane l taking items l, l + 32, ... in turn, then the
+//   warp's butterfly.  Warps span planes at small maps (7x7: 14 items a
+//   plane), so the sums follow the planes, not the warps.
+// - With one tile a plane, the sum goes to ds and db; with several, to
+//   part[tile], for local_agg_bwd_dw_affine_sums.
+// No atomics: the same launch gives the same bits.
+template <typename T, int KT, int V>
+__device__ __forceinline__ void dw_affine_epilogue(
+    float (&acc)[KT * KT][V], const T* __restrict__ w,
+    const float* __restrict__ s, T* __restrict__ dw, float* __restrict__ ds,
+    float* __restrict__ db, float2* __restrict__ part, char* stages,
+    const Geometry& g, const Tiling& t, int kh, int kw, int plane0, int tile,
+    int p, int items, bool active, int at, int nv) {
+  const int k2 = kh * kw;
+  const int hw = g.ho * g.wo;
+  const int planes = g.n * g.heads * g.cw;
+  const int plane = plane0 + p;
+  const int used = t.planes * items;  // the threads of the block's items
+  const int64_t row0 = int64_t(plane) * k2;  // (plane, tap 0) of s, ds, db
+  float sum_gw[KT * KT], sum_g[KT * KT];
+#pragma unroll
+  for (int i = 0; i < KT; ++i) {
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const int k = i * kw + j;
+      sum_gw[i * KT + j] = sum_g[i * KT + j] = 0.f;
+      if (i < kh && j < kw && active) {
+        const int64_t off = (row0 + k) * hw + at;
+        float wv[V], dv[V];
+        load_vec<T, V>(w + off, nv, wv);
+        const float sk = s[row0 + k];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          dv[v] = acc[i * KT + j][v] * sk;
+          if (v < nv) {
+            sum_gw[i * KT + j] += acc[i * KT + j][v] * wv[v];
+            sum_g[i * KT + j] += acc[i * KT + j][v];
+          }
+        }
+        store_vec<T, V>(dw + off, nv, dv);
+      }
+    }
+  }
+  float2* sums = reinterpret_cast<float2*>(stages);
+  cp_async_wait<0>();  // the groups after the last stage are empty
+  __syncthreads();     // every thread is past the last group's sums
+  if (int(threadIdx.x) < used) {
+#pragma unroll
+    for (int i = 0; i < KT; ++i) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        if (i < kh && j < kw) {
+          sums[(i * kw + j) * used + threadIdx.x] =
+              make_float2(sum_gw[i * KT + j], sum_g[i * KT + j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const bool by_thread = items <= 64;
+  const int per_sum = by_thread ? 1 : 32;  // threads a (plane, tap)
+  const int lane = threadIdx.x % 32;
+  for (int u = threadIdx.x / per_sum; u < t.planes * k2;
+       u += blockDim.x / per_sum) {
+    const int pp = u / k2, k = u - pp * k2;
+    if (plane0 + pp >= planes) break;  // the block's planes past the last
+    const float2* src = sums + k * used + pp * items;
+    float a = 0.f, c = 0.f;
+    for (int it = by_thread ? 0 : lane; it < items; it += per_sum) {
+      const float2 v = src[it];
+      a += v.x;
+      c += v.y;
+    }
+    if (!by_thread) {
+      a = warp_sum(a);
+      c = warp_sum(c);
+    }
+    if (by_thread || lane == 0) {
+      const int64_t r = int64_t(plane0 + pp) * k2 + k;
+      if (t.tiles == 1) {
+        ds[r] = a;
+        db[r] = c;
+      } else {
+        part[int64_t(tile) * planes * k2 + r] = make_float2(a, c);
+      }
+    }
+  }
+}
+
+// Ask L2 for w's rows of the affine dw's tile ahead of the epilogue: for
+// each of the block's ``np`` planes from plane0 and each tap, rows
+// [r0, y_hi) of Wo elements, contiguous in w; a prefetch for every 128-byte
+// line of them.
+template <typename T>
+__device__ __forceinline__ void prefetch_w_rows(const T* w, int plane0,
+                                                int np, int k2, int hw,
+                                                int r0, int y_hi, int wo) {
+  const int bytes = (y_hi - r0) * wo * int(sizeof(T));
+  // a row range that starts inside a line reaches one line further
+  const int lines = (bytes + 127) / 128 + 1;
+  for (int i = threadIdx.x; i < np * k2 * lines; i += blockDim.x) {
+    const int chunk = i / lines, line = i - chunk * lines;
+    const char* a = reinterpret_cast<const char*>(
+        w + (int64_t(plane0) * k2 + chunk) * hw + int64_t(r0) * wo);
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(a + min(line * 128,
+                                                          bytes - 1)));
+  }
+}
+
 // x [N, C, Hi, Wi]; dy [N, heads*C, Ho, Wo];
 // dw [N, heads, Cw, Kh*Kw, Ho, Wo].  The halo tiles of common.cuh with the
 // forward's planes and tiles (source x, halo included), a stage holding
 // dy's rows of the tile besides, after x's halo tile, copied in units of
 // ``dy_unit`` bytes.  KC = 3: K = 3 at dilation 1; KC = 0: any K up to
-// kMaxK.  The K = 3 instantiation is held to 64 registers, as the
-// forward's.
-template <typename T, int KC>
-__global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
-    local_agg_bwd_dw(const T* __restrict__ x, const T* __restrict__ dy,
-                     T* __restrict__ dw, Geometry g, Tiling t, int dy_unit) {
+// kMaxK.  The body of local_agg_bwd_dw and, with AFFINE, of
+// local_agg_bwd_dw_affine: w, s, ds, db and part are the affine's (null
+// without it); the affine asks L2 for w's rows of the tile kStages - 1
+// groups before the last, and only the store differs (dw_affine_epilogue).
+template <typename T, int KC, bool AFFINE>
+__device__ __forceinline__ void dw_tiles(
+    const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dw,
+    const T* __restrict__ w, const float* __restrict__ s,
+    float* __restrict__ ds, float* __restrict__ db, float2* __restrict__ part,
+    const Geometry& g, const Tiling& t, int dy_unit) {
   constexpr int KT = KC == 3 ? 3 : kMaxK;        // taps unrolled per axis
   constexpr int V = KC == 3 ? 4 : 1;             // positions of an item
   constexpr int NE = KC == 3 ? V + KT - 1 : KT;  // x columns an item reads
@@ -457,6 +597,9 @@ __global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
       char* buf = stages + st * stage_bytes;
       stage_rows(buf, t, x_src, st * x_step, h_lo, h_hi, first, g.wi);
       stage_rows(buf + dy_at, ty, dy_src, st * dy_step, r0, y_hi, r0, g.wo);
+    } else if (AFFINE && st == groups) {
+      prefetch_w_rows(w, plane0, min(t.planes, planes - plane0), k2, hw_out,
+                      r0, y_hi, g.wo);
     }
     cp_async_commit();
   }
@@ -471,6 +614,9 @@ __global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
       stage_rows(buf, t, x_src, ahead * x_step, h_lo, h_hi, first, g.wi);
       stage_rows(buf + dy_at, ty, dy_src, ahead * dy_step, r0, y_hi, r0,
                  g.wo);
+    } else if (AFFINE && ahead == groups) {
+      prefetch_w_rows(w, plane0, min(t.planes, planes - plane0), k2, hw_out,
+                      r0, y_hi, g.wo);
     }
     cp_async_commit();
     if (active) {
@@ -510,7 +656,11 @@ __global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
       }
     }
   }
-  if (active) {
+  if constexpr (AFFINE) {
+    dw_affine_epilogue<T, KT, V>(acc, w, s, dw, ds, db, part, stages, g, t,
+                                 kh, kw, plane0, tile, p, items, active,
+                                 ho * g.wo + wo0, nv);
+  } else if (active) {
     T* dwp = dw + int64_t(plane) * k2 * hw_out + ho * g.wo + wo0;
 #pragma unroll
     for (int i = 0; i < KT; ++i) {
@@ -522,6 +672,51 @@ __global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
       }
     }
   }
+}
+
+// The K = 3 instantiation is held to 64 registers, as the forward's.
+template <typename T, int KC>
+__global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
+    local_agg_bwd_dw(const T* __restrict__ x, const T* __restrict__ dy,
+                     T* __restrict__ dw, Geometry g, Tiling t, int dy_unit) {
+  dw_tiles<T, KC, false>(x, dy, dw, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, g, t, dy_unit);
+}
+
+// x, dy as above; w, dw [N, heads, Cw, Kh*Kw, Ho, Wo]; s, ds, db
+// [N, heads, Cw, Kh*Kw] f32; part, with a plane of several row tiles,
+// [tiles, N*heads*Cw, Kh*Kw] float2 (ds's and db's partial sums, which
+// local_agg_bwd_dw_affine_sums then adds).  dw's halo tiles and its
+// register budget.
+template <typename T, int KC>
+__global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
+    local_agg_bwd_dw_affine(const T* __restrict__ x, const T* __restrict__ dy,
+                            const T* __restrict__ w,
+                            const float* __restrict__ s, T* __restrict__ dw,
+                            float* __restrict__ ds, float* __restrict__ db,
+                            float2* __restrict__ part, Geometry g, Tiling t,
+                            int dy_unit) {
+  dw_tiles<T, KC, true>(x, dy, dw, w, s, ds, db, part, g, t, dy_unit);
+}
+
+// A plane's ds and db when its row tiles are several blocks: one thread per
+// (plane, tap) row adds the tiles' partial sums in the order 0..tiles-1.
+// part as above; ``rows`` = N*heads*Cw*Kh*Kw.
+__global__ void __launch_bounds__(kThreads)
+    local_agg_bwd_dw_affine_sums(const float2* __restrict__ part,
+                                 float* __restrict__ ds,
+                                 float* __restrict__ db, int64_t rows,
+                                 int tiles) {
+  const int64_t r = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  float a = 0.f, c = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const float2 v = part[tile * rows + r];
+    a += v.x;
+    c += v.y;
+  }
+  ds[r] = a;
+  db[r] = c;
 }
 
 // The gradient of the (normalized) weight at one element:
@@ -575,16 +770,16 @@ __global__ void __launch_bounds__(kThreads)
   dw[idx] = from_f32<T>(weight_grad(x, dy, g, n, head, cw, k, ho, wo));
 }
 
-// x, dy as above; w, dw [N, heads, Cw, Kh*Kw, Ho, Wo];
-// s, ds, db [N, heads, Cw, Kh*Kw] f32.  One block per (n, head, cw, tap)
-// row; blockDim.x is a multiple of 32, at most kThreads.
+// The pointwise route of the affine dw, for the geometries the tiles do not
+// take.  x, dy, w, dw, s, ds, db as above.  One block per (n, head, cw,
+// tap) row; blockDim.x is a multiple of 32, at most kThreads.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    local_agg_bwd_dw_affine(const T* __restrict__ x, const T* __restrict__ dy,
-                            const T* __restrict__ w,
-                            const float* __restrict__ s, T* __restrict__ dw,
-                            float* __restrict__ ds, float* __restrict__ db,
-                            Geometry g) {
+    local_agg_bwd_dw_affine_pointwise(
+        const T* __restrict__ x, const T* __restrict__ dy,
+        const T* __restrict__ w, const float* __restrict__ s,
+        T* __restrict__ dw, float* __restrict__ ds, float* __restrict__ db,
+        Geometry g) {
   const int k2 = g.kh * g.kw;
   const int64_t row = blockIdx.x;
   const int k = int(row % k2);
@@ -731,34 +926,109 @@ int launch(const void* x, const void* w, const void* dy, void* dx, void* dw,
   return int(cudaSuccess);
 }
 
-template <typename T>
-int launch_affine(const void* x, const void* w, const void* s, const void* b,
-                  const void* dy, void* dx, void* dw, void* ds, void* db,
-                  const Geometry& g, cudaStream_t stream) {
-  if (dx != nullptr) {
-    const int err = launch_dx<T, true>(w, s, b, dy, dx, g, stream);
-    if (err != int(cudaSuccess)) return err;
+// The bytes of ds's and db's partial sums that a launch of the affine dw
+// at geometry g writes between its two kernels (tiles x planes x K*K
+// float2): 0 unless its route is tiled and a plane spans several row
+// tiles.
+inline int64_t dw_affine_workspace(const Geometry& g, int elem) {
+  const int route = agg_route(kAggDwAffine, g, elem);
+  if (route == kRoutePointwise) return 0;
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_agg(kAggDwAffine, g, elem, route == kRouteK3 ? 4 : 1, 0, &t,
+                &blocks, &threads, &smem) ||
+      t.tiles == 1) {
+    return 0;
   }
-  if (dw != nullptr) {
-    const int64_t rows = int64_t(g.n) * g.heads * g.cw * g.kh * g.kw;
-    const int64_t plane = int64_t(g.ho) * g.wo;
-    if (rows > 0x7fffffff || plane > 0x7fffffff) {
-      return int(cudaErrorInvalidConfiguration);
-    }
-    if (rows > 0) {
+  return int64_t(t.tiles) * g.n * g.heads * g.cw * g.kh * g.kw *
+         int64_t(sizeof(float2));
+}
+
+template <typename T, int KC>
+int launch_dw_affine_variant(const void* x, const void* w, const void* s,
+                             const void* dy, void* dw, void* ds, void* db,
+                             void* part, int64_t part_bytes,
+                             const Geometry& g, cudaStream_t stream) {
+  constexpr int V = KC == 3 ? 4 : 1;
+  const int elem = int(sizeof(T));
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_agg(kAggDwAffine, g, elem, V, copy_unit(x, int64_t(g.wi) * elem),
+                &t, &blocks, &threads, &smem)) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  const int64_t rows = int64_t(g.n) * g.heads * g.cw * g.kh * g.kw;
+  if (t.tiles > 1 && (part == nullptr ||
+                      part_bytes < dw_affine_workspace(g, elem))) {
+    return int(cudaErrorInvalidValue);
+  }
+  const auto kernel = local_agg_bwd_dw_affine<T, KC>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<const T*>(w), static_cast<const float*>(s),
+      static_cast<T*>(dw), static_cast<float*>(ds), static_cast<float*>(db),
+      static_cast<float2*>(part), g, t, copy_unit(dy, int64_t(g.wo) * elem));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || t.tiles == 1) return int(err);
+  unsigned sum_blocks;
+  if (!grid_for(rows, &sum_blocks)) return int(cudaErrorInvalidConfiguration);
+  local_agg_bwd_dw_affine_sums<<<sum_blocks, kThreads, 0, stream>>>(
+      static_cast<const float2*>(part), static_cast<float*>(ds),
+      static_cast<float*>(db), rows, t.tiles);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dw_affine(const void* x, const void* w, const void* s,
+                     const void* dy, void* dw, void* ds, void* db, void* part,
+                     int64_t part_bytes, const Geometry& g,
+                     cudaStream_t stream) {
+  const int64_t rows = int64_t(g.n) * g.heads * g.cw * g.kh * g.kw;
+  const int64_t plane = int64_t(g.ho) * g.wo;
+  if (rows == 0) return int(cudaSuccess);
+  switch (agg_route(kAggDwAffine, g, int(sizeof(T)))) {
+    case kRouteK3:
+      return launch_dw_affine_variant<T, 3>(x, w, s, dy, dw, ds, db, part,
+                                            part_bytes, g, stream);
+    case kRouteGeneral:
+      return launch_dw_affine_variant<T, 0>(x, w, s, dy, dw, ds, db, part,
+                                            part_bytes, g, stream);
+    default: {
+      if (rows > 0x7fffffff || plane > 0x7fffffff) {
+        return int(cudaErrorInvalidConfiguration);
+      }
       // a warp for every 32 positions of the row, up to kThreads
       const int64_t warps = (plane + 31) / 32;
       const unsigned threads =
           unsigned(warps < 1 ? 32 : (warps * 32 > kThreads ? kThreads
                                                            : warps * 32));
-      local_agg_bwd_dw_affine<T><<<unsigned(rows), threads, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(dy),
-          static_cast<const T*>(w), static_cast<const float*>(s),
-          static_cast<T*>(dw), static_cast<float*>(ds),
-          static_cast<float*>(db), g);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return int(err);
+      local_agg_bwd_dw_affine_pointwise<T>
+          <<<unsigned(rows), threads, 0, stream>>>(
+              static_cast<const T*>(x), static_cast<const T*>(dy),
+              static_cast<const T*>(w), static_cast<const float*>(s),
+              static_cast<T*>(dw), static_cast<float*>(ds),
+              static_cast<float*>(db), g);
+      return int(cudaGetLastError());
     }
+  }
+}
+
+template <typename T>
+int launch_affine(const void* x, const void* w, const void* s, const void* b,
+                  const void* dy, void* dx, void* dw, void* ds, void* db,
+                  void* part, int64_t part_bytes, const Geometry& g,
+                  cudaStream_t stream) {
+  if (dx != nullptr) {
+    const int err = launch_dx<T, true>(w, s, b, dy, dx, g, stream);
+    if (err != int(cudaSuccess)) return err;
+  }
+  if (dw != nullptr) {
+    return launch_dw_affine<T>(x, w, s, dy, dw, ds, db, part, part_bytes, g,
+                               stream);
   }
   return int(cudaSuccess);
 }
@@ -788,13 +1058,16 @@ extern "C" int local_agg_bwd_launch(int dtype, const void* x, const void* w,
 }
 
 // The same with the affine s, b (f32) folded into the forward.  A null dx
-// skips the dx kernel; a null dw skips the kernel that writes dw, ds and db
-// together (all three null or none).
+// skips the dx kernel; a null dw skips the kernels that write dw, ds and db
+// together (all three null or none).  ``part``: device memory of
+// ``part_bytes`` bytes for ds's and db's partial sums, at least what
+// local_agg_bwd_dw_affine_workspace returns (null when that is 0).
 extern "C" int local_agg_bwd_affine_launch(
     int dtype, const void* x, const void* w, const void* s, const void* b,
-    const void* dy, void* dx, void* dw, void* ds, void* db, int n, int c,
-    int hi, int wi, int heads, int cw, int kh, int kw, int ho, int wo, int ph,
-    int pw, int dh, int dw_, void* stream) {
+    const void* dy, void* dx, void* dw, void* ds, void* db, void* part,
+    long long part_bytes, int n, int c, int hi, int wi, int heads, int cw,
+    int kh, int kw, int ho, int wo, int ph, int pw, int dh, int dw_,
+    void* stream) {
   const Geometry g{n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw_};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((dw == nullptr) != (ds == nullptr) || (dw == nullptr) != (db == nullptr)) {
@@ -802,21 +1075,32 @@ extern "C" int local_agg_bwd_affine_launch(
   }
   switch (dtype) {
     case 0:
-      return launch_affine<float>(x, w, s, b, dy, dx, dw, ds, db, g, st);
+      return launch_affine<float>(x, w, s, b, dy, dx, dw, ds, db, part,
+                                  part_bytes, g, st);
     case 1:
-      return launch_affine<__half>(x, w, s, b, dy, dx, dw, ds, db, g, st);
+      return launch_affine<__half>(x, w, s, b, dy, dx, dw, ds, db, part,
+                                   part_bytes, g, st);
     case 2:
-      return launch_affine<__nv_bfloat16>(x, w, s, b, dy, dx, dw, ds, db, g,
-                                          st);
+      return launch_affine<__nv_bfloat16>(x, w, s, b, dy, dx, dw, ds, db,
+                                          part, part_bytes, g, st);
     default:
       return int(cudaErrorInvalidValue);
   }
 }
 
-// The route a dx or dw launch at this geometry runs, decided as the
-// launcher decides it: 3 (k3: K = 3, dilation 1, column padding 1; for dx
-// one head too), 0 (general: K up to kMaxK) or 1 (pointwise: every geometry
-// whose tiles do not fit).  dtype as above.
+// The bytes of the partial sums a launch of the affine dw at this geometry
+// needs (local_agg_bwd_affine_launch's ``part``); dtype as above.
+extern "C" long long local_agg_bwd_dw_affine_workspace(
+    int dtype, int n, int c, int hi, int wi, int heads, int cw, int kh,
+    int kw, int ho, int wo, int ph, int pw, int dh, int dw) {
+  const Geometry g{n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw};
+  return dw_affine_workspace(g, elem_size(dtype));
+}
+
+// The route a dx, dw or affine dw launch at this geometry runs, decided as
+// the launcher decides it: 3 (k3: K = 3, dilation 1, column padding 1; for
+// dx one head too), 0 (general: K up to kMaxK) or 1 (pointwise: every
+// geometry whose tiles do not fit).  dtype as above.
 extern "C" int local_agg_bwd_dx_variant(int dtype, int n, int c, int hi,
                                         int wi, int heads, int cw, int kh,
                                         int kw, int ho, int wo, int ph,
@@ -831,4 +1115,13 @@ extern "C" int local_agg_bwd_dw_variant(int dtype, int n, int c, int hi,
                                         int pw, int dh, int dw) {
   const Geometry g{n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw};
   return agg_route(kAggDw, g, elem_size(dtype));
+}
+
+extern "C" int local_agg_bwd_dw_affine_variant(int dtype, int n, int c,
+                                               int hi, int wi, int heads,
+                                               int cw, int kh, int kw, int ho,
+                                               int wo, int ph, int pw, int dh,
+                                               int dw) {
+  const Geometry g{n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw};
+  return agg_route(kAggDwAffine, g, elem_size(dtype));
 }

@@ -26,10 +26,11 @@ Two implementations compute the function and its gradients:
 - ``local_aggregate_hopper`` / ``local_aggregate_bwd_hopper`` /
   ``local_aggregate_bwd_affine_hopper``: the CUDA kernels
   ``csrc/local_agg_fwd.cu`` and ``csrc/local_agg_bwd.cu`` (one kernel for
-  dx, one for dw, one for dw, ds and db together with the affine),
+  dx, one for dw, one for dw, ds and db together with the affine, and a
+  small one that adds ds and db across a plane's row tiles),
   launched on PyTorch's current stream for CUDA tensors at stride 1.  The
-  forward, dx and dw kernels each take one of three routes, which the
-  launcher picks from the geometry before it launches and
+  forward, dx, dw and affine dw kernels each take one of three routes,
+  which the launcher picks from the geometry before it launches and
   ``kernel_route`` reports: ``k3`` and ``general``, halo tiles in shared
   memory (K = 3 at dilation 1 unrolled; any K up to 7), and ``pointwise``,
   one thread per output, for every geometry whose tiles do not fit.
@@ -324,8 +325,25 @@ def _bwd_kernel():
 
 def _bwd_affine_kernel():
     return _c_function(_BWD_LIB_NAME, "local_agg_bwd_affine_launch",
-                       [ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+                       [ctypes.c_int] + [ctypes.c_void_p] * 10
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 14
+                       + [ctypes.c_void_p])
+
+
+def dw_affine_workspace_bytes(x, w, kernel_size, dilation, padding) -> int:
+    """The bytes of device memory the affine dw kernels need for ds's and
+    db's partial sums across a plane's row tiles (0: none), as their
+    launcher plans the launch."""
+    from cotnet_tpu_torch.ops import _build
+
+    fn = _build.load(_BWD_LIB_NAME).local_agg_bwd_dw_affine_workspace
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 15
+        fn.restype = ctypes.c_longlong
+    n, c, hi, wi = x.shape
+    _, heads, cw, _, ho, wo = w.shape
+    return fn(_DTYPE_CODES[x.dtype], n, c, hi, wi, heads, cw, *kernel_size,
+              ho, wo, *padding, *dilation)
 
 
 def _embed_gn_kernel():
@@ -335,23 +353,25 @@ def _embed_gn_kernel():
                                                 ctypes.c_void_p])
 
 
-# the route of a forward, dx or dw launch, by the code its library's
-# *_variant function returns for the geometry
+# the route of a forward, dx, dw or affine dw launch, by the code its
+# library's *_variant function returns for the geometry
 ROUTES = {3: "k3", 0: "general", 1: "pointwise"}
 _ROUTE_FUNCTIONS = {
     "fwd": (_LIB_NAME, "local_agg_fwd_variant"),
     "dx": (_BWD_LIB_NAME, "local_agg_bwd_dx_variant"),
     "dw": (_BWD_LIB_NAME, "local_agg_bwd_dw_variant"),
+    "dw_affine": (_BWD_LIB_NAME, "local_agg_bwd_dw_affine_variant"),
 }
 
 
 def kernel_route(kernel: str, x, w, *, kernel_size, dilation,
                  padding) -> str:
     """The route (``"k3"``, ``"general"`` or ``"pointwise"``) that a launch
-    of ``kernel`` (``"fwd"``, ``"dx"`` or ``"dw"``; with the affine or
-    without) takes for x ``[N, C, Hi, Wi]`` and w ``[N, heads, Cw, K2, Ho,
-    Wo]`` in x's dtype, as the kernel's launcher decides it from the
-    geometry before it launches.  Builds the kernel's library."""
+    of ``kernel`` takes for x ``[N, C, Hi, Wi]`` and w ``[N, heads, Cw, K2,
+    Ho, Wo]`` in x's dtype, as the kernel's launcher decides it from the
+    geometry before it launches: ``"fwd"`` and ``"dx"`` with the affine or
+    without, ``"dw"`` without it, ``"dw_affine"`` (dw, ds and db) with it.
+    Builds the kernel's library."""
     lib, name = _ROUTE_FUNCTIONS[kernel]
     fn = _c_function(lib, name, [ctypes.c_int] * 15)
     n, c, hi, wi = x.shape
@@ -495,8 +515,11 @@ def local_aggregate_bwd_affine_hopper(x, w, w_scale, w_bias, dy, *,
     ``[N, heads, Cw, K2]`` float32.  Returns ``(dx, dw, ds, db)``: dx and dw
     of the shapes and dtypes of x and w, ds and db float32 of w_scale's
     shape.  ``need_dw`` asks for dw, ds and db, which one kernel writes
-    together; the kernel of what is not needed is not launched and its
-    slots are None."""
+    together (with a second, small one that adds ds's and db's partial
+    sums, in a workspace allocated here, where a plane spans several row
+    tiles; one launch in ``AFFINE_BWD_LAUNCHES["dw"]`` all the same); the
+    kernels of what is not needed are not launched and their slots are
+    None."""
     _check_kernel_tensors("local_aggregate_bwd_affine_hopper",
                           [x, w, dy, w_scale, w_bias], (x, w, dy))
     _check_f32("affine", w_scale, w_bias)
@@ -516,10 +539,15 @@ def local_aggregate_bwd_affine_hopper(x, w, w_scale, w_bias, dy, *,
         return None, None, None, None
     fn = _bwd_affine_kernel()
     dx = torch.empty_like(x) if need_dx else None
-    dw = ds = db = None
+    dw = ds = db = part = None
     if need_dw:
         dw = torch.empty_like(w)
         ds, db = torch.empty_like(w_scale), torch.empty_like(w_scale)
+        # ds's and db's partial sums when a plane spans several row tiles
+        nbytes = dw_affine_workspace_bytes(x, w, kernel_size, dilation,
+                                            padding)
+        if nbytes:
+            part = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -528,7 +556,8 @@ def local_aggregate_bwd_affine_hopper(x, w, w_scale, w_bias, dy, *,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
                  w_scale.data_ptr(), w_bias.data_ptr(), dy.data_ptr(),
-                 ptr(dx), ptr(dw), ptr(ds), ptr(db),
+                 ptr(dx), ptr(dw), ptr(ds), ptr(db), ptr(part),
+                 0 if part is None else part.numel(),
                  n, c, hi, wi, heads, cw, kh, kw, ho, wo, ph, pw, dh, dw_,
                  stream)
     if err != 0:

@@ -120,6 +120,48 @@ def test_affine_grads_match_jax_pallas_interpret(heads, wrt):
                                atol=2e-5 * np.abs(ref[wrt]).max())
 
 
+# the maps at which the affine dw's halo tiles split a plane's sums: 57x57
+# spans several row tiles of a plane (a second pass adds them), 13x11 with
+# Cw = 6 puts several planes in a block; x [N, H, W, C], Cw
+TILE_SPLITS = {
+    "57x57": dict(n=2, c=8, cw=4, hi=57, wi=57),
+    "13x11_cw6": dict(n=2, c=48, cw=6, hi=13, wi=11),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_split_case(name):
+    """The port's plain affine backward and the JAX reference at one of
+    ``TILE_SPLITS``: the TPU kernels in interpret mode where the Pallas
+    plan takes the map, else ``jax.vjp`` of the XLA formulation."""
+    x, w, s, b, pad = make_inputs(17, affine=True, **TILE_SPLITS[name])
+    r = _cotangent(x.shape[:3] + (x.shape[3],), seed=19)
+    if lap.pallas_plan(x.shape, w.shape, 4, (pad, pad), affine=True):
+        def fn(*a):
+            return lap.agg_core_pallas_affine(*a, (3, 3), (1, 1), (pad, pad))
+    else:
+        def fn(*a):
+            return jax_aggregate(a[0], a[1], w_scale=a[2], w_bias=a[3],
+                                 impl="xla", kernel_size=3, padding=pad)
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (x, w, s, b)))
+    ref = dict(zip(WRT, map(np.asarray, vjp(jnp.asarray(r)))))
+    got = _port_affine_grads(x, w, s, b, r, kernel_size=3, padding=pad)
+    return dict(zip(WRT, got)), ref
+
+
+@pytest.mark.parametrize("wrt", WRT)
+@pytest.mark.parametrize("name", sorted(TILE_SPLITS))
+def test_affine_grads_match_jax_where_the_tiles_split_a_plane(name, wrt):
+    """The port's plain affine backward, the oracle of the affine dw
+    kernel's halo tiles, against JAX at the maps where those tiles split a
+    plane's ds and db sums (several row tiles; several planes a block), in
+    f32: 2e-5 of each cotangent's largest entry (ds and db sum up to 3249
+    positions in another order)."""
+    got, ref = _tile_split_case(name)
+    np.testing.assert_allclose(got[wrt], ref[wrt], rtol=0,
+                               atol=2e-5 * np.abs(ref[wrt]).max())
+
+
 @pytest.mark.parametrize("pad_mode", ["zeros", "reflect"])
 def test_affine_gradcheck_through_the_op_f64(pad_mode):
     """``torch.autograd.gradcheck`` of the op with the affine (the Function

@@ -483,6 +483,120 @@ def test_dw_on_a_prepadded_input_matches_plain_on_card(k):
         **dict(zip(("rtol", "atol"), _tolerance(torch.bfloat16, ref))))
 
 
+def _affine_dw_on_card(x, wt, s, dy, geo):
+    """dw, ds and db from one launch of the affine dw kernels (and none of
+    dx), with no plain call.  s stands in for the bias too, which enters
+    none of the three."""
+    la.reset_counts()
+    got = la.local_aggregate_bwd_affine_hopper(x, wt, s, s, dy, **geo,
+                                               need_dx=False)
+    torch.cuda.synchronize()
+    assert la.AFFINE_BWD_LAUNCHES == {"dx": 0, "dw": 1}
+    assert la.PLAIN_BWD_CALLS == 0
+    assert got[0] is None
+    return got[1:]
+
+
+def _check_affine_dw(got, xp, wt, s, dy, k, dil, dt):
+    """dw at ``_tolerance``; ds and db, f32 sums over a plane in another
+    order, as a whole at 1e-5 of their largest entry."""
+    ref = la.local_aggregate_bwd_affine_plain(xp, wt, s, s, dy, (k, k),
+                                              (dil, dil), need_dx=False)[1:]
+    torch.testing.assert_close(got[0].float(), ref[0].float(),
+                               **dict(zip(("rtol", "atol"),
+                                          _tolerance(dt, ref[0]))))
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.dtype == torch.float32
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("edge", sorted(TILING_EDGES))
+def test_dw_affine_tiling_edges_match_plain_on_card(edge, dtype):
+    """The affine dw's halo tiles (dw, ds and db in one pass) against the
+    plain affine backward at the edges of their tiling (dw's), one launch
+    and no plain call, and the route each took: ``k3`` at K = 3, dilation
+    1 (any heads), else ``general``."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    geometry = TILING_EDGES[edge]
+    k, dil = geometry[6:]
+    pad = (dil * (k - 1) + 1) // 2
+    x, wt, s, _, dy = _edge_tensors(geometry, dt, True, seed=len(edge) + 2)
+    geo = dict(kernel_size=(k, k), dilation=(dil, dil), padding=(pad, pad))
+    got = _affine_dw_on_card(x, wt, s, dy, geo)
+    assert la.kernel_route("dw_affine", x, wt, **geo) == (
+        "k3" if (k, dil) == (3, 1) else "general")
+    xp = torch.nn.functional.pad(x, (pad,) * 4)
+    _check_affine_dw(got, xp, wt, s, dy, k, dil, dt)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_dw_affine_on_a_prepadded_input_matches_plain_on_card(k):
+    """Hi != Ho: the reflect path hands the affine dw a pre-padded x with
+    pad 0 (the general route).  dw, ds and db against the plain affine
+    backward there."""
+    _need_cuda()
+    n, c, cw, h, w = 2, 32, 8, 14, 13
+    pad = (k - 1) // 2
+    x, wt, s, _, dy = _edge_tensors((n, c, cw, h, w, 1, k, 1),
+                                    torch.bfloat16, True, seed=k + 20)
+    xp = torch.nn.functional.pad(x.float(), (pad,) * 4,
+                                 mode="reflect").to(x.dtype)
+    geo = dict(kernel_size=(k, k), dilation=(1, 1), padding=(0, 0))
+    got = _affine_dw_on_card(xp, wt, s, dy, geo)
+    assert la.kernel_route("dw_affine", xp, wt, **geo) == "general"
+    _check_affine_dw(got, xp, wt, s, dy, k, 1, torch.bfloat16)
+
+
+# (N, C, Cw, H, W): maps at which a plane of the affine dw spans several
+# row tiles (56x56: 4 tiles of 18 rows, the last of 2; 57x57: 4 of 17, the
+# last of 6), so ds and db add the tiles' partial sums in a second kernel, and
+# 7x7, where a block holds several whole planes (14 thread items each) and
+# its warps span planes
+AFFINE_SUM_MAPS = {
+    "56x56": (2, 64, 8, 56, 56),
+    "57x57_cw6": (2, 48, 6, 57, 57),
+    "7x7": (4, 128, 16, 7, 7),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("edge", sorted(AFFINE_SUM_MAPS))
+def test_dw_affine_sums_across_tiles_match_plain_on_card(edge, dtype):
+    """dw, ds and db where a plane spans several row tiles (a workspace of
+    partial sums and the second kernel) or a block several planes, against
+    the plain affine backward, on the ``k3`` route."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    n, c, cw, h, w = AFFINE_SUM_MAPS[edge]
+    x, wt, s, _, dy = _edge_tensors((n, c, cw, h, w, 1, 3, 1), dt, True,
+                                    seed=len(edge) + 30)
+    geo = dict(kernel_size=(3, 3), dilation=(1, 1), padding=(1, 1))
+    assert la.kernel_route("dw_affine", x, wt, **geo) == "k3"
+    part = la.dw_affine_workspace_bytes(x, wt, **geo)
+    assert part == (4 * n * cw * 9 * 8 if h > 28 else 0)
+    got = _affine_dw_on_card(x, wt, s, dy, geo)
+    xp = torch.nn.functional.pad(x, (1,) * 4)
+    _check_affine_dw(got, xp, wt, s, dy, 3, 1, dt)
+
+
+@pytest.mark.parametrize("edge", sorted(AFFINE_SUM_MAPS))
+def test_dw_affine_is_deterministic_on_card(edge):
+    """Two launches give the same bits of dw, ds and db: every sum, across
+    a plane's row tiles too, is taken in a fixed order, with no atomics."""
+    _need_cuda()
+    n, c, cw, h, w = AFFINE_SUM_MAPS[edge]
+    x, wt, s, _, dy = _edge_tensors((n, c, cw, h, w, 1, 3, 1),
+                                    torch.bfloat16, True, seed=len(edge) + 40)
+    geo = dict(kernel_size=(3, 3), dilation=(1, 1), padding=(1, 1))
+    assert la.kernel_route("dw_affine", x, wt, **geo) == "k3"
+    first = _affine_dw_on_card(x, wt, s, dy, geo)
+    second = _affine_dw_on_card(x, wt, s, dy, geo)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 # (N, C, Cw, H, W, heads, K, dilation, dtype): geometries the halo tiles do
 # not take, which the forward, dx and dw run on their pointwise route: a
 # row of more than 512 thread items in the general instantiation (K = 5,
@@ -515,7 +629,7 @@ def test_geometries_beyond_the_tiles_match_plain_on_card(edge, affine):
     pad = (dil * (k - 1) + 1) // 2
     x, wt, s, b, dy = _edge_tensors(geometry, dt, affine, seed=len(edge))
     geo = dict(kernel_size=(k, k), dilation=(dil, dil), padding=(pad, pad))
-    for kernel in ("fwd", "dx", "dw"):
+    for kernel in ("fwd", "dx", "dw", "dw_affine"):
         assert la.kernel_route(kernel, x, wt, **geo) == "pointwise", kernel
     la.reset_counts()
     out = la.local_aggregate_hopper(x, wt, s, b, **geo)
