@@ -71,8 +71,14 @@ printing the last line:
    affine dx and dw+ds+db) at the same geometries, the reflect case
    through autograd as well, each affine dw launched twice and its dw, ds
    and db bit-identical; the fused embed kernels at the eight
-   geometries of the two models with a fused-embed path and at general f32
-   cases (K=5 with dilation 2 and K=7, non-square maps, two groups); the
+   geometries of the two models with a fused-embed path, at general f32
+   cases (K=5 with dilation 2 and K=7, non-square maps, two groups), at
+   the halo tiles' edges in bf16 and f32, at whole 7x7 planes with Cp=256
+   and at K=3 on 2x2049 (which must take ``pointwise``), each naming its
+   route (``ops.local_agg.embed_gn_route``), launched twice for the same
+   bits, with the device time of its statistics and aggregation kernels
+   (torch.profiler; no statistics launch where a block holds whole
+   planes) and of one torch.matmul that forms w_raw of the same shapes; the
    three mix kernels (forward, dx, dw) at cotnet50's four geometries in
    bf16 and at a general f32 case (heads 2, 13x11, Cw dividing C four
    times), the weights separate and packed.  CUDA-event times of kernel
@@ -168,6 +174,11 @@ REPLACES_AFFINE_BWD = {
     "dw": "cotnet_tpu/ops/local_agg_pallas.py:697 _dw_kernel_affine",
 }
 REPLACES_EMBED_GN = "cotnet_tpu/ops/local_agg_pallas.py:1985 _fused_embed_kernel"
+# the fused embed op's kernels, as the profiler names them: the statistics
+# pass (not launched where a block holds whole planes) and the aggregation
+# on its tiled routes or its pointwise one
+EMBED_GN_STATS = "embed_gn_stats"
+EMBED_GN_AGG = ("embed_gn_agg", "embed_gn_agg_pointwise")
 IMAGENET_TRAIN_IMAGES = 1281167
 # the kernels a main path of each kind must launch once per CoT layer a
 # step (16 in cotnet50 and cotnext50_2x48d, 21 in se_cotnetd_152); every
@@ -212,6 +223,35 @@ def device_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms_by_name(fn, names, runs: int = 20, warmup: int = 3) -> dict:
+    """Device time a call of ``fn()`` spends in the kernels of each name
+    (a template's name ends at its "<", any other at its "("), in ms: under
+    torch.profiler over ``runs`` cold-L2 calls as ``device_ms`` makes them,
+    the total by name over ``runs``.  None where the profiler recorded no
+    device time at all (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        return {name: None for name in names}
+    return {name: sum(ms for key, ms in rows
+                      if f"{name}<" in key or f"{name}(" in key) / runs
+            for name in names}
 
 
 def copy_rate() -> float:
@@ -737,41 +777,83 @@ def embed_gn_cases() -> list:
                       dtype=torch.float32))
     cases.append(dict(n=4, c=96, cp=48, h=9, w=14, k=3, dil=1, groups=2,
                       dtype=torch.float32))
+    # the edges of the aggregation's halo tiles (as the forward's): a map
+    # smaller than one tile, planes over several row tiles with a height no
+    # multiple of the tile (57x57: the statistics kernel runs), an odd width
+    # with Cw no multiple of the vector width, N = 1; whole 7x7 planes at
+    # cotnet50's Cp = 256, several to a block; and a geometry beyond the
+    # tiles (a row of 513 thread items), which must take the pointwise route
+    for dt in (torch.bfloat16, torch.float32):
+        for n, c, cw, h, w in ((2, 64, 8, 3, 3), (2, 64, 8, 57, 57),
+                               (4, 48, 6, 13, 11), (1, 64, 8, 56, 56)):
+            cases.append(dict(n=n, c=c, cp=c // 2, cw=cw, h=h, w=w, k=3,
+                              dil=1, groups=1, dtype=dt))
+    cases.append(dict(n=4, c=512, cp=256, h=7, w=7, k=3, dil=1, groups=1,
+                      dtype=torch.bfloat16))
+    cases.append(dict(n=1, c=16, cp=8, h=2, w=2049, k=3, dil=1, groups=1,
+                      dtype=torch.bfloat16, route="pointwise"))
     return cases
 
 
-def embed_gn_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
-    """The fused embed conv + GroupNorm + aggregation kernels vs the plain
-    version on the card; returns their entries."""
-    gen = torch.Generator(device="cuda").manual_seed(9)
-
+def embed_gn_inputs(cs, gen) -> tuple:
+    """Seeded inputs of an embed_gn case from the CUDA generator ``gen``:
+    (x, w_pre, w2, b2, gamma, beta), the op's keyword arguments, and the
+    case's description."""
     def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
         t = torch.randn(*shape, generator=gen, device="cuda") * scale + shift
         return t.to(dtype)
 
+    n, c, cp, h, w, k, dil, groups = (cs[key] for key in (
+        "n", "c", "cp", "h", "w", "k", "dil", "groups"))
+    dt = cs["dtype"]
+    pad = (dil * (k - 1) + 1) // 2
+    cw = cs.get("cw", c // 8)
+    f = cw * k * k
+    x = randn(n, c, h, w, dtype=dt)
+    w_pre = randn(n, cp, h, w, dtype=dt).relu()      # it follows a ReLU
+    w2 = randn(f, cp // groups, scale=(2.0 / f) ** 0.5).to(dt)
+    b2, beta = randn(f, scale=0.1), randn(f, scale=0.2)
+    gamma = randn(f, scale=0.2, shift=1.0)
+    kw = dict(kernel_size=k, padding=pad, dilation=dil, groups=groups)
+    geometry = (f"N={n} C={c} Cp={cp} {h}x{w} groups={groups} "
+                f"Cw={cw} K={k} dil={dil} pad={pad} "
+                f"{str(dt).replace('torch.', '')}")
+    return (x, w_pre, w2, b2, gamma, beta), kw, geometry
+
+
+def embed_gn_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
+    """The fused embed conv + GroupNorm + aggregation kernels vs the plain
+    version on the card, each case launched twice (the same bits), with
+    the route its launcher takes and the device time of each of its
+    kernels; returns their entries."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
     entries = []
     for cs in embed_gn_cases():
-        n, c, cp, h, w, k, dil, groups = (cs[key] for key in (
-            "n", "c", "cp", "h", "w", "k", "dil", "groups"))
+        args, kw, geometry = embed_gn_inputs(cs, gen)
+        x, w_pre, w2 = args[:3]
+        n, cp, h, w, k, dil, groups = (cs[key] for key in (
+            "n", "cp", "h", "w", "k", "dil", "groups"))
         dt = cs["dtype"]
-        pad = (dil * (k - 1) + 1) // 2
-        f = c // 8 * k * k
-        x = randn(n, c, h, w, dtype=dt)
-        w_pre = randn(n, cp, h, w, dtype=dt).relu()      # it follows a ReLU
-        w2 = randn(f, cp // groups, scale=(2.0 / f) ** 0.5).to(dt)
-        b2, beta = randn(f, scale=0.1), randn(f, scale=0.2)
-        gamma = randn(f, scale=0.2, shift=1.0)
-        args = (x, w_pre, w2, b2, gamma, beta)
-        kw = dict(kernel_size=k, padding=pad, dilation=dil, groups=groups)
-        geometry = (f"N={n} C={c} Cp={cp} {h}x{w} groups={groups} "
-                    f"Cw={c // 8} K={k} dil={dil} pad={pad} "
-                    f"{str(dt).replace('torch.', '')}")
+        f = w2.shape[0]
+        pad = kw["padding"]
+        geo = dict(kernel_size=(k, k), dilation=(dil, dil),
+                   padding=(pad, pad), groups=groups)
+        variant = la.embed_gn_route(x, w_pre, w2, **geo)
+        if variant != cs.get("route", variant):
+            raise AssertionError(f"embed_gn at {geometry} took the {variant} "
+                                 f"route, not {cs['route']}")
+        workspace = la.embed_gn_workspace_bytes(x, w_pre, w2, **geo)
         before = dict(la.EMBED_GN_LAUNCHES_BY_SHAPE)
         with torch.no_grad(), tf32_off():
             got = la.local_aggregate_embed_gn(*args, impl="hopper", **kw)
             torch.cuda.synchronize()
             launches = paths.entry(
                 "embed_gn", new_key(la.EMBED_GN_LAUNCHES_BY_SHAPE, before))
+            # every sum has one owner and a fixed order
+            if not torch.equal(la.local_aggregate_embed_gn(
+                    *args, impl="hopper", **kw), got):
+                raise AssertionError(f"embed_gn at {geometry}: a second "
+                                     "launch gave other bits")
             ref = la.local_aggregate_embed_gn(*args, impl="torch", **kw)
             scale = float(ref.float().abs().max())
             if dt == torch.float32:
@@ -789,15 +871,32 @@ def embed_gn_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 raise AssertionError(
                     f"kernel != plain at {geometry}: {bad} elements, max "
                     f"|err| {float(err.max())}")
-            ms = device_ms(lambda: la.local_aggregate_embed_gn(
-                *args, impl="hopper", **kw))
+
+            def run():
+                return la.local_aggregate_embed_gn(*args, impl="hopper", **kw)
+
+            ms = device_ms(run)
+            split = kernel_ms_by_name(run, (EMBED_GN_STATS,) + EMBED_GN_AGG)
             plain_ms = device_ms(lambda: la.local_aggregate_embed_gn(
                 *args, impl="torch", **kw))
+            # the yardstick of a tensor-core product: w_raw of the same
+            # shapes in T by one torch.matmul (no bias, no rounding step)
+            w2g = w2.view(groups, f // groups, cp // groups)
+            wp = w_pre.view(n, groups, cp // groups, h * w)
+            product_matmul_ms = device_ms(lambda: torch.matmul(w2g, wp))
+        # the statistics kernel runs exactly where its partial sums need a
+        # workspace: not where a block holds whole planes
+        stats_ms = split[EMBED_GN_STATS]
+        if stats_ms is not None and bool(stats_ms) != bool(workspace):
+            raise AssertionError(f"embed_gn at {geometry}: workspace "
+                                 f"{workspace} bytes, statistics kernel "
+                                 f"{stats_ms} ms")
         # x, w_pre and w2 read, out written, the three f32 vectors; the
         # product w_pre @ w2 once, at the tensor cores' rate for its type
-        # (that this kernel forms it twice, in f32 FMAs, is its own cost),
-        # then per w_raw element the bias, the two statistics' terms and the
-        # normalize, and the taps, in f32
+        # (that this kernel forms it in f32 FMAs, and twice where the
+        # statistics kernel runs, is its own cost), then per w_raw element
+        # the bias, the two statistics' terms and the normalize, and the
+        # taps, in f32
         nbytes = (2 * x.numel() + w_pre.numel() + w2.numel()) \
             * x.element_size() + 3 * f * 4
         w_raw = n * f * h * w
@@ -807,16 +906,30 @@ def embed_gn_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
         entries.append({
             "name": "local_agg_embed_gn", "route": "cuda",
             "source": "cotnet_tpu_torch/ops/csrc/local_agg_embed_gn.cu",
-            "replaces": REPLACES_EMBED_GN, "geometry": geometry, **launches,
+            "replaces": REPLACES_EMBED_GN, "geometry": geometry,
+            "variant": variant, **launches,
             "max_abs_err": float(err.max()),
             "mean_abs_err": float(err.mean()),
             "tol": {"rtol": rtol, "atol": atol},
+            "deterministic": True, "workspace_bytes": workspace,
             "ms": ms, "plain_ms": plain_ms,
+            "stats_ms": stats_ms,
+            "agg_ms": (None if split[EMBED_GN_AGG[0]] is None
+                       else sum(split[name] for name in EMBED_GN_AGG)),
+            "product_matmul_ms": product_matmul_ms,
             "bound_ms": bound, "bound_by": bound_by,
             "bound_ms_at_copy_rate": nbytes / hbm_rate * 1e3,
             "library_ms": None})
         log_entry(entries[-1])
+        log(f"  stats {fmt_ms(entries[-1]['stats_ms'])}, aggregation "
+            f"{fmt_ms(entries[-1]['agg_ms'])} (torch.profiler); "
+            f"workspace {workspace} bytes; w_raw by torch.matmul "
+            f"{product_matmul_ms:.4f} ms")
     return entries
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def calibrate_bn(model, x, seed: int):
@@ -1674,7 +1787,7 @@ def profile_step(fn, label: str, top: int = 12):
            for name in ("local_agg_fwd", "local_agg_bwd_dx",
                         "local_agg_bwd_dw", "local_agg_bwd_dw_affine",
                         "local_agg_bwd_dw_affine_sums",
-                        "embed_gn_stats", "embed_gn_agg")}
+                        EMBED_GN_STATS, *EMBED_GN_AGG)}
     log(f"profile of one {label}: {sum(r[1] for r in rows)} device kernels "
         f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
         f"({100 * busy_ms / wall_ms:.1f}%); "

@@ -88,7 +88,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // a mask: the padding is the zeros.
 //
 // The affine dw (dw, ds and db in one pass, local_agg_bwd.cu) runs dw's
-// tiles with another store.
+// tiles with another store; the fused embed op's aggregation
+// (local_agg_embed_gn.cu) runs the forward's (fwd_tiles.cuh) with weights
+// it forms itself.
 //
 // Three routes, chosen before any launch from the geometry alone
 // (agg_route): ``k3``, the tiles with K = 3 at dilation 1 and column
@@ -110,6 +112,9 @@ constexpr int kTargetItems = 128;  // a forward or dx block's thread items
 // (fewer halo rows and block prologues), within 3% at the other maps (the
 // affine dw, too, ran fastest at 256 of 128, 192, 256 and 384)
 constexpr int kDwTargetItems = 256;
+// the fused embed op's aggregation: whole 28x28 planes in a block, so that
+// the block takes their GroupNorm statistics itself
+constexpr int kEmbedTargetItems = 256;
 constexpr int kSmemAim = 48 * 1024;  // a block's shared memory, when it can
 constexpr int kMaxSmem = 232448;   // shared memory of one block on sm_90
 constexpr int kStaticSmem = 1024;  // a kernel's static shared memory, at most
@@ -191,18 +196,70 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 // The kernels of the halo tiles, and their routes (the numbers the C
-// entries *_variant return).  The affine dw (dw, ds and db) tiles as dw.
-enum AggKernel { kAggFwd, kAggDx, kAggDw, kAggDwAffine };
+// entries *_variant return).  The affine dw (dw, ds and db) tiles as dw;
+// the fused embed op's aggregation as the forward, with its own target.
+enum AggKernel { kAggFwd, kAggDx, kAggDw, kAggDwAffine, kAggEmbed };
 constexpr int kRouteGeneral = 0;
 constexpr int kRoutePointwise = 1;
 constexpr int kRouteK3 = 3;
 
-// The tiling of ``kernel``'s tiled routes at geometry g: the forward and dw
-// tile the output (Ho x Wo) over x's halo rows, one plane per (n, head, cw)
-// (dw staging dy's rows besides); dx tiles dx (Hi x Wi) over dy's halo
-// rows, one plane per (n, cw).  The affine dw tiles as dw, and after the
-// last stage its threads' partial sums of ds and db (K*K float2 a thread)
-// take the same shared memory: ``smem`` is the larger of the two.
+// The embed aggregation's scratch, the shared memory after its stages:
+// byte offsets of its parts from the scratch's start, each 16-byte aligned.
+// The block's w_pre and w2 values are staged ``chunk`` embed channels at a
+// time, two chunks in flight: two w_pre buffers, for each of the at most
+// ``images`` images its planes span (at ``img_stride`` bytes) the chunk's
+// channels of the tile, ``span`` = rows * Wo elements each; two raw w2
+// buffers, [plane][K*K][cstride] elements; w2 in f32, [plane][channel]
+// [K*K padded to 4], ``w2_stride`` floats a plane (16 bytes more than the
+// values, so that neighbouring planes' values fall in other banks); per
+// thread its sums of w_raw and w_raw^2, then per plane its mean and 1/std
+// (float2).
+struct EmbedScratch {
+  int chunk, images, span, img_stride, cstride, w2_stride;
+  int wpre, wpre_buf, w2raw, w2raw_buf, w2f, sums, bytes;
+};
+constexpr int kEmbedScratchAim = 72 * 1024;  // the scratch, when it can
+
+inline int64_t round16(int64_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// The scratch of an embed aggregation block of tiling t, ``threads``
+// threads, with ``elem``-byte elements: the largest chunk of 64 channels
+// or fewer (16 or fewer beyond K = 3), halving down to 4, whose scratch
+// fits kEmbedScratchAim.  False when the byte counts overflow.
+inline bool plan_embed_scratch(const Geometry& g, const Tiling& t, int elem,
+                               unsigned threads, EmbedScratch* e) {
+  const int k2 = g.kh * g.kw, k2p = (k2 + 3) / 4 * 4;
+  const int images = std::min(t.planes, (t.planes + g.cw - 2) / g.cw + 1);
+  const int64_t span = int64_t(t.rows) * g.wo;
+  for (int chunk = k2 <= 9 ? 64 : 16;; chunk /= 2) {
+    const int64_t cstride = round16(int64_t(chunk) * elem) / elem;
+    const int64_t img_stride = round16(chunk * span * elem);
+    const int64_t wpre_buf = images * img_stride;
+    const int64_t w2raw_buf = round16(t.planes * k2 * cstride * elem);
+    const int64_t w2_stride = int64_t(chunk) * k2p + 4;
+    const int64_t w2f = 2 * (wpre_buf + w2raw_buf);
+    const int64_t sums = w2f + t.planes * w2_stride * 4;
+    const int64_t bytes = sums + round16((int64_t(threads) + t.planes) * 8);
+    if (bytes <= kEmbedScratchAim || chunk == 4) {
+      if (bytes > INT_MAX) return false;
+      *e = EmbedScratch{chunk,          images,        int(span),
+                        int(img_stride), int(cstride), int(w2_stride),
+                        0,              int(wpre_buf), int(2 * wpre_buf),
+                        int(w2raw_buf), int(w2f),      int(sums),
+                        int(bytes)};
+      return true;
+    }
+  }
+}
+
+// The tiling of ``kernel``'s tiled routes at geometry g: the forward, the
+// embed aggregation and dw tile the output (Ho x Wo) over x's halo rows,
+// one plane per (n, head, cw) (dw staging dy's rows besides); dx tiles dx
+// (Hi x Wi) over dy's halo rows, one plane per (n, cw).  The affine dw
+// tiles as dw, and after the last stage its threads' partial sums of ds
+// and db (K*K float2 a thread) take the same shared memory: ``smem`` is the
+// larger of the two.  The embed aggregation's scratch (plan_embed_scratch)
+// follows its stages: ``smem`` counts both.
 inline bool plan_agg(AggKernel kernel, const Geometry& g, int elem, int vec,
                      int unit, Tiling* t, unsigned* blocks, unsigned* threads,
                      size_t* smem) {
@@ -213,16 +270,25 @@ inline bool plan_agg(AggKernel kernel, const Geometry& g, int elem, int vec,
                       kTargetItems, unit, t, blocks, threads, smem);
   }
   const bool dw = kernel == kAggDw || kernel == kAggDwAffine;
+  const int items = dw                    ? kDwTargetItems
+                    : kernel == kAggEmbed ? kEmbedTargetItems
+                                          : kTargetItems;
   if (!plan_tiles(int64_t(g.n) * g.heads * g.cw, g.ho, g.wo, g.hi, g.wi,
-                  halo, dw, -g.pw, (g.kw - 1) * g.dw - g.pw, elem, vec,
-                  dw ? kDwTargetItems : kTargetItems, unit, t, blocks,
-                  threads, smem)) {
+                  halo, dw, -g.pw, (g.kw - 1) * g.dw - g.pw, elem, vec, items,
+                  unit, t, blocks, threads, smem)) {
     return false;
   }
   if (kernel == kAggDwAffine) {
     const int64_t sums = int64_t(g.kh) * g.kw * *threads * 8;
     if (sums > kMaxSmem - kStaticSmem) return false;
     *smem = std::max(*smem, size_t(sums));
+  }
+  if (kernel == kAggEmbed) {
+    EmbedScratch e;
+    if (!plan_embed_scratch(g, *t, elem, *threads, &e)) return false;
+    const int64_t bytes = int64_t(*smem) + e.bytes;
+    if (bytes > kMaxSmem - kStaticSmem) return false;
+    *smem = size_t(bytes);
   }
   return true;
 }
@@ -349,6 +415,10 @@ __device__ __forceinline__ void stage_rows(char* buf, const Tiling& t,
 
 template <int BYTES>
 struct Raw;
+template <>
+struct Raw<2> {
+  using type = unsigned short;
+};
 template <>
 struct Raw<4> {
   using type = unsigned;

@@ -26,27 +26,58 @@
 //
 // Bound on this card: the bytes of x + w_pre + w2 + out.  The product's
 // 2*N*P*Cp*F operations take less than those bytes at the tensor cores'
-// rate for 16-bit operands.  This kernel forms the product in f32 FMAs on
-// the CUDA cores, and twice (see below), so it is far from that bound.
+// rate for 16-bit operands; here it is formed in f32 FMAs on the CUDA
+// cores (924.8 M multiply-adds at each of cotnet50's maps, about 0.03 ms
+// at the card's f32 rate).
 //
-// Design (simple and right first).  A block cannot hold an image's w_raw
-// (up to 72 x 3136 values), and the statistics need all of it before the
-// first output.  So two kernels that each form w_raw in registers:
-//   embed_gn_stats  writes, per (n, cw, pixel tile), the tile's sum and sum
-//                   of squares of w_raw;
-//   embed_gn_agg    forms the same w_raw again, adds up the tiles' sums in a
-//                   fixed order, normalizes and aggregates.
-// Both call one device function, embed_w_raw, so the values whose
-// statistics are taken are bit for bit the values that are normalized.
-// A block is 32 pixels (a warp, along x) by CWB weight channels (along y);
-// each thread keeps the K2 taps of one (pixel, cw) in registers.  The
-// product runs over Cp in tiles of 32 held in shared memory, so w2 never
-// has to fit (at 256 x 576 it would not).  Every sum has one owner and a
-// fixed order: no atomics, deterministic.  Left for later: tensor-core
-// products (wgmma needs 64-row tiles of w_pre), keeping w_raw in shared
-// memory across the two passes for small maps, and x tiles in shared memory.
+// Two kernels: embed_gn_stats writes, per (n, cw, 32-pixel tile), the
+// tile's sum and sum of squares of w_raw; embed_gn_agg forms the weights,
+// normalizes and aggregates.  Three routes, chosen before any launch from
+// the geometry and the element size (agg_route with kAggEmbed, common.cuh):
+// - ``k3`` (K = 3 at dilation 1 and column padding 1; every main path) and
+//   ``general`` (runtime K <= kMaxK, V = 1): embed_gn_agg<T, KC> on the
+//   forward's halo tiles (fwd_tiles.cuh).  A block owns planes (n, cw) and
+//   a tile of their rows, up to kEmbedTargetItems thread items; it zeroes
+//   its stages and issues the first kStages - 1 x stages by cp.async, and
+//   only then forms its threads' weights, so that the product hides the
+//   copies' latency:
+//   - the product: the block stages w_pre's values of its tile (per image
+//     of its planes) and w2's rows of its planes in shared memory by
+//     cp.async, a chunk of embed channels at a time (plan_embed_scratch),
+//     the next chunk in flight while a chunk is summed; w2's chunk is
+//     turned to f32 with each channel's K*K values contiguous.  For each
+//     cp a thread reads its V values of w_pre and the K*K values of w2
+//     (three 16-byte loads at K = 3, the same address across the plane's
+//     threads), then makes K*K*V FMAs into registers.  (Reading w_pre from
+//     device memory inside that loop left it waiting on each load for
+//     most of the kernel's time on the card.)
+//   - the statistics: where a block holds whole planes (one row tile a
+//     plane: every map up to 28x28 at cotnet50's widths), the block sums
+//     w_raw and w_raw^2 by plane in f32 in a fixed order (each thread over
+//     its taps and positions, then the plane's threads in turn, or a warp
+//     a plane where it has more than 64 items), and embed_gn_stats is not
+//     launched; where a plane spans several row tiles (56x56), the
+//     statistics kernel runs first and one warp reads its partial sums in
+//     the pointwise route's fixed order;
+//   - the normalize in registers, subtract first, then the forward's walk
+//     of the C/Cw channels on the staged halo tiles: f32 taps, one rounding
+//     of the output, zero padding from the stages' zeros.
+// - ``pointwise`` (every other geometry): embed_gn_stats, then
+//   embed_gn_agg_pointwise, a block of 32 pixels by CWB weight channels, a
+//   thread the K2 taps of one (pixel, cw), forming w_raw again and reading
+//   x's taps through L1 (the op's first design).
+// Bit-identity: every kernel forms w_raw with embed_w_raw's arithmetic,
+// fmaf over cp = 0 .. Cp-1 in increasing order from 0.f, then + b2,
+// rounded to T and widened back to f32.  So the values whose statistics
+// embed_gn_stats takes are bit for bit the values the aggregation
+// normalizes, on the route that still launches it.  Every sum has one
+// owner and a fixed order: no atomics, the same bits from run to run.
+// Left for later: the product on tensor cores (wgmma), and the 56x56
+// statistics pass.
 
-#include "common.cuh"
+#include <numeric>
+
+#include "fwd_tiles.cuh"
 
 namespace {
 
@@ -57,6 +88,20 @@ struct EmbedGeometry {
   int n, groups, c, hi, wi, cp, cw, kh, kw, ho, wo, ph, pw, dh, dw;
   float eps;
 };
+
+// The aggregation's geometry (one head) of the op's.
+Geometry agg_geometry(const EmbedGeometry& g) {
+  return Geometry{g.n,  g.c,  g.hi, g.wi, 1,    g.cw, g.kh,
+                  g.kw, g.ho, g.wo, g.ph, g.pw, g.dh, g.dw};
+}
+
+// The statistics kernel's pixel tiles, and its partial sums' floats.
+int64_t stats_tiles(const EmbedGeometry& g) {
+  return (int64_t(g.ho) * g.wo + kTilePx - 1) / kTilePx;
+}
+int64_t stats_floats(const EmbedGeometry& g) {
+  return int64_t(g.n) * g.cw * stats_tiles(g) * 2;
+}
 
 // The K2 taps of w_raw for this thread's (pixel p0 + tx, cw0 + ty), zero
 // where the pixel or the channel is out of range.  Every thread of the
@@ -148,16 +193,36 @@ __global__ void __launch_bounds__(kTilePx* CWB)
   }
 }
 
-// x [N, C, Hi, Wi]; out [N, C, Ho, Wo]; gamma, beta [G, Cw*K2] f32.
-// Same grid and block as embed_gn_stats.
+// The image's statistics of weight channel cw from embed_gn_stats' tiles'
+// sums, lane by lane and then across the warp, in the same order wherever
+// they are read: (mean, 1/std).  Every lane of the warp must call it.
+__device__ __forceinline__ float2 tile_stats(const float* __restrict__ part,
+                                             int tiles, float count,
+                                             float eps) {
+  float s1 = 0.f, s2 = 0.f;
+  for (int t = threadIdx.x % 32; t < tiles; t += 32) {
+    s1 += part[2 * t];
+    s2 += part[2 * t + 1];
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  const float mean = s1 / count;
+  const float var = fmaxf(s2 / count - mean * mean, 0.f);
+  return make_float2(mean, rsqrtf(var + eps));
+}
+
+// The pointwise route's aggregation.  x [N, C, Hi, Wi]; out [N, C, Ho, Wo];
+// gamma, beta [G, Cw*K2] f32.  Same grid and block as embed_gn_stats.
 template <typename T, int K2, int CWB>
 __global__ void __launch_bounds__(kTilePx* CWB)
-    embed_gn_agg(const T* __restrict__ x, const T* __restrict__ w_pre,
-                 const T* __restrict__ w2, const float* __restrict__ b2,
-                 const float* __restrict__ gamma,
-                 const float* __restrict__ beta,
-                 const float* __restrict__ partials, T* __restrict__ out,
-                 EmbedGeometry g) {
+    embed_gn_agg_pointwise(const T* __restrict__ x,
+                           const T* __restrict__ w_pre,
+                           const T* __restrict__ w2,
+                           const float* __restrict__ b2,
+                           const float* __restrict__ gamma,
+                           const float* __restrict__ beta,
+                           const float* __restrict__ partials,
+                           T* __restrict__ out, EmbedGeometry g) {
   const int tile = blockIdx.x, tiles = gridDim.x;
   const int cw0 = blockIdx.y * CWB;
   const int n = blockIdx.z, grp = n % g.groups;
@@ -167,30 +232,18 @@ __global__ void __launch_bounds__(kTilePx* CWB)
                           w2 + int64_t(grp) * g.cw * K2 * g.cp,
                           b2 + grp * g.cw * K2, g, tile * kTilePx, cw0, wn);
 
-  // the image's statistics for this warp's cw: the tiles' sums, lane by
-  // lane and then across the warp, in the same order in every block
+  // the image's statistics for this warp's cw
   const int cw = cw0 + threadIdx.y;
-  float s1 = 0.f, s2 = 0.f;
-  if (cw < g.cw) {
-    const float* part = partials + (int64_t(n) * g.cw + cw) * tiles * 2;
-    for (int t = threadIdx.x; t < tiles; t += kTilePx) {
-      s1 += part[2 * t];
-      s2 += part[2 * t + 1];
-    }
-  }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
+  const float2 st = tile_stats(
+      partials + (int64_t(n) * g.cw + min(cw, g.cw - 1)) * tiles * 2, tiles,
+      float(K2) * float(plane), g.eps);
   const int p = tile * kTilePx + threadIdx.x;
   if (cw >= g.cw || p >= plane) return;
-  const float count = float(K2) * float(plane);
-  const float mean = s1 / count;
-  const float var = fmaxf(s2 / count - mean * mean, 0.f);
-  const float inv = rsqrtf(var + g.eps);
   const float* gm = gamma + (grp * g.cw + cw) * K2;
   const float* be = beta + (grp * g.cw + cw) * K2;
 #pragma unroll
   for (int k = 0; k < K2; ++k) {
-    wn[k] = (wn[k] - mean) * (inv * gm[k]) + be[k];
+    wn[k] = (wn[k] - st.x) * (st.y * gm[k]) + be[k];
   }
 
   const int ho = p / g.wo, wo = p % g.wo;
@@ -211,25 +264,354 @@ __global__ void __launch_bounds__(kTilePx* CWB)
   }
 }
 
+// Copy ``runs`` runs of ``len`` elements of T, run r from src(r) to
+// dst(r) (shared memory): by cp.async in ``unit``-byte pieces (16, 8 or 4;
+// every run start a multiple of it, the caller commits the group), pieces
+// of a run on consecutive threads; with no unit (0), element by element
+// through registers, kBatch loads in flight a thread before their stores.
+template <typename T, typename Src, typename Dst>
+__device__ __forceinline__ void copy_runs(int runs, int len, int unit,
+                                          Src src, Dst dst) {
+  if (unit == 0) {
+    constexpr int kBatch = 4;
+    const int total = runs * len;
+    for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * blockDim.x) {
+      T v[kBatch];
+      T* at[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * blockDim.x;
+        at[b] = nullptr;
+        if (i < total) {
+          const int r = i / len, j = i - r * len;
+          v[b] = src(r)[j];
+          at[b] = reinterpret_cast<T*>(dst(r)) + j;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (at[b] != nullptr) *at[b] = v[b];
+      }
+    }
+    return;
+  }
+  const int per_run = len * int(sizeof(T)) / unit;
+  const int total = runs * per_run;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int r = i / per_run, j = i - r * per_run;
+    char* to = dst(r) + j * unit;
+    const char* from = reinterpret_cast<const char*>(src(r)) + j * unit;
+    if (unit == 16) {
+      cp_async<16>(to, from);
+    } else if (unit == 8) {
+      cp_async<8>(to, from);
+    } else {
+      cp_async<4>(to, from);
+    }
+  }
+}
+
+// The tiled routes' weight source (fwd_tiles.cuh): a thread's K*K x V
+// weights formed from the 1x1 conv and normalized, by every thread of the
+// block once the first stages are issued.  w_pre [N, Cp, Ho, Wo]; w2
+// [G, Cw*K2, Cp]; b2, gamma, beta [G, Cw*K2] f32; partials as
+// embed_gn_stats writes them, read only where a plane spans several row
+// tiles.  ``scratch``: the EmbedScratch ``e`` of shared memory.
+template <typename T, int KC>
+struct EmbedWeights {
+  static constexpr bool kLate = true;
+  const T* __restrict__ w_pre;
+  const T* __restrict__ w2;
+  const float* __restrict__ b2;
+  const float* __restrict__ gamma;
+  const float* __restrict__ beta;
+  const float* __restrict__ partials;
+  int cp, groups, stats_tiles;
+  float eps;
+  EmbedScratch e;
+  int wpre_unit, w2_unit;  // copy units of the staging (0: none)
+
+  template <int KT, int V>
+  __device__ __forceinline__ void form(float (&wr)[KT * KT][V],
+                                       const FwdItem& it, const Geometry& g,
+                                       const Tiling& t, char* scratch) const {
+    const int kh = KC == 3 ? 3 : g.kh, kw = KC == 3 ? 3 : g.kw;
+    const int k2 = kh * kw;
+    const int k2p = (k2 + 3) / 4 * 4;  // a channel's w2 values, 16 bytes
+    const int hw = g.ho * g.wo;
+    const int planes = g.n * g.cw;
+    float* w2f = reinterpret_cast<float*>(scratch + e.w2f);
+    float2* sums = reinterpret_cast<float2*>(scratch + e.sums);
+    float2* stat = sums + blockDim.x;
+    const int n = it.plane / g.cw;
+    const int f0 = ((n % groups) * g.cw + (it.plane - n * g.cw)) * k2;
+    // the block: images img0 .. img0 + images - 1, planes plane0 .. plane0
+    // + np - 1, rows r0 .. r0 + rows - 1 of its tile
+    const int img0 = it.plane0 / g.cw;
+    const int np = min(t.planes, planes - it.plane0);
+    const int images = (it.plane0 + np - 1) / g.cw - img0 + 1;
+    const int r0 = it.tile * t.rows;
+    const int rows = min(t.rows, g.ho - r0);
+    // w2's row of (plane, tap 0), for each of the block's planes
+    __shared__ const T* w2_src[kMaxPlanes];
+    if (int(threadIdx.x) < np) {
+      const int plane = it.plane0 + threadIdx.x, nb = plane / g.cw;
+      w2_src[threadIdx.x] =
+          w2 + int64_t((nb % groups) * g.cw + plane - nb * g.cw) * k2 * cp;
+    }
+    __syncthreads();
+
+    // Issue chunk ``i`` of w_pre and w2 into buffer ``buf``: w_pre's
+    // channels of the tile, per image one run (whole planes: the chunk's
+    // channels are contiguous) or one run a channel (a row tile); w2's
+    // rows, one run per (plane, tap).
+    const auto issue = [&](int i, int buf) {
+      const int c0 = i * e.chunk, len = min(e.chunk, cp - c0);
+      char* wpre_s = scratch + e.wpre + buf * e.wpre_buf;
+      if (t.tiles == 1) {
+        copy_runs<T>(
+            images, len * hw, wpre_unit,
+            [&](int r) { return w_pre + (int64_t(img0 + r) * cp + c0) * hw; },
+            [&](int r) { return wpre_s + r * e.img_stride; });
+      } else {
+        copy_runs<T>(
+            len, rows * g.wo, wpre_unit,
+            [&](int r) {
+              return w_pre + (int64_t(img0) * cp + c0 + r) * hw + r0 * g.wo;
+            },
+            [&](int r) { return wpre_s + r * e.span * int(sizeof(T)); });
+      }
+      char* w2_s = scratch + e.w2raw + buf * e.w2raw_buf;
+      copy_runs<T>(
+          np * k2, len, w2_unit,
+          [&](int r) {
+            const int pp = r / k2;
+            return w2_src[pp] + int64_t(r - pp * k2) * cp + c0;
+          },
+          [&](int r) { return w2_s + r * e.cstride * int(sizeof(T)); });
+    };
+
+    // the product: f32 sums over cp = 0 .. Cp-1 in increasing order, the
+    // next chunk's copies in flight while a chunk is summed
+#pragma unroll
+    for (int k = 0; k < KT * KT; ++k) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) wr[k][v] = 0.f;
+    }
+    const int chunks = (cp + e.chunk - 1) / e.chunk;
+    issue(0, 0);
+    cp_async_commit();
+    for (int i = 0; i < chunks; ++i) {
+      const int buf = i & 1;
+      const int len = min(e.chunk, cp - i * e.chunk);
+      __syncthreads();  // every thread is past chunk i - 1
+      if (i + 1 < chunks) issue(i + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this thread's copies of chunk i have landed
+      __syncthreads();     // and every thread's
+      // w2 to f32, [plane][channel][tap]: a warp a (plane, tap) row, its
+      // lanes along the channels
+      const T* raw =
+          reinterpret_cast<const T*>(scratch + e.w2raw + buf * e.w2raw_buf);
+      for (int r = threadIdx.x / 32; r < np * k2; r += blockDim.x / 32) {
+        const int pp = r / k2;
+        float* to = w2f + pp * e.w2_stride + r - pp * k2;
+        for (int c = threadIdx.x % 32; c < len; c += 32) {
+          to[c * k2p] = to_f32(raw[r * e.cstride + c]);
+        }
+      }
+      __syncthreads();
+      if (it.active) {
+        const T* wp = reinterpret_cast<const T*>(scratch + e.wpre +
+                                                 buf * e.wpre_buf +
+                                                 (n - img0) * e.img_stride) +
+                      (it.ho - r0) * g.wo + it.wo0;
+        const float* ws = w2f + it.p * e.w2_stride;
+        // V values of w_pre in one load where every row and channel of the
+        // stage starts on V elements (the same for the whole block), else
+        // one by one
+        const bool whole = it.nv == V && g.wo % V == 0 && e.span % V == 0;
+#pragma unroll 4
+        for (int c = 0; c < len; ++c) {
+          float a[V];
+          if (whole) {
+            load_pieces<V * int(sizeof(T)), T, V>(wp + c * e.span, a);
+          } else {
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              a[v] = v < it.nv ? to_f32(wp[c * e.span + v]) : 0.f;
+            }
+          }
+          const float* wc = ws + c * k2p;
+          if constexpr (KC == 3) {
+            float w9[12];
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+              const float4 f = reinterpret_cast<const float4*>(wc)[q];
+              w9[4 * q] = f.x;
+              w9[4 * q + 1] = f.y;
+              w9[4 * q + 2] = f.z;
+              w9[4 * q + 3] = f.w;
+            }
+#pragma unroll
+            for (int k = 0; k < 9; ++k) {
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                wr[k][v] = fmaf(a[v], w9[k], wr[k][v]);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int i2 = 0; i2 < KT; ++i2) {
+#pragma unroll
+              for (int j = 0; j < KT; ++j) {
+                if (i2 < kh && j < kw) {
+                  const float wv = wc[i2 * kw + j];
+#pragma unroll
+                  for (int v = 0; v < V; ++v) {
+                    wr[i2 * KT + j][v] = fmaf(a[v], wv, wr[i2 * KT + j][v]);
+                  }
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+
+    // w_raw: + b2, rounded to the model type, as the conv's output would
+    // be; the thread's sums of w_raw and w_raw^2 over its taps (in order)
+    // and its positions
+    float s1 = 0.f, s2 = 0.f;
+    if (it.active) {
+#pragma unroll
+      for (int i = 0; i < KT; ++i) {
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          if (i < kh && j < kw) {
+            const float bk = b2[f0 + i * kw + j];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              const float w = to_f32(from_f32<T>(wr[i * KT + j][v] + bk));
+              wr[i * KT + j][v] = w;
+              if (v < it.nv) {
+                s1 += w;
+                s2 += w * w;
+              }
+            }
+          }
+        }
+      }
+    }
+
+    // the statistics of each of the block's planes: (mean, 1/std)
+    const float count = float(k2) * float(hw);
+    if (t.tiles == 1) {
+      // whole planes: the plane's items in turn (a thread a plane), or a
+      // warp a plane, lane l taking items l, l + 32, ... in turn, then the
+      // warp's butterfly
+      const int items = t.rows * t.q;
+      if (int(threadIdx.x) < t.planes * items) {
+        sums[threadIdx.x] = make_float2(s1, s2);
+      }
+      __syncthreads();
+      const bool by_thread = items <= 64;
+      const int per_sum = by_thread ? 1 : 32;
+      const int lane = threadIdx.x % 32;
+      for (int u = threadIdx.x / per_sum; u < t.planes;
+           u += blockDim.x / per_sum) {
+        const float2* src = sums + u * items;
+        float a = 0.f, b = 0.f;
+        for (int i = by_thread ? 0 : lane; i < items; i += per_sum) {
+          a += src[i].x;
+          b += src[i].y;
+        }
+        if (!by_thread) {
+          a = warp_sum(a);
+          b = warp_sum(b);
+        }
+        if (by_thread || lane == 0) {
+          const float mean = a / count;
+          const float var = fmaxf(b / count - mean * mean, 0.f);
+          stat[u] = make_float2(mean, rsqrtf(var + eps));
+        }
+      }
+    } else if (threadIdx.x < 32) {
+      // one plane a block, its row tiles' sums from embed_gn_stats
+      const int nb = it.plane0 / g.cw;
+      stat[0] = tile_stats(
+          partials + (int64_t(nb) * g.cw + it.plane0 - nb * g.cw) *
+                         stats_tiles * 2,
+          stats_tiles, count, eps);
+    }
+    __syncthreads();
+
+    // the normalize, subtract first
+    if (it.active) {
+      const float2 st = stat[it.p];
+#pragma unroll
+      for (int i = 0; i < KT; ++i) {
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          if (i < kh && j < kw) {
+            const float sc = st.y * gamma[f0 + i * kw + j];
+            const float sh = beta[f0 + i * kw + j];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              wr[i * KT + j][v] = (wr[i * KT + j][v] - st.x) * sc + sh;
+            }
+          }
+        }
+      }
+    }
+  }
+};
+
+// x [N, C, Hi, Wi]; out [N, C, Ho, Wo]; the rest as EmbedWeights.  KC = 3:
+// K = 3 at dilation 1 and column padding 1; KC = 0: any K up to kMaxK.
+template <typename T, int KC>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    embed_gn_agg(const T* __restrict__ x, const T* __restrict__ w_pre,
+                 const T* __restrict__ w2, const float* __restrict__ b2,
+                 const float* __restrict__ gamma,
+                 const float* __restrict__ beta,
+                 const float* __restrict__ partials, T* __restrict__ out,
+                 Geometry g, Tiling t, int cp, int groups, int stats_tiles,
+                 float eps, EmbedScratch e, int wpre_unit, int w2_unit) {
+  fwd_tiles<T, KC>(x, out, g, t,
+                   EmbedWeights<T, KC>{w_pre, w2, b2, gamma, beta, partials,
+                                       cp, groups, stats_tiles, eps, e,
+                                       wpre_unit, w2_unit});
+}
+
 template <typename T, int K2, int CWB>
-int launch(const void* x, const void* w_pre, const void* w2, const void* b2,
-           const void* gamma, const void* beta, void* partials, void* out,
-           const EmbedGeometry& g, cudaStream_t stream) {
-  const int64_t plane = int64_t(g.ho) * g.wo;
-  const int64_t tiles = (plane + kTilePx - 1) / kTilePx;
-  if (g.n == 0 || g.cw == 0 || plane == 0) return int(cudaSuccess);
+int launch_stats(const void* w_pre, const void* w2, const void* b2,
+                 void* partials, const EmbedGeometry& g, cudaStream_t stream,
+                 dim3* grid) {
+  const int64_t tiles = stats_tiles(g);
   if (tiles > 0x7fffffff || g.n > 65535 || (g.cw + CWB - 1) / CWB > 65535) {
     return int(cudaErrorInvalidConfiguration);
   }
-  const dim3 grid(unsigned(tiles), unsigned((g.cw + CWB - 1) / CWB),
-                  unsigned(g.n));
-  const dim3 block(kTilePx, CWB);
-  embed_gn_stats<T, K2, CWB><<<grid, block, 0, stream>>>(
+  *grid = dim3(unsigned(tiles), unsigned((g.cw + CWB - 1) / CWB),
+               unsigned(g.n));
+  embed_gn_stats<T, K2, CWB><<<*grid, dim3(kTilePx, CWB), 0, stream>>>(
       static_cast<const T*>(w_pre), static_cast<const T*>(w2),
       static_cast<const float*>(b2), static_cast<float*>(partials), g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  embed_gn_agg<T, K2, CWB><<<grid, block, 0, stream>>>(
+  return int(cudaGetLastError());
+}
+
+// The pointwise route: the statistics kernel, then the pointwise
+// aggregation on the same grid.
+template <typename T, int K2, int CWB>
+int launch_pointwise(const void* x, const void* w_pre, const void* w2,
+                     const void* b2, const void* gamma, const void* beta,
+                     void* partials, void* out, const EmbedGeometry& g,
+                     cudaStream_t stream) {
+  dim3 grid;
+  const int err =
+      launch_stats<T, K2, CWB>(w_pre, w2, b2, partials, g, stream, &grid);
+  if (err != int(cudaSuccess)) return err;
+  embed_gn_agg_pointwise<T, K2, CWB><<<grid, dim3(kTilePx, CWB), 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_pre),
       static_cast<const T*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
@@ -237,25 +619,130 @@ int launch(const void* x, const void* w_pre, const void* w2, const void* b2,
   return int(cudaGetLastError());
 }
 
-// The taps live in registers, so K2 is a template argument; CWB keeps the
-// w2 tile in shared memory near 13 KB at each K2.
+// The statistics kernel, and with ``pointwise`` the pointwise aggregation
+// after it, at the instantiation of K2: the taps live in registers, so K2
+// is a template argument; CWB keeps the w2 tile in shared memory near 13 KB
+// at each K2.
 template <typename T>
-int dispatch_taps(const void* x, const void* w_pre, const void* w2,
-                  const void* b2, const void* gamma, const void* beta,
-                  void* partials, void* out, const EmbedGeometry& g,
-                  cudaStream_t stream) {
+int dispatch_taps(bool pointwise, const void* x, const void* w_pre,
+                  const void* w2, const void* b2, const void* gamma,
+                  const void* beta, void* partials, void* out,
+                  const EmbedGeometry& g, cudaStream_t stream) {
+  dim3 grid;
   switch (g.kh * g.kw) {
     case 9:
-      return launch<T, 9, 8>(x, w_pre, w2, b2, gamma, beta, partials, out, g,
-                             stream);
+      return pointwise
+                 ? launch_pointwise<T, 9, 8>(x, w_pre, w2, b2, gamma, beta,
+                                             partials, out, g, stream)
+                 : launch_stats<T, 9, 8>(w_pre, w2, b2, partials, g, stream,
+                                         &grid);
     case 25:
-      return launch<T, 25, 4>(x, w_pre, w2, b2, gamma, beta, partials, out, g,
-                              stream);
+      return pointwise
+                 ? launch_pointwise<T, 25, 4>(x, w_pre, w2, b2, gamma, beta,
+                                              partials, out, g, stream)
+                 : launch_stats<T, 25, 4>(w_pre, w2, b2, partials, g, stream,
+                                          &grid);
     case 49:
-      return launch<T, 49, 2>(x, w_pre, w2, b2, gamma, beta, partials, out, g,
-                              stream);
+      return pointwise
+                 ? launch_pointwise<T, 49, 2>(x, w_pre, w2, b2, gamma, beta,
+                                              partials, out, g, stream)
+                 : launch_stats<T, 49, 2>(w_pre, w2, b2, partials, g, stream,
+                                          &grid);
     default:
       return int(cudaErrorInvalidValue);
+  }
+}
+
+// The tiled routes: where a plane spans several row tiles, the statistics
+// kernel first; then embed_gn_agg.
+template <typename T, int KC>
+int launch_tiles(const void* x, const void* w_pre, const void* w2,
+                 const void* b2, const void* gamma, const void* beta,
+                 void* partials, void* out, const EmbedGeometry& g,
+                 cudaStream_t stream) {
+  constexpr int V = KC == 3 ? 4 : 1;
+  const Geometry ag = agg_geometry(g);
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_agg(kAggEmbed, ag, int(sizeof(T)), V,
+                copy_unit(x, int64_t(g.wi) * int(sizeof(T))), &t, &blocks,
+                &threads, &smem)) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  // the staging's copy units: every run start a multiple of them (the
+  // chunks start at multiples of e.chunk channels)
+  EmbedScratch e;
+  if (!plan_embed_scratch(ag, t, int(sizeof(T)), threads, &e)) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  const int64_t elem = int(sizeof(T));
+  const int64_t step = std::gcd(int64_t(g.cp), int64_t(e.chunk));
+  const int64_t hw = int64_t(g.ho) * g.wo;
+  const int wpre_unit =
+      t.tiles == 1 ? copy_unit(w_pre, step * hw * elem)
+                   : copy_unit(w_pre, int64_t(g.wo) * elem);
+  const int w2_unit = copy_unit(w2, step * elem);
+  if (t.tiles > 1) {
+    if (partials == nullptr) return int(cudaErrorInvalidValue);
+    const int err = dispatch_taps<T>(false, x, w_pre, w2, b2, gamma, beta,
+                                     partials, out, g, stream);
+    if (err != int(cudaSuccess)) return err;
+  }
+  const auto kernel = embed_gn_agg<T, KC>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w_pre),
+      static_cast<const T*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const float*>(partials), static_cast<T*>(out), ag, t, g.cp,
+      g.groups, int(stats_tiles(g)), g.eps, e, wpre_unit, w2_unit);
+  return int(cudaGetLastError());
+}
+
+// The route of a launch at g: kRouteK3, kRouteGeneral or kRoutePointwise.
+int embed_route(const EmbedGeometry& g, int elem) {
+  return agg_route(kAggEmbed, agg_geometry(g), elem);
+}
+
+// The floats of partial sums a launch at g needs: the statistics kernel's,
+// on the pointwise route and where a tiled route's plane spans several row
+// tiles; 0 where a block holds whole planes.
+int64_t workspace_floats(const EmbedGeometry& g, int elem) {
+  if (int64_t(g.n) * g.cw * g.ho * g.wo == 0) return 0;
+  const int route = embed_route(g, elem);
+  if (route == kRoutePointwise) return stats_floats(g);
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_agg(kAggEmbed, agg_geometry(g), elem, route == kRouteK3 ? 4 : 1,
+                0, &t, &blocks, &threads, &smem)) {
+    return stats_floats(g);
+  }
+  return t.tiles > 1 ? stats_floats(g) : 0;
+}
+
+template <typename T>
+int dispatch(const void* x, const void* w_pre, const void* w2,
+             const void* b2, const void* gamma, const void* beta,
+             void* partials, void* out, const EmbedGeometry& g,
+             cudaStream_t stream) {
+  if (int64_t(g.n) * g.cw * g.ho * g.wo == 0) return int(cudaSuccess);
+  // the statistics and pointwise kernels are compiled for these K*K
+  const int k2 = g.kh * g.kw;
+  if (k2 != 9 && k2 != 25 && k2 != 49) return int(cudaErrorInvalidValue);
+  switch (embed_route(g, int(sizeof(T)))) {
+    case kRouteK3:
+      return launch_tiles<T, 3>(x, w_pre, w2, b2, gamma, beta, partials, out,
+                                g, stream);
+    case kRouteGeneral:
+      return launch_tiles<T, 0>(x, w_pre, w2, b2, gamma, beta, partials, out,
+                                g, stream);
+    default:
+      if (partials == nullptr) return int(cudaErrorInvalidValue);
+      return dispatch_taps<T>(true, x, w_pre, w2, b2, gamma, beta, partials,
+                              out, g, stream);
   }
 }
 
@@ -263,9 +750,9 @@ int dispatch_taps(const void* x, const void* w_pre, const void* w2,
 
 // dtype: 0 float32, 1 float16, 2 bfloat16 (x, w_pre, w2, out); b2, gamma,
 // beta and partials are f32.  n counts images times groups; c, cp and cw are
-// per group.  partials holds n * cw * ceil(ho*wo / 32) * 2 floats of
-// scratch.  kh*kw must be 9, 25 or 49.  Returns a cudaError_t code; 0 means
-// both launches were accepted.
+// per group.  partials: local_agg_embed_gn_workspace's bytes of scratch
+// (null where that is 0).  kh*kw must be 9, 25 or 49.  Returns a
+// cudaError_t code; 0 means every launch was accepted.
 extern "C" int local_agg_embed_gn_launch(
     int dtype, const void* x, const void* w_pre, const void* w2,
     const void* b2, const void* gamma, const void* beta, void* partials,
@@ -277,15 +764,38 @@ extern "C" int local_agg_embed_gn_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_taps<float>(x, w_pre, w2, b2, gamma, beta, partials,
-                                  out, g, st);
+      return dispatch<float>(x, w_pre, w2, b2, gamma, beta, partials, out, g,
+                             st);
     case 1:
-      return dispatch_taps<__half>(x, w_pre, w2, b2, gamma, beta, partials,
-                                   out, g, st);
+      return dispatch<__half>(x, w_pre, w2, b2, gamma, beta, partials, out, g,
+                              st);
     case 2:
-      return dispatch_taps<__nv_bfloat16>(x, w_pre, w2, b2, gamma, beta,
-                                          partials, out, g, st);
+      return dispatch<__nv_bfloat16>(x, w_pre, w2, b2, gamma, beta, partials,
+                                     out, g, st);
     default:
       return int(cudaErrorInvalidValue);
   }
+}
+
+// The route a launch at this geometry runs, decided as the launcher decides
+// it: 3 (k3: K = 3, dilation 1, column padding 1), 0 (general: K up to
+// kMaxK) or 1 (pointwise: every geometry whose tiles do not fit).
+extern "C" int local_agg_embed_gn_variant(int dtype, int n, int groups, int c,
+                                          int hi, int wi, int cp, int cw,
+                                          int kh, int kw, int ho, int wo,
+                                          int ph, int pw, int dh, int dw) {
+  const EmbedGeometry g{n,  groups, c,  hi, wi, cp, cw, kh,
+                        kw, ho,     wo, ph, pw, dh, dw, 0.f};
+  return embed_route(g, elem_size(dtype));
+}
+
+// The bytes of f32 scratch a launch at this geometry needs for the
+// statistics kernel's partial sums: 0 where the launch makes no statistics
+// launch (a block holds whole planes).
+extern "C" long long local_agg_embed_gn_workspace(
+    int dtype, int n, int groups, int c, int hi, int wi, int cp, int cw,
+    int kh, int kw, int ho, int wo, int ph, int pw, int dh, int dw) {
+  const EmbedGeometry g{n,  groups, c,  hi, wi, cp, cw, kh,
+                        kw, ho,     wo, ph, pw, dh, dw, 0.f};
+  return 4 * workspace_floats(g, elem_size(dtype));
 }

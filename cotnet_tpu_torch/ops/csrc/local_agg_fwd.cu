@@ -26,7 +26,8 @@
 // 0.0479 ms at cotnet50's 56x56 C=64 Cw=8 bs128 bf16 (x 51.4 MB, w 57.8 MB,
 // out 51.4 MB).  The design reads each of those bytes from HBM once.
 //
-// Design (the halo tiles of common.cuh):
+// Design (the halo tiles of common.cuh; the walk below is fwd_tiles.cuh's,
+// which the fused embed op's aggregation runs with another weight source):
 // - A block owns one weight channel (n, head, cw), the "plane" of Ho x Wo
 //   positions whose K*K weights the G = C/Cw channels c = cw + g*Cw share,
 //   and a tile of whole rows of it, at most kTargetItems thread items; at a
@@ -60,9 +61,49 @@
 // geometry before it launches (agg_route, common.cuh) and launches exactly
 // that kernel.
 
-#include "common.cuh"
+#include "fwd_tiles.cuh"
 
 namespace {
+
+// The forward's weight source (fwd_tiles.cuh): the K*K weights of the
+// thread's positions, read once from w [N, heads, Cw, Kh*Kw, Ho, Wo] in the
+// widest loads their alignment allows, w*s + b in f32 once per weight with
+// the affine (s, b [N, heads, Cw, Kh*Kw] f32).
+template <typename T, bool AFFINE, int KC>
+struct LoadedWeights {
+  static constexpr bool kLate = false;
+  const T* __restrict__ w;
+  const float* __restrict__ s;
+  const float* __restrict__ b;
+
+  template <int KT, int V>
+  __device__ __forceinline__ void form(float (&wr)[KT * KT][V],
+                                       const FwdItem& it, const Geometry& g,
+                                       const Tiling&, char*) const {
+    const int kh = KC == 3 ? 3 : g.kh, kw = KC == 3 ? 3 : g.kw;
+    const int k2 = kh * kw;
+    const int hw_out = g.ho * g.wo;
+    const T* wp = w + int64_t(it.plane) * k2 * hw_out + it.ho * g.wo + it.wo0;
+#pragma unroll
+    for (int i = 0; i < KT; ++i) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        if (i < kh && j < kw) {
+          const int k = i * kw + j;
+          load_vec<T, V>(wp + k * hw_out, it.nv, wr[i * KT + j]);
+          if (AFFINE) {
+            const float sk = s[int64_t(it.plane) * k2 + k];
+            const float bk = b[int64_t(it.plane) * k2 + k];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              wr[i * KT + j][v] = wr[i * KT + j][v] * sk + bk;
+            }
+          }
+        }
+      }
+    }
+  }
+};
 
 // x [N, C, Hi, Wi]; w [N, heads, Cw, Kh*Kw, Ho, Wo];
 // s, b [N, heads, Cw, Kh*Kw] f32 (AFFINE only); out [N, heads*C, Ho, Wo].
@@ -75,141 +116,7 @@ __global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
     local_agg_fwd(const T* __restrict__ x, const T* __restrict__ w,
                   const float* __restrict__ s, const float* __restrict__ b,
                   T* __restrict__ out, Geometry g, Tiling t) {
-  constexpr int KT = KC == 3 ? 3 : kMaxK;        // taps unrolled per axis
-  constexpr int V = KC == 3 ? 4 : 1;             // positions of an item
-  constexpr int NE = KC == 3 ? V + KT - 1 : KT;  // x columns an item reads
-  const int kh = KC == 3 ? 3 : g.kh, kw = KC == 3 ? 3 : g.kw;
-  const int dh = KC == 3 ? 1 : g.dh, dw = KC == 3 ? 1 : g.dw;
-  const int k2 = kh * kw;
-  const int hw_in = g.hi * g.wi, hw_out = g.ho * g.wo;
-
-  extern __shared__ __align__(16) char stages[];
-  __shared__ const T* src[kMaxPlanes];
-
-  // the block: planes plane0 .. plane0 + t.planes - 1 and rows r0 ..
-  // r0 + t.rows - 1; staged row 0 is x row ``first``, and x's rows
-  // [h_lo, h_hi) are the image's among the staged ones
-  const int tile = blockIdx.x % t.tiles;
-  const int plane0 = int(blockIdx.x / t.tiles) * t.planes;
-  const int planes = g.n * g.heads * g.cw;  // < 2^31: checked at launch
-  const int r0 = tile * t.rows;
-  const int first = r0 - g.ph;
-  const int h_lo = max(0, first), h_hi = min(g.hi, first + t.staged);
-  if (threadIdx.x < t.planes) {
-    // plane (n * heads + head) * Cw + cw reads x channels n*C + cw + g*Cw
-    const int plane = plane0 + threadIdx.x;
-    const T* xp = nullptr;
-    if (plane < planes) {
-      const int nh = plane / g.cw;
-      xp = x + (int64_t(nh / g.heads) * g.c + (plane - nh * g.cw)) * hw_in;
-    }
-    src[threadIdx.x] = xp;
-  }
-  zero_stages(stages, kStages * t.planes * t.region);
-
-  // the thread: plane p of the block, row ho, positions wo0 .. wo0 + nv - 1
-  const int items = t.rows * t.q;
-  const int p = threadIdx.x / items;
-  const int rem = threadIdx.x - p * items;
-  const int row = rem / t.q;
-  const int wo0 = (rem - row * t.q) * V;
-  const int ho = r0 + row;
-  const int plane = plane0 + p;
-  const bool active = p < t.planes && plane < planes && ho < g.ho;
-  const int nv = min(V, g.wo - wo0);
-
-  // the K*K weights of the thread's positions, once, into registers; w*s
-  // + b in f32 once per weight with the affine
-  float wr[KT * KT][V];
-  T* op = nullptr;
-  if (active) {
-    const T* wp = w + int64_t(plane) * k2 * hw_out + ho * g.wo + wo0;
-#pragma unroll
-    for (int i = 0; i < KT; ++i) {
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        if (i < kh && j < kw) {
-          const int k = i * kw + j;
-          load_vec<T, V>(wp + k * hw_out, nv, wr[i * KT + j]);
-          if (AFFINE) {
-            const float sk = s[int64_t(plane) * k2 + k];
-            const float bk = b[int64_t(plane) * k2 + k];
-#pragma unroll
-            for (int v = 0; v < V; ++v) {
-              wr[i * KT + j][v] = wr[i * KT + j][v] * sk + bk;
-            }
-          }
-        }
-      }
-    }
-    const int nh = plane / g.cw;
-    op = out + (int64_t(nh) * g.c + (plane - nh * g.cw)) * hw_out +
-         ho * g.wo + wo0;
-  }
-  // where tap (0, 0) of position 0 reads in the plane's stage
-  const int base = p * (t.region / int(sizeof(T))) + row * t.stride + t.pl +
-                   wo0 - g.pw;
-  __syncthreads();  // src[], the zeros
-
-  const int groups = g.c / g.cw;
-  const int64_t x_step = int64_t(g.cw) * hw_in;  // channel c to c + Cw
-  const int64_t out_step = int64_t(g.cw) * hw_out;
-  const int stage_bytes = t.planes * t.region;
-#pragma unroll 1
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < groups) {
-      stage_rows(stages + st * stage_bytes, t, src, st * x_step, h_lo, h_hi,
-                 first, g.wi);
-    }
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int grp = 0; grp < groups; ++grp) {
-    cp_async_wait<kStages - 2>();  // this group's stage has landed
-    // every thread is past the previous group's sum, so its buffer is free
-    __syncthreads();
-    const int ahead = grp + kStages - 1;
-    if (ahead < groups) {
-      stage_rows(stages + (ahead % kStages) * stage_bytes, t, src,
-                 ahead * x_step, h_lo, h_hi, first, g.wi);
-    }
-    cp_async_commit();
-    if (active) {
-      const T* buf =
-          reinterpret_cast<const T*>(stages + (grp % kStages) * stage_bytes) +
-          base;
-      float acc[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) acc[v] = 0.f;
-#pragma unroll
-      for (int i = 0; i < KT; ++i) {
-        if (i < kh) {
-          const T* rp = buf + i * dh * t.stride;
-          // K = 3: the item's V + 2 columns from the even one before them
-          // (pad 1 makes ``buf`` odd), in V/2 + 2 loads of two
-          float xs[KC == 3 ? NE + 2 : NE];
-          if constexpr (KC == 3) {
-            load_pairs<T, V / 2 + 2>(rp - 1, xs);
-          } else {
-#pragma unroll
-            for (int e = 0; e < NE; ++e) {
-              xs[e] = e < kw ? to_f32(rp[e * dw]) : 0.f;
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < KT; ++j) {
-            if (j < kw) {
-#pragma unroll
-              for (int v = 0; v < V; ++v) {
-                acc[v] += wr[i * KT + j][v] * xs[KC == 3 ? v + j + 1 : j];
-              }
-            }
-          }
-        }
-      }
-      store_vec<T, V>(op + grp * out_step, nv, acc);
-    }
-  }
+  fwd_tiles<T, KC>(x, out, g, t, LoadedWeights<T, AFFINE, KC>{w, s, b});
 }
 
 // The pointwise route, for the geometries the tiles do not take.  x, w, s,

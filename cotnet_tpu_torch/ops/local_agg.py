@@ -40,7 +40,9 @@ fold, in ``w_scale`` and ``w_bias`` (once: there is no double backward).
 
 ``local_aggregate_embed_gn`` is the eval-only fusion of the embed 1x1 conv,
 the GroupNorm and the aggregation: ``local_aggregate_embed_gn_plain``
-beside the kernels of ``csrc/local_agg_embed_gn.cu``.
+beside the kernels of ``csrc/local_agg_embed_gn.cu``, whose route
+``embed_gn_route`` reports (``k3`` and ``general`` on the forward's halo
+tiles, ``pointwise`` beyond them).
 
 ``local_aggregate_mix`` / ``local_aggregate_mix_merge`` aggregate one input
 with a 3x3 and a 5x5 weight at once (``local_aggregate_mix_plain`` /
@@ -84,8 +86,8 @@ PLAIN_BWD_CALLS = 0
 AFFINE_BWD_LAUNCHES: Dict[str, int] = {"dx": 0, "dw": 0}
 # keyed by (kernel, launch_key()); the key says whether the affine was on
 BWD_LAUNCHES_BY_SHAPE: Dict[tuple, int] = {}
-# launches by local_aggregate_embed_gn_hopper (one per call: its two kernels
-# always run together), keyed by embed_gn_key(); calls of the plain version
+# launches by local_aggregate_embed_gn_hopper (one per call, whether it runs
+# one kernel or two), keyed by embed_gn_key(); calls of the plain version
 EMBED_GN_LAUNCHES = 0
 EMBED_GN_LAUNCHES_BY_SHAPE: Dict[tuple, int] = {}
 PLAIN_EMBED_GN_CALLS = 0
@@ -351,6 +353,48 @@ def _embed_gn_kernel():
                        [ctypes.c_int] + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 15 + [ctypes.c_float,
                                                 ctypes.c_void_p])
+
+
+def _embed_gn_geometry(x, w_pre, w2, kernel_size, dilation, padding,
+                       groups) -> tuple:
+    """The fused kernels' geometry arguments: images times groups, groups,
+    x's channels per group, Hi, Wi, Cp and Cw per group, Kh, Kw, Ho, Wo,
+    the padding and the dilation."""
+    n, c, hi, wi = x.shape
+    _, _, ho, wo = w_pre.shape
+    f, cp = w2.shape
+    kh, kw = kernel_size
+    return (n * groups, groups, c // groups, hi, wi, cp,
+            f // groups // (kh * kw), kh, kw, ho, wo, *padding, *dilation)
+
+
+def embed_gn_route(x, w_pre, w2, *, kernel_size, dilation, padding,
+                   groups: int = 1) -> str:
+    """The route (``"k3"``, ``"general"`` or ``"pointwise"``) that a launch
+    of the fused embed op takes for x ``[N, C, Hi, Wi]``, w_pre
+    ``[N, groups*Cp, Ho, Wo]`` and w2 ``[F, Cp]`` in x's dtype, as its
+    launcher decides it from the geometry before it launches.  Builds the
+    kernel's library."""
+    fn = _c_function(_EMBED_GN_LIB_NAME, "local_agg_embed_gn_variant",
+                     [ctypes.c_int] * 16)
+    return ROUTES[fn(_DTYPE_CODES[x.dtype], *_embed_gn_geometry(
+        x, w_pre, w2, kernel_size, dilation, padding, groups))]
+
+
+def embed_gn_workspace_bytes(x, w_pre, w2, *, kernel_size, dilation, padding,
+                             groups: int = 1) -> int:
+    """The bytes of device memory the fused embed op needs for its
+    statistics kernel's partial sums, as its launcher plans the launch: 0
+    where a block holds whole planes and takes their statistics itself (no
+    statistics launch is made)."""
+    from cotnet_tpu_torch.ops import _build
+
+    fn = _build.load(_EMBED_GN_LIB_NAME).local_agg_embed_gn_workspace
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 16
+        fn.restype = ctypes.c_longlong
+    return fn(_DTYPE_CODES[x.dtype], *_embed_gn_geometry(
+        x, w_pre, w2, kernel_size, dilation, padding, groups))
 
 
 # the route of a forward, dx, dw or affine dw launch, by the code its
@@ -797,9 +841,14 @@ def local_aggregate_embed_gn_plain(x, w_pre, w2, b2, gamma, beta, kernel_size,
 def local_aggregate_embed_gn_hopper(x, w_pre, w2, b2, gamma, beta, *,
                                     kernel_size, dilation, padding,
                                     eps: float = 1e-5, groups: int = 1):
-    """Launch the fused Hopper kernels (``csrc/local_agg_embed_gn.cu``): a
-    statistics pass and an aggregation pass that both form ``w_raw`` in
-    registers, so the weight tensor is never stored.
+    """Launch the fused Hopper kernels (``csrc/local_agg_embed_gn.cu``),
+    which form ``w_raw`` in registers, so the weight tensor is never stored.
+    On the tiled routes (``embed_gn_route``) the aggregation kernel runs on
+    the forward's halo tiles and, where a block holds whole planes, takes
+    their statistics itself; where a plane spans several row tiles, and on
+    the pointwise route, a statistics kernel runs first and writes partial
+    sums to a float32 workspace that is allocated here only then
+    (``embed_gn_workspace_bytes``).  One ``EMBED_GN_LAUNCHES`` a call.
 
     x ``[N, C, Hi, Wi]``, w_pre ``[N, groups*Cp, Ho, Wo]`` and w2
     ``[F, Cp]`` contiguous CUDA tensors of one dtype (f32/f16/bf16); b2,
@@ -816,24 +865,25 @@ def local_aggregate_embed_gn_hopper(x, w_pre, w2, b2, gamma, beta, *,
             f"the fused embed kernel is compiled for K*K in "
             f"{_EMBED_GN_TAPS}, not {kh}x{kw}; pass impl='torch' for the "
             "plain version")
-    n, c, hi, wi = x.shape
+    n, c, _, _ = x.shape
     _, _, ho, wo = w_pre.shape
-    f, cp = w2.shape
-    cwg = f // groups // (kh * kw)
-    dh, dw = dilation
-    ph, pw = padding
+    geometry = dict(kernel_size=kernel_size, dilation=dilation,
+                    padding=padding, groups=groups)
     fn = _embed_gn_kernel()
     out = torch.empty(n, c, ho, wo, dtype=x.dtype, device=x.device)
-    tiles = -(-ho * wo // 32)
-    partials = torch.empty(n * groups, cwg, tiles, 2, dtype=torch.float32,
-                           device=x.device)
+    nbytes = embed_gn_workspace_bytes(x, w_pre, w2, **geometry)
+    partials = (torch.empty(nbytes // 4, dtype=torch.float32,
+                            device=x.device) if nbytes else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w_pre.data_ptr(),
                  w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-                 beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                 n * groups, groups, c // groups, hi, wi, cp, cwg, kh, kw,
-                 ho, wo, ph, pw, dh, dw, float(eps), stream)
+                 beta.data_ptr(),
+                 None if partials is None else partials.data_ptr(),
+                 out.data_ptr(),
+                 *_embed_gn_geometry(x, w_pre, w2, kernel_size, dilation,
+                                     padding, groups),
+                 float(eps), stream)
     if err != 0:
         raise RuntimeError(f"local_agg_embed_gn launch failed: cudaError "
                            f"{err}")

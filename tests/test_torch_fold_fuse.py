@@ -397,15 +397,44 @@ def test_embed_gn_general_geometry_matches_jax_xla(k, dil, h, w):
     np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=2e-4)
 
 
-def test_embed_gn_groups_match_jax_per_group_calls():
-    """``groups=2`` against the JAX package's form of it: one call of the
-    JAX op per channel half with that half's slices of the grouped conv's
-    kernel and of the GroupNorm parameters
-    (``cotnet_tpu/models/cotnet.py:298-305``).  Cw = 6 per group."""
-    groups, c, cp, k = 2, 96, 48, 3
-    x, w_pre, w2, b2, gamma, beta = _embed_inputs(3, n=2, h=7, w=6, c=c,
-                                                  cp=cp, groups=groups)
-    fg, cg, cpg = w2.shape[1] // groups, c // groups, cp // groups
+# (n, h, w, C, Cp) where the Hopper kernel's tiling changes its course: a
+# plane over several row tiles (57x57: the statistics kernel runs first),
+# an odd width with Cw = C/8 = 6, whole 7x7 planes with Cp = 64, several to
+# a block.  The plain version is what the CPU runs; these hold it against
+# the JAX op at the same geometries.
+EMBED_TILING = {
+    "57x57": (2, 57, 57, 16, 8),
+    "13x11_cw6": (2, 13, 11, 48, 24),
+    "7x7_cp64": (2, 7, 7, 128, 64),
+}
+
+
+@pytest.mark.parametrize("case,impl", [
+    ("57x57", "xla"), ("13x11_cw6", "xla"), ("13x11_cw6", "pallas"),
+    ("7x7_cp64", "xla"), ("7x7_cp64", "pallas")])
+def test_embed_gn_tiling_geometries_match_jax(case, impl):
+    """The port's plain fused op against the JAX op's XLA composition, and
+    against ``_fused_embed_kernel`` in interpret mode where
+    ``fused_embed_plan`` takes the map (up to 28x28), at the geometries the
+    Hopper kernel's tiling meets (atol 2e-4, as above)."""
+    n, h, w, c, cp = EMBED_TILING[case]
+    args = _embed_inputs(len(case), n=n, h=h, w=w, c=c, cp=cp)
+    if impl == "pallas":
+        assert lap.fused_embed_plan(args[0].shape, args[1].shape,
+                                    args[2].shape[1], 4, (1, 1)) is not None
+    ref = jax.jit(lambda *a: jax_embed_gn(*a, kernel_size=3, padding=1,
+                                          impl=impl))(
+        *(jnp.asarray(a) for a in args))
+    got = _port_embed_gn(*args, 3, padding=1)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=2e-4)
+
+
+def _jax_embed_gn_per_group(x, w_pre, w2, b2, gamma, beta, groups, k=3):
+    """The JAX package's form of a grouped layer: one call of the JAX op per
+    channel group with that group's slices of the grouped conv's kernel and
+    of the GroupNorm parameters (``cotnet_tpu/models/cotnet.py:298-305``)."""
+    fg, cg = w2.shape[1] // groups, x.shape[-1] // groups
+    cpg = w_pre.shape[-1] // groups
     outs = []
     for g in range(groups):
         sl = slice(g * fg, (g + 1) * fg)
@@ -415,9 +444,32 @@ def test_embed_gn_groups_match_jax_per_group_calls():
             jnp.asarray(w2[:, sl]), jnp.asarray(b2[sl]),
             jnp.asarray(gamma[sl]), jnp.asarray(beta[sl]), kernel_size=k,
             padding=1, impl="xla"))
-    ref = np.concatenate([np.asarray(o) for o in outs], axis=-1)
-    got = _port_embed_gn(x, w_pre, w2, b2, gamma, beta, k, groups=groups,
-                         padding=1)
+    return np.concatenate([np.asarray(o) for o in outs], axis=-1)
+
+
+@pytest.mark.parametrize("case", sorted(EMBED_TILING))
+def test_embed_gn_groups_at_tiling_geometries_match_jax(case):
+    """``groups=2`` at the tiling geometries above, against one JAX call per
+    channel group (atol 2e-4, as above)."""
+    groups = 2
+    n, h, w, c, cp = EMBED_TILING[case]
+    c = max(c, 32)                 # Cw = C/8 over both groups, 2 or more each
+    args = _embed_inputs(len(case) + 20, n=n, h=h, w=w, c=c, cp=cp,
+                         groups=groups)
+    ref = _jax_embed_gn_per_group(*args, groups)
+    got = _port_embed_gn(*args, 3, groups=groups, padding=1)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-4)
+
+
+def test_embed_gn_groups_match_jax_per_group_calls():
+    """``groups=2`` against the JAX package's form of it: one call of the
+    JAX op per channel half with that half's slices of the grouped conv's
+    kernel and of the GroupNorm parameters
+    (``cotnet_tpu/models/cotnet.py:298-305``).  Cw = 6 per group."""
+    groups, c, cp, k = 2, 96, 48, 3
+    args = _embed_inputs(3, n=2, h=7, w=6, c=c, cp=cp, groups=groups)
+    ref = _jax_embed_gn_per_group(*args, groups, k)
+    got = _port_embed_gn(*args, k, groups=groups, padding=1)
     np.testing.assert_allclose(got, ref, rtol=0, atol=2e-4)
 
 

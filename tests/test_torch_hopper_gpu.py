@@ -658,3 +658,135 @@ def test_geometries_beyond_the_tiles_match_plain_on_card(edge, affine):
     for g, r in zip(got[2:], ref[2:]):
         # ds, db: f32 sums in another order, held as a whole
         assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+# ---- the fused embed op on the forward's halo tiles -------------------------
+
+def _embed_tensors(geometry, dt, groups, seed):
+    """CUDA x, w_pre, w2, b2, gamma, beta of one TILING_EDGES geometry (Cw
+    and Cp = C/2 over all groups, as the models call the op) and its
+    geometry arguments."""
+    n, c, cw, h, w, _, k, dil = geometry
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    f, cp = cw * k * k, c // 2
+    x = randn(n, c, h, w).to(dt)
+    w_pre = randn(n, cp, h, w).relu().to(dt)
+    w2 = (randn(f, cp // groups) * (2.0 / f) ** 0.5).to(dt)
+    b2, gamma, beta = 0.1 * randn(f), 1.0 + 0.2 * randn(f), 0.2 * randn(f)
+    pad = (dil * (k - 1) + 1) // 2
+    geo = dict(kernel_size=(k, k), dilation=(dil, dil), padding=(pad, pad),
+               groups=groups)
+    return (x, w_pre, w2, b2, gamma, beta), geo
+
+
+def _embed_kernels(args, geo):
+    """The op's output by one wrapper call on the card, and the names of the
+    device kernels the call ran (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    la.reset_counts()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = la.local_aggregate_embed_gn_hopper(*args, **geo)
+        torch.cuda.synchronize()
+    assert (la.EMBED_GN_LAUNCHES, la.PLAIN_EMBED_GN_CALLS) == (1, 0)
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return out, names
+
+
+def _check_embed(got, args, geo, dt):
+    with torch.no_grad():
+        ref = la.local_aggregate_embed_gn_plain(*args, **geo)
+    scale = float(ref.float().abs().max())
+    if dt == torch.float32:
+        rtol, atol = 1e-5, 1e-5 * scale      # summation order only
+    else:
+        # the output's rounding, and a w_raw at a rounding boundary
+        rtol, atol = 8e-3, 4e-3 * scale
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("edge", sorted(TILING_EDGES))
+def test_embed_gn_tiling_edges_match_plain_on_card(edge, dtype, groups):
+    """The fused embed op against its plain version at the edges of the
+    forward's halo tiles, which its aggregation kernel runs on: the ``k3``
+    route at K = 3, ``general`` at K = 5 and 7 with dilation 2; one launch
+    and no plain call."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    geometry = TILING_EDGES[edge]
+    args, geo = _embed_tensors(geometry, dt, groups, seed=len(edge) + 50)
+    k = geometry[6]
+    assert la.embed_gn_route(*args[:3], **geo) == (
+        "k3" if k == 3 else "general")
+    got, _ = _embed_kernels(args, geo)
+    _check_embed(got, args, geo, dt)
+
+
+# (N, C, Cw, H, W) at K = 3: whole planes in a block (the block takes their
+# statistics, no statistics launch) or a plane over several row tiles (the
+# statistics kernel first, its partial sums in a workspace)
+EMBED_PLANES = {
+    "7x7_whole": (4, 512, 64, 7, 7, True),
+    "28x28_whole": (2, 128, 16, 28, 28, True),
+    "56x56_split": (2, 64, 8, 56, 56, False),
+    "57x57_split": (2, 48, 6, 57, 57, False),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(EMBED_PLANES))
+def test_embed_gn_statistics_launch_only_for_split_planes_on_card(case,
+                                                                  dtype):
+    """Where a block holds whole planes no ``embed_gn_stats`` launch is made
+    and no workspace is asked for; where a plane spans several row tiles
+    the statistics kernel runs first.  Both on the ``k3`` route and equal
+    to the plain version."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    n, c, cw, h, w, whole = EMBED_PLANES[case]
+    args, geo = _embed_tensors((n, c, cw, h, w, 1, 3, 1), dt, 1,
+                               seed=len(case) + 60)
+    assert la.embed_gn_route(*args[:3], **geo) == "k3"
+    workspace = la.embed_gn_workspace_bytes(*args[:3], **geo)
+    assert (workspace == 0) == whole
+    got, names = _embed_kernels(args, geo)
+    assert any("embed_gn_agg<" in name for name in names), names
+    assert any("embed_gn_stats<" in name for name in names) == (not whole)
+    _check_embed(got, args, geo, dt)
+
+
+@pytest.mark.parametrize("case", sorted(EMBED_PLANES))
+def test_embed_gn_is_deterministic_on_card(case):
+    """Two launches give the same bits: the product, the statistics (the
+    block's and the statistics kernel's) and the taps are each summed in a
+    fixed order, with no atomics."""
+    _need_cuda()
+    n, c, cw, h, w, _ = EMBED_PLANES[case]
+    args, geo = _embed_tensors((n, c, cw, h, w, 1, 3, 1), torch.bfloat16, 1,
+                               seed=len(case) + 70)
+    first, _ = _embed_kernels(args, geo)
+    second, _ = _embed_kernels(args, geo)
+    assert torch.equal(first, second)
+
+
+def test_embed_gn_beyond_the_tiles_takes_pointwise_on_card():
+    """K = 3 on 2x2049 (a row of 513 thread items) is beyond the tiles: the
+    pointwise route, the statistics kernel and ``embed_gn_agg_pointwise``,
+    equal to the plain version."""
+    _need_cuda()
+    args, geo = _embed_tensors((1, 16, 8, 2, 2049, 1, 3, 1), torch.bfloat16,
+                               1, seed=80)
+    assert la.embed_gn_route(*args[:3], **geo) == "pointwise"
+    assert la.embed_gn_workspace_bytes(*args[:3], **geo) > 0
+    got, names = _embed_kernels(args, geo)
+    assert any("embed_gn_agg_pointwise<" in name for name in names), names
+    assert any("embed_gn_stats<" in name for name in names)
+    _check_embed(got, args, geo, torch.bfloat16)
