@@ -53,9 +53,10 @@ printing the last line:
 6. The op entry points: the mix op's main path, one autograd call of
    ``local_aggregate_mix`` (and of ``_merge`` with the packed weight) at
    cotnet50's four geometries in bf16 at bs128, each one launch of each
-   mix kernel and no plain call; ``local_aggregate_dilated`` with
-   dilations 1 and 2 in f32, forward and gradients against the plain
-   path, one forward, dx and dw launch per distinct dilation.
+   mix kernel, dx and dw on their ``tiles`` route, and no plain call;
+   ``local_aggregate_dilated`` with dilations 1 and 2 in f32, forward and
+   gradients against the plain path, one forward, dx and dw launch per
+   distinct dilation.
 7. Kernels: each Hopper kernel against its plain PyTorch version on the
    card.  The forward at the four aggregation geometries of cotnet50
    (N=128), the four per-group ones of cotnext50_2x48d (N=256) and those
@@ -80,11 +81,18 @@ printing the last line:
    (torch.profiler; no statistics launch where a block holds whole
    planes) and of one torch.matmul that forms w_raw of the same shapes; the
    three mix kernels (forward, dx, dw) at cotnet50's four geometries in
-   bf16 and at a general f32 case (heads 2, 13x11, Cw dividing C four
-   times), the weights separate and packed.  CUDA-event times of kernel
-   and plain version beside the bound (data-sheet rates) and the byte
-   bound at the device copy rate measured first; each case's launches in
-   the main paths' runs (0 for a shape no main path launches).
+   bf16, at a general f32 case (heads 2, 13x11, Cw dividing C four
+   times), at the edges of the dx and dw tiles in bf16 (3x3, 57x57, 13x11
+   with Cw=6, N=1 at 56x56) and at 2x2049 (which must take
+   ``pointwise``), the weights separate and packed, dx and dw each naming
+   its route (``ops.local_agg.mix_route``: ``tiles`` or ``pointwise``;
+   the mix path's launches must take ``tiles``), launched twice for the
+   same bits, and timed on the pointwise route too (the first kernels, one
+   thread per output, which are that route), dw's two routes compared bit
+   for bit.  CUDA-event times of kernel and plain version beside the bound
+   (data-sheet rates) and the byte bound at the device copy rate measured
+   first; each case's launches in the main paths' runs (0 for a shape no
+   main path launches).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -169,6 +177,8 @@ REPLACES_MIX = {
     "dx": "cotnet_tpu/ops/local_agg_pallas.py:2233 _mix_dx_kernel",
     "dw": "cotnet_tpu/ops/local_agg_pallas.py:2248 _mix_dw_kernel",
 }
+# the route of every main-path launch of a kernel; "k3" where not named
+MAIN_ROUTE = {"local_agg_mix_dx": "tiles", "local_agg_mix_dw": "tiles"}
 REPLACES_AFFINE_BWD = {
     "dx": "cotnet_tpu/ops/local_agg_pallas.py:512 _dx_kernel_affine",
     "dw": "cotnet_tpu/ops/local_agg_pallas.py:697 _dw_kernel_affine",
@@ -528,6 +538,10 @@ def kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
 
 def log_entry(e):
     variant_note = f" ({e['variant']})" if "variant" in e else ""
+    if "pointwise_ms" in e:
+        variant_note += (f" [pointwise route {e['pointwise_ms']:.4f} ms"
+                         + (f", same bits: {e['same_bits_as_pointwise']}"
+                            if "same_bits_as_pointwise" in e else "") + "]")
     log(f"kernel {e['name']}{variant_note} {e['geometry']}: max|err| "
         f"{e['max_abs_err']:.3g} (rtol {e['tol']['rtol']}, atol "
         f"{e['tol']['atol']:.3g}); kernel {e['ms']:.4f} ms, plain "
@@ -1593,12 +1607,23 @@ def hybrid_phase(la, paths: PathCounts):
 
 def mix_cases() -> list:
     """The mix kernels' cases: cotnet50's four CoT geometries in bf16 at
-    bs128 (heads 1, Cw = C/8), then a general f32 case (heads 2, 13x11, Cw
-    dividing C four times), each with the weights separate and packed."""
+    bs128 (heads 1, Cw = C/8; ``main``, the mix path's), then a general f32
+    case (heads 2, 13x11, Cw dividing C four times), the edges of the dx
+    and dw tiles in bf16 (a map smaller than the 5x5 window, 57x57, 13x11
+    with Cw=6, N=1 at 56x56) and a row too wide for one block (2x2049),
+    which dx and dw must run on their pointwise route; each with the
+    weights separate and packed."""
     cases = [dict(n=BATCH, c=c, h=hw, w=hw, heads=1, cw=c // 8,
-                  dtype=torch.bfloat16) for c, hw, _ in COTNET50_GEOMETRIES]
+                  dtype=torch.bfloat16, main=True)
+             for c, hw, _ in COTNET50_GEOMETRIES]
     cases.append(dict(n=4, c=32, h=13, w=11, heads=2, cw=8,
                       dtype=torch.float32))
+    for n, c, cw, h, w in ((2, 64, 8, 3, 3), (2, 64, 8, 57, 57),
+                           (4, 48, 6, 13, 11), (1, 64, 8, 56, 56)):
+        cases.append(dict(n=n, c=c, h=h, w=w, heads=1, cw=cw,
+                          dtype=torch.bfloat16))
+    cases.append(dict(n=1, c=16, h=2, w=2049, heads=1, cw=8,
+                      dtype=torch.bfloat16, route="pointwise"))
     return [dict(cs, merged=merged) for cs in cases
             for merged in (False, True)]
 
@@ -1624,11 +1649,15 @@ def mix_path(la, paths: PathCounts):
     the zoo calls them): one autograd call of ``local_aggregate_mix`` (or
     ``local_aggregate_mix_merge`` for the packed weight) at each bf16 case,
     each one launch of each mix kernel and no plain call or other
-    aggregation kernel; the counts are set to 0 before and read after."""
-    cases = [cs for cs in mix_cases() if cs["dtype"] == torch.bfloat16]
+    aggregation kernel, dx and dw on their ``tiles`` route; the counts are
+    set to 0 before and read after."""
+    cases = [cs for cs in mix_cases() if cs.get("main")]
     la.reset_counts()
     for i, cs in enumerate(cases):
         x, w1, w2, dy = mix_tensors(cs, seed=20 + i)
+        routes = {k: la.mix_route(k, x, w1, w2) for k in ("dx", "dw")}
+        if routes != {"dx": "tiles", "dw": "tiles"}:
+            raise AssertionError(f"mix op at {cs}: routes {routes}")
         leaves = [t.requires_grad_() for t in (x, w1, w2) if t is not None]
         before = dict(la.MIX_LAUNCHES)
         if cs["merged"]:
@@ -1652,12 +1681,18 @@ def mix_path(la, paths: PathCounts):
                              f"{la.MIX_LAUNCHES}")
     log(f"mix op: one autograd call at each of {len(cases)} bf16 cases "
         f"(cotnet50's geometries at bs128, weights separate and packed): "
-        f"launches {la.MIX_LAUNCHES}, 0 plain calls")
+        f"launches {la.MIX_LAUNCHES}, 0 plain calls, dx and dw on the "
+        f"tiles route")
 
 
 def mix_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
     """The three mix kernels against the plain mix on the card; returns
-    their entries."""
+    their entries.  dx and dw name their route (``variant``, from
+    ``ops.local_agg.mix_route``: ``tiles``, or ``pointwise`` where the case
+    says so), are launched twice for the same bits (``deterministic``),
+    and are timed on the pointwise route too (``pointwise_ms``, the first
+    kernels at the same inputs); dw's ``same_bits_as_pointwise`` says
+    whether the two routes' dw1 and dw2 are bit for bit the same."""
     entries = []
     for i, cs in enumerate(mix_cases()):
         x, w1, w2, dy = mix_tensors(cs, seed=40 + i)
@@ -1696,6 +1731,7 @@ def mix_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                     return la.local_aggregate_mix_bwd_plain(x, w1, w2, dy,
                                                             **need)
             before = dict(la.MIX_LAUNCHES_BY_SHAPE)
+            routed = {}
             with torch.no_grad():
                 got = run()
                 torch.cuda.synchronize()
@@ -1705,18 +1741,42 @@ def mix_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 ref = plain()
                 if pick is not None:
                     got, ref = got[pick:pick + 2], ref[pick:pick + 2]
+                    again = run()[pick:pick + 2]
+                    routed = {
+                        "variant": la.mix_route(kernel, x, w1, w2),
+                        "deterministic": all(
+                            torch.equal(a, b) for a, b in zip(got, again)
+                            if a is not None)}
+                    if routed["variant"] != cs.get("route", "tiles"):
+                        raise AssertionError(
+                            f"mix {kernel} at {geometry} took the "
+                            f"{routed['variant']} route")
+                    if not routed["deterministic"]:
+                        raise AssertionError(f"mix {kernel} at {geometry}: "
+                                             "two launches differ")
+                    if kernel == "dw":
+                        on_pointwise = la.local_aggregate_mix_bwd_hopper(
+                            x, w1, w2, dy, pointwise=True, **need)[1:]
+                        routed["same_bits_as_pointwise"] = all(
+                            torch.equal(a, b)
+                            for a, b in zip(got, on_pointwise)
+                            if a is not None)
                 else:
                     got, ref = (got,), (ref,)
                 errs = [check_close(f"{geometry} {kernel}", g, r, dt)
                         for g, r in zip(got, ref) if r is not None]
                 ms = device_ms(run)
                 plain_ms = device_ms(plain)
+                if pick is not None:
+                    routed["pointwise_ms"] = device_ms(
+                        lambda: la.local_aggregate_mix_bwd_hopper(
+                            x, w1, w2, dy, pointwise=True, **need))
             max_err, rtol, atol = max(errs)
             entries.append({
                 "name": f"local_agg_mix_{kernel}", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_mix.cu",
                 "replaces": REPLACES_MIX[kernel], "geometry": geometry,
-                **launches, "max_abs_err": max_err,
+                **routed, **launches, "max_abs_err": max_err,
                 "tol": {"rtol": rtol, "atol": atol},
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
@@ -1912,10 +1972,13 @@ def main() -> int:
         raise AssertionError(
             f"the main paths made {launched} launches, the kernel phase "
             f"accounts for {sum(e['launches'] for e in entries)}")
-    # every main path runs the K = 3 route of the forward, dx and dw
+    # every main path runs the K = 3 route of the forward, dx and dw, the
+    # mix path the tiles route of the mix's dx and dw
     off_route = sorted({f"{e['name']} ({e['variant']}) {e['geometry']}"
                         for e in entries
-                        if e["launches"] and e.get("variant", "k3") != "k3"})
+                        if e["launches"] and e.get("variant", MAIN_ROUTE.get(
+                            e["name"], "k3")) != MAIN_ROUTE.get(e["name"],
+                                                                "k3")})
     if off_route:
         raise AssertionError(f"main-path launches off the k3 route: "
                              f"{off_route}")

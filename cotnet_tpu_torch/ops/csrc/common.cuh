@@ -88,9 +88,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 // a mask: the padding is the zeros.
 //
 // The affine dw (dw, ds and db in one pass, local_agg_bwd.cu) runs dw's
-// tiles with another store; the fused embed op's aggregation
-// (local_agg_embed_gn.cu) runs the forward's (fwd_tiles.cuh) with weights
-// it forms itself.
+// tiles (dw_tiles.cuh) with another store; the fused embed op's
+// aggregation (local_agg_embed_gn.cu) runs the forward's (fwd_tiles.cuh)
+// with weights it forms itself; the mix op's dw (local_agg_mix.cu) runs
+// dw's tiles once for each of its halves (K = 3 and K = 5, compile-time),
+// and its dx stages both halves' dy of every head in one stage.
 //
 // Three routes, chosen before any launch from the geometry alone
 // (agg_route): ``k3``, the tiles with K = 3 at dilation 1 and column
@@ -98,7 +100,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // tiles with runtime K <= kMaxK; and ``pointwise``, one thread per output
 // with no limit on K, width or dilation, for every geometry whose tiles do
 // not fit (K > kMaxK, a row of more than kMaxThreads items, a halo tile
-// beyond a block's shared memory, offsets beyond 32 bits).
+// beyond a block's shared memory, offsets beyond 32 bits).  The mix op's
+// dx and dw have two (mix_route, local_agg_mix.cu): ``tiles`` and
+// ``pointwise``.
 
 namespace {
 
@@ -132,14 +136,16 @@ struct Tiling {
 // item at positions [c, c + V) reads source columns [c + col_lo,
 // c + V - 1 + col_hi]; with ``own_rows`` a stage also holds the tile's R
 // rows of an out_h x out_w plane (dw's dy), q * V columns each, after the
-// halo tile.  ``unit``: the staging copy unit in bytes.  False when no
-// block can hold one row (a row wider than kMaxThreads items, or its stages
-// larger than a block's shared memory) or the grid is too large.
+// halo tile.  ``unit``: the staging copy unit in bytes.  A stage holds
+// ``per_plane`` such regions a plane (the mix's dx: one a half and head).
+// False when no block can hold one row (a row wider than kMaxThreads
+// items, or its stages larger than a block's shared memory) or the grid is
+// too large.
 inline bool plan_tiles(int64_t plane_count, int out_h, int out_w, int src_h,
                        int src_w, int halo, bool own_rows, int col_lo,
                        int col_hi, int elem, int vec, int items, int unit,
                        Tiling* t, unsigned* blocks, unsigned* threads,
-                       size_t* smem) {
+                       size_t* smem, int per_plane = 1) {
   if (plane_count <= 0 || out_h <= 0 || out_w <= 0) return false;
   const int q = (out_w + vec - 1) / vec;
   if (q > kMaxThreads) return false;
@@ -159,7 +165,8 @@ inline bool plan_tiles(int64_t plane_count, int out_h, int out_w, int src_h,
   int64_t region;
   for (;;) {
     region = (rows * (own_rows ? 2 : 1) + int64_t(halo)) * stride * elem;
-    if (kStages * planes * region <= kSmemAim || (planes == 1 && rows == 1))
+    if (kStages * planes * int64_t(per_plane) * region <= kSmemAim ||
+        (planes == 1 && rows == 1))
       break;
     if (planes > 1) {
       planes = (planes + 1) / 2;
@@ -167,7 +174,7 @@ inline bool plan_tiles(int64_t plane_count, int out_h, int out_w, int src_h,
       rows = (rows + 1) / 2;
     }
   }
-  const int64_t bytes = kStages * planes * region;
+  const int64_t bytes = kStages * planes * int64_t(per_plane) * region;
   const int tiles = (out_h + rows - 1) / rows;
   const int64_t count = (plane_count + planes - 1) / planes * tiles;
   if (bytes > kMaxSmem - kStaticSmem || count > 0x7fffffff) return false;
@@ -202,6 +209,7 @@ enum AggKernel { kAggFwd, kAggDx, kAggDw, kAggDwAffine, kAggEmbed };
 constexpr int kRouteGeneral = 0;
 constexpr int kRoutePointwise = 1;
 constexpr int kRouteK3 = 3;
+constexpr int kRouteMixTiles = 4;  // the mix op's dx and dw
 
 // The embed aggregation's scratch, the shared memory after its stages:
 // byte offsets of its parts from the scratch's start, each 16-byte aligned.

@@ -47,8 +47,10 @@ tiles, ``pointwise`` beyond them).
 ``local_aggregate_mix`` / ``local_aggregate_mix_merge`` aggregate one input
 with a 3x3 and a 5x5 weight at once (``local_aggregate_mix_plain`` /
 ``local_aggregate_mix_bwd_plain`` beside the three kernels of
-``csrc/local_agg_mix.cu``); ``local_aggregate_dilated`` gives each weight
-channel its own dilation through ``local_aggregate``.
+``csrc/local_agg_mix.cu``, whose dx and dw routes ``mix_route`` reports:
+``tiles``, halo tiles in shared memory, or ``pointwise``);
+``local_aggregate_dilated`` gives each weight channel its own dilation
+through ``local_aggregate``.
 
 ``LAUNCHES`` / ``PLAIN_CALLS`` count the forward calls of each
 implementation, ``BWD_LAUNCHES`` and ``AFFINE_BWD_LAUNCHES`` (per kernel,
@@ -397,9 +399,10 @@ def embed_gn_workspace_bytes(x, w_pre, w2, *, kernel_size, dilation, padding,
         x, w_pre, w2, kernel_size, dilation, padding, groups))
 
 
-# the route of a forward, dx, dw or affine dw launch, by the code its
-# library's *_variant function returns for the geometry
-ROUTES = {3: "k3", 0: "general", 1: "pointwise"}
+# the route of a forward, dx, dw or affine dw launch (and "tiles" of the
+# mix's dx or dw), by the code its library's *_variant function returns for
+# the geometry
+ROUTES = {3: "k3", 0: "general", 1: "pointwise", 4: "tiles"}
 _ROUTE_FUNCTIONS = {
     "fwd": (_LIB_NAME, "local_agg_fwd_variant"),
     "dx": (_BWD_LIB_NAME, "local_agg_bwd_dx_variant"),
@@ -1076,8 +1079,10 @@ def _mix_fwd_kernel():
                        + [ctypes.c_void_p])
 
 
-def _mix_bwd_kernel():
-    return _c_function(_MIX_LIB_NAME, "local_agg_mix_bwd_launch",
+def _mix_bwd_kernel(pointwise: bool = False):
+    name = ("local_agg_mix_bwd_pointwise_launch" if pointwise
+            else "local_agg_mix_bwd_launch")
+    return _c_function(_MIX_LIB_NAME, name,
                        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
@@ -1089,6 +1094,23 @@ def mix_key(x, w1, w2) -> tuple:
     x shape, heads, Cw, and whether the weight was merged."""
     return (str(x.dtype).replace("torch.", ""), tuple(x.shape),
             int(w1.shape[1]), int(w1.shape[2]), w2 is None)
+
+
+def mix_route(kernel: str, x, w1, w2=None) -> str:
+    """The route (``"tiles"`` or ``"pointwise"``) that a launch of the mix's
+    ``kernel`` (``"dx"`` or ``"dw"``) takes for x ``[N, C, H, W]`` and the
+    weights as ``local_aggregate_mix_hopper`` takes them, in x's dtype, as
+    its launcher decides it from the geometry before it launches.  Reads
+    only shapes and dtype; builds the kernels' library."""
+    if kernel not in ("dx", "dw"):
+        raise ValueError(f"the mix's routed kernels are dx and dw, not "
+                         f"{kernel!r}")
+    _check_mix_shapes(x, w1, w2)
+    fn = _c_function(_MIX_LIB_NAME, f"local_agg_mix_{kernel}_variant",
+                     [ctypes.c_int] * 7)
+    n, c, h, w = x.shape
+    return ROUTES[fn(_DTYPE_CODES[x.dtype], n, c, h, w, int(w1.shape[1]),
+                     int(w1.shape[2]))]
 
 
 def _mix_pointers(t1, t2):
@@ -1143,10 +1165,13 @@ def local_aggregate_mix_hopper(x, w1, w2=None):
 
 
 def local_aggregate_mix_bwd_hopper(x, w1, w2, dy, *, need_dx: bool = True,
-                                   need_dw: bool = True):
+                                   need_dw: bool = True,
+                                   pointwise: bool = False):
     """Launch the mix backward kernels ``local_agg_mix_dx`` and
-    ``local_agg_mix_dw``, each only when its gradient is needed.  Tensors
-    as ``local_aggregate_mix_hopper`` takes them, and dy
+    ``local_agg_mix_dw``, each only when its gradient is needed, on the
+    route ``mix_route`` names (``pointwise=True``: on the pointwise route
+    whatever the geometry, to hold the tiles against it).  Tensors as
+    ``local_aggregate_mix_hopper`` takes them, and dy
     ``[N, 2*heads*C, H, W]``.  Returns ``(dx, dw1, dw2)``, or
     ``(dx, dw, None)`` with dw merged when w2 is None; what is not needed
     is None."""
@@ -1156,7 +1181,7 @@ def local_aggregate_mix_bwd_hopper(x, w1, w2, dy, *, need_dx: bool = True,
         return None, None, None
     n, c, h, w = x.shape
     heads, cw = w1.shape[1], w1.shape[2]
-    fn = _mix_bwd_kernel()
+    fn = _mix_bwd_kernel(pointwise)
     dx = torch.empty_like(x) if need_dx else None
     dw1 = dw2 = None
     if need_dw:

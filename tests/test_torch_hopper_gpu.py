@@ -790,3 +790,102 @@ def test_embed_gn_beyond_the_tiles_takes_pointwise_on_card():
     assert any("embed_gn_agg_pointwise<" in name for name in names), names
     assert any("embed_gn_stats<" in name for name in names)
     _check_embed(got, args, geo, torch.bfloat16)
+
+
+# ---- the mix's dx and dw on halo tiles --------------------------------------
+
+# (N, C, Cw, H, W): the TILING_EDGES geometries that the mix takes (its 3x3
+# and 5x5 at dilation 1, SAME padding), and maps smaller than the 5x5 window
+# and one weight channel a group (C = Cw)
+MIX_EDGES = {edge: TILING_EDGES[edge][:5]
+             for edge in ("3x3", "57x57", "13x11_cw6", "n1_56x56")}
+MIX_SMALL_MAPS = {
+    "1x1": (2, 16, 8, 1, 1),
+    "2x3": (2, 16, 8, 2, 3),
+    "c_eq_cw": (2, 8, 8, 9, 7),
+}
+
+
+def _check_mix_bwd_tiles(geometry, dt, heads, merged, seed):
+    """dx and dw on the tiles route against the plain mix backward at the
+    chip_smoke gates, each launched twice for the same bits, and dw1 and
+    dw2 bit for bit the pointwise route's (both sum the f32 products over
+    the channel groups in order)."""
+    n, c, cw, h, w = geometry
+    x, w1, w2, dy = _mix_on_card(seed, dt, merged, n=n, c=c, cw=cw, hi=h,
+                                 wi=w, heads=heads)
+    assert la.mix_route("dx", x, w1, w2) == "tiles"
+    assert la.mix_route("dw", x, w1, w2) == "tiles"
+    la.reset_counts()
+    got = la.local_aggregate_mix_bwd_hopper(x, w1, w2, dy)
+    again = la.local_aggregate_mix_bwd_hopper(x, w1, w2, dy)
+    torch.cuda.synchronize()
+    assert la.MIX_LAUNCHES == {"fwd": 0, "dx": 2, "dw": 2}
+    assert la.PLAIN_MIX_CALLS == 0
+    ref = la.local_aggregate_mix_bwd_plain(x, w1, w2, dy)
+    on_pointwise = la.local_aggregate_mix_bwd_hopper(x, w1, w2, dy,
+                                                     need_dx=False,
+                                                     pointwise=True)
+    assert (got[2] is None) == merged
+    for i, (g, a, r) in enumerate(zip(got, again, ref)):
+        if r is None:
+            continue
+        assert torch.equal(g, a)
+        _close(g, r, dt)
+        if i:
+            assert torch.equal(g, on_pointwise[i])
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("edge", sorted(MIX_EDGES))
+def test_mix_bwd_tiling_edges_match_plain_on_card(edge, dtype, heads):
+    """The mix's dx and dw tiles at the edges of their tiling, the weights
+    separate and packed."""
+    _need_cuda()
+    for merged in (False, True):
+        _check_mix_bwd_tiles(MIX_EDGES[edge], getattr(torch, dtype), heads,
+                             merged, seed=len(edge) + heads)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", sorted(MIX_SMALL_MAPS))
+def test_mix_bwd_small_maps_match_plain_on_card(case, dtype):
+    """Maps smaller than the 5x5 window (every tap row and column but the
+    centre's falls in the zero padding) and C = Cw, at heads 1 and 2, the
+    weights separate and packed."""
+    _need_cuda()
+    for heads in (1, 2):
+        for merged in (False, True):
+            _check_mix_bwd_tiles(MIX_SMALL_MAPS[case], getattr(torch, dtype),
+                                 heads, merged, seed=len(case) + heads)
+
+
+def test_mix_bwd_routes_on_card():
+    """The tiles take cotnet50's four geometries at bs128 in bf16; a row too
+    wide for one block (2x2049: 1025 dx items of 2, 513 dw items of 4)
+    takes the pointwise route, which gives the plain version's values and
+    the same bits twice."""
+    _need_cuda()
+    for c, hw in ((64, 56), (128, 28), (256, 14), (512, 7)):
+        x = torch.empty(128, c, hw, hw, dtype=torch.bfloat16, device="meta")
+        w1 = torch.empty(128, 1, c // 8, 9, hw, hw, dtype=torch.bfloat16,
+                         device="meta")
+        w2 = torch.empty(128, 1, c // 8, 25, hw, hw, dtype=torch.bfloat16,
+                         device="meta")
+        packed = torch.empty(128, 1, c // 8, 34, hw, hw,
+                             dtype=torch.bfloat16, device="meta")
+        for kernel in ("dx", "dw"):
+            assert la.mix_route(kernel, x, w1, w2) == "tiles", (kernel, c)
+            assert la.mix_route(kernel, x, packed) == "tiles", (kernel, c)
+    for dt in (torch.bfloat16, torch.float32):
+        x, w1, w2, dy = _mix_on_card(90, dt, False, n=1, c=16, cw=8, hi=2,
+                                     wi=2049, heads=1)
+        for kernel in ("dx", "dw"):
+            assert la.mix_route(kernel, x, w1, w2) == "pointwise", kernel
+        got = la.local_aggregate_mix_bwd_hopper(x, w1, w2, dy)
+        again = la.local_aggregate_mix_bwd_hopper(x, w1, w2, dy)
+        ref = la.local_aggregate_mix_bwd_plain(x, w1, w2, dy)
+        for g, a, r in zip(got, again, ref):
+            assert torch.equal(g, a)
+            _close(g, r, dt)

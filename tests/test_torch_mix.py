@@ -99,6 +99,53 @@ def test_mix_grads_match_jax(impl, heads):
                                    err_msg=name)
 
 
+# (N, C, Cw, H, W, heads, the JAX form): the edges of the card's dx and dw
+# tiles, where the card's checks trust the plain backward: maps smaller
+# than the 5x5 window (1x1, 2x3) and than one row tile (3x3), one weight
+# channel a group (C = Cw), 13x11 with Cw = 6 at two heads.  "pallas": the
+# JAX package's fused TPU kernels in interpret mode, which ``mix_plan``
+# takes at every one of these geometries (the XLA form otherwise).
+MIX_TILE_EDGES = {
+    "1x1": (2, 8, 4, 1, 1, 1, "pallas"),
+    "2x3": (2, 8, 4, 2, 3, 2, "pallas"),
+    "3x3": (2, 16, 4, 3, 3, 1, "pallas"),
+    "c_eq_cw": (2, 4, 4, 7, 6, 1, "pallas"),
+    "13x11_cw6_heads2": (2, 12, 6, 13, 11, 2, "pallas"),
+}
+
+
+@pytest.mark.parametrize("merge", [False, True])
+@pytest.mark.parametrize("edge", sorted(MIX_TILE_EDGES))
+def test_mix_grads_match_jax_at_the_tile_edges(edge, merge):
+    """The plain mix backward (the oracle of the card's dx and dw tiles)
+    against ``jax.grad`` of the JAX mix at the edges of the tiles, the
+    weights separate and packed (``_mix_merge`` on both sides), f32,
+    rtol/atol 1e-5."""
+    from cotnet_tpu.ops.local_agg_pallas import mix_plan
+
+    n, c, cw, h, w, heads, impl = MIX_TILE_EDGES[edge]
+    plan = mix_plan((n, h, w, c), (n, h, w, heads, 9, cw),
+                    (n, h, w, heads, 25, cw), 4)
+    assert (plan is not None) == (impl == "pallas")
+    x, w1, w2 = make_mix_inputs(len(edge) + 7 * heads, n=n, c=c, cw=cw,
+                                hi=h, wi=w, heads=heads)
+    r = _cotangent((n, h, w, 2 * heads * c), seed=len(edge))
+    la.reset_counts()
+    got = _port_mix_grads(x, w1, w2, r, merge=merge)
+    assert la.PLAIN_MIX_CALLS == 2
+    if merge:
+        wm = np.concatenate([w1, w2], axis=4)
+        f = lambda x_, w_: jnp.vdot(  # noqa: E731
+            jax_mix_merge(x_, w_, impl=impl), jnp.asarray(r))
+        dx, dwm = jax.grad(f, (0, 1))(jnp.asarray(x), jnp.asarray(wm))
+        ref = (dx, dwm[..., :9, :], dwm[..., 9:, :])
+    else:
+        ref = _jax_mix_grads(x, w1, w2, r, impl=impl)
+    for name, g, want in zip(("dx", "dw1", "dw2"), got, ref):
+        np.testing.assert_allclose(g, np.asarray(want), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"{name} against JAX {impl}")
+
+
 @pytest.mark.parametrize("heads", [1, 2])
 def test_mix_merge_matches_mix_and_jax(heads):
     """The packed weight ``[N, heads, Cw, 9 + 25, H, W]`` (the 3x3 taps
@@ -270,6 +317,16 @@ def test_mix_refuses_bad_shapes_and_impl():
         la.local_aggregate_mix_merge(x, w1)
     with pytest.raises(ValueError, match="impl"):
         la.local_aggregate_mix(x, w1, w2, impl="pallas")
+
+
+def test_mix_route_refuses_other_kernels_and_bad_shapes():
+    """``mix_route`` routes the mix's dx and dw only, and checks the
+    weights' shapes before it asks the kernels' library."""
+    x, w1, w2 = _port_mix(*make_mix_inputs(0))
+    with pytest.raises(ValueError, match="dx and dw"):
+        la.mix_route("fwd", x, w1, w2)
+    with pytest.raises(ValueError, match="weights"):
+        la.mix_route("dx", x, w2, w1)
 
 
 def test_reset_counts_zeroes_the_mix_counts():
