@@ -53,7 +53,8 @@ printing the last line:
 6. The op entry points: the mix op's main path, one autograd call of
    ``local_aggregate_mix`` (and of ``_merge`` with the packed weight) at
    cotnet50's four geometries in bf16 at bs128, each one launch of each
-   mix kernel, dx and dw on their ``tiles`` route, and no plain call;
+   mix kernel, the forward, dx and dw on their ``tiles`` route, and no
+   plain call;
    ``local_aggregate_dilated`` with dilations 1 and 2 in f32, forward and
    gradients against the plain path, one forward, dx and dw launch per
    distinct dilation.
@@ -79,17 +80,22 @@ printing the last line:
    route (``ops.local_agg.embed_gn_route``), launched twice for the same
    bits, with the device time of its statistics and aggregation kernels
    (torch.profiler; no statistics launch where a block holds whole
-   planes) and of one torch.matmul that forms w_raw of the same shapes; the
+   planes, ``embed_gn_stats_rows`` on the tiled routes), the statistics
+   pass's own bound, and the device time of one torch.matmul that forms
+   w_raw of the same shapes; where a plane spans several row tiles (57x57,
+   N=1 at 56x56, the two models' 56x56), the statistics pass's plane totals
+   against the pointwise route's, in bf16 and f32 within 1e-6 of the
+   largest, and equal on integer inputs; the
    three mix kernels (forward, dx, dw) at cotnet50's four geometries in
    bf16, at a general f32 case (heads 2, 13x11, Cw dividing C four
    times), at the edges of the dx and dw tiles in bf16 (3x3, 57x57, 13x11
    with Cw=6, N=1 at 56x56) and at 2x2049 (which must take
-   ``pointwise``), the weights separate and packed, dx and dw each naming
-   its route (``ops.local_agg.mix_route``: ``tiles`` or ``pointwise``;
-   the mix path's launches must take ``tiles``), launched twice for the
-   same bits, and timed on the pointwise route too (the first kernels, one
-   thread per output, which are that route), dw's two routes compared bit
-   for bit.  CUDA-event times of kernel and plain version beside the bound
+   ``pointwise``), the weights separate and packed, each naming its route
+   (``ops.local_agg.mix_route``: ``tiles`` or ``pointwise``; the mix
+   path's launches must take ``tiles``), launched twice for the same bits,
+   and timed on the pointwise route too (the first kernels, one thread per
+   output, which are that route), the forward's and dw's two routes
+   compared bit for bit (the forward's must agree).  CUDA-event times of kernel and plain version beside the bound
    (data-sheet rates) and the byte bound at the device copy rate measured
    first; each case's launches in the main paths' runs (0 for a shape no
    main path launches).
@@ -178,16 +184,17 @@ REPLACES_MIX = {
     "dw": "cotnet_tpu/ops/local_agg_pallas.py:2248 _mix_dw_kernel",
 }
 # the route of every main-path launch of a kernel; "k3" where not named
-MAIN_ROUTE = {"local_agg_mix_dx": "tiles", "local_agg_mix_dw": "tiles"}
+MAIN_ROUTE = {"local_agg_mix_fwd": "tiles", "local_agg_mix_dx": "tiles",
+              "local_agg_mix_dw": "tiles"}
 REPLACES_AFFINE_BWD = {
     "dx": "cotnet_tpu/ops/local_agg_pallas.py:512 _dx_kernel_affine",
     "dw": "cotnet_tpu/ops/local_agg_pallas.py:697 _dw_kernel_affine",
 }
 REPLACES_EMBED_GN = "cotnet_tpu/ops/local_agg_pallas.py:1985 _fused_embed_kernel"
 # the fused embed op's kernels, as the profiler names them: the statistics
-# pass (not launched where a block holds whole planes) and the aggregation
-# on its tiled routes or its pointwise one
-EMBED_GN_STATS = "embed_gn_stats"
+# pass (not launched where a block holds whole planes) on its tiled routes
+# or its pointwise one, and the aggregation on each
+EMBED_GN_STATS = ("embed_gn_stats_rows", "embed_gn_stats")
 EMBED_GN_AGG = ("embed_gn_agg", "embed_gn_agg_pointwise")
 IMAGENET_TRAIN_IMAGES = 1281167
 # the kernels a main path of each kind must launch once per CoT layer a
@@ -777,14 +784,17 @@ def affine_bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
 
 def embed_gn_cases() -> list:
     """x ``[n, c, h, w]``, w_pre ``[n, cp, h, w]`` as the models call the
-    fused op (cp = c/2, Cw = c/8 over all groups), then general f32 cases."""
+    fused op (cp = c/2, Cw = c/8 over all groups), then general f32 cases.
+    ``stats_check``: the cases whose planes span several row tiles, where
+    ``stats_totals_check`` holds the statistics pass against the pointwise
+    route's."""
     cases = []
     for name in FUSED_MODELS:
         groups, geometries, _ = MODELS[name]
         for c, hw, _ in geometries:
             cases.append(dict(n=BATCH, c=c * groups, cp=c * groups // 2,
                               h=hw, w=hw, k=3, dil=1, groups=groups,
-                              dtype=torch.bfloat16))
+                              dtype=torch.bfloat16, stats_check=hw == 56))
     cases.append(dict(n=3, c=32, cp=24, h=13, w=11, k=5, dil=2, groups=1,
                       dtype=torch.float32))
     cases.append(dict(n=2, c=16, cp=40, h=6, w=5, k=7, dil=1, groups=1,
@@ -801,7 +811,8 @@ def embed_gn_cases() -> list:
         for n, c, cw, h, w in ((2, 64, 8, 3, 3), (2, 64, 8, 57, 57),
                                (4, 48, 6, 13, 11), (1, 64, 8, 56, 56)):
             cases.append(dict(n=n, c=c, cp=c // 2, cw=cw, h=h, w=w, k=3,
-                              dil=1, groups=1, dtype=dt))
+                              dil=1, groups=1, dtype=dt,
+                              stats_check=h >= 56))
     cases.append(dict(n=4, c=512, cp=256, h=7, w=7, k=3, dil=1, groups=1,
                       dtype=torch.bfloat16))
     cases.append(dict(n=1, c=16, cp=8, h=2, w=2049, k=3, dil=1, groups=1,
@@ -833,6 +844,60 @@ def embed_gn_inputs(cs, gen) -> tuple:
                 f"Cw={cw} K={k} dil={dil} pad={pad} "
                 f"{str(dt).replace('torch.', '')}")
     return (x, w_pre, w2, b2, gamma, beta), kw, geometry
+
+
+def stats_totals_check(la, cs, geometry) -> dict:
+    """The statistics pass of the case's route (``embed_gn_stats_rows``)
+    against the pointwise route's (``embed_gn_stats``) on the same inputs,
+    in the case's dtype and, for a bf16 case, in f32 too: each plane's
+    totals (sum over its tiles' partial sums) of w_raw and w_raw^2 within
+    ``1e-6 * max|ref|`` (f32 sums in another order); then on integer-valued
+    w_pre, w2 and b2 small enough that every product and sum is exact in
+    f32, equal.  Returns the entry's fields."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs = {}
+    for dt in dict.fromkeys((cs["dtype"], torch.float32)):
+        (x, w_pre, w2, b2, _, _), kw, _ = embed_gn_inputs(
+            dict(cs, dtype=dt), gen)
+        geo = {key: (v, v) for key, v in kw.items() if key != "groups"}
+        cpg = w2.shape[1]
+        # w_pre in {0, 1, 2}, w2 in {-1, 0, 1} at every fourth cp and 0
+        # elsewhere, b2 in {-2, ..., 2}: |w_raw| <= bound, and a plane's
+        # sum of squares stays below 2^24
+        ints = (torch.randint(0, 3, w_pre.shape, generator=gen,
+                              device="cuda").to(dt),
+                (torch.randint(-1, 2, w2.shape, generator=gen, device="cuda")
+                 * (torch.arange(cpg, device="cuda") % 4 == 0)).to(dt),
+                torch.randint(-2, 3, b2.shape, generator=gen,
+                              device="cuda").float())
+        bound = 2 * ((cpg + 3) // 4) + 2
+        if cs["k"] ** 2 * cs["h"] * cs["w"] * bound ** 2 >= 2 ** 24:
+            raise AssertionError(f"stats check at {geometry}: integer sums "
+                                 "not exact in f32")
+        for integer, (wp, ww, bb) in ((False, (w_pre, w2, b2)),
+                                      (True, ints)):
+            tiled, ref = (la.embed_gn_statistics(
+                x, wp, ww, bb, **geo, groups=kw["groups"], pointwise=pw)
+                          for pw in (False, True))
+            torch.cuda.synchronize()
+            got, want = tiled.double().sum(2), ref.double().sum(2)
+            if integer:
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"stats totals at {geometry} {dt}, integer inputs: "
+                        f"max|diff| {float((got - want).abs().max())}")
+                continue
+            rel = [float((got[..., i] - want[..., i]).abs().max()
+                         / want[..., i].abs().max()) for i in (0, 1)]
+            if max(rel) > 1e-6:
+                raise AssertionError(f"stats totals at {geometry} {dt}: "
+                                     f"max|err|/max|ref| {rel}")
+            errs[str(dt).replace("torch.", "")] = max(rel)
+    log(f"  statistics pass at {geometry}: plane totals against the "
+        f"pointwise route's within {errs} of max|ref| (limit 1e-6), equal "
+        "on integer inputs")
+    return {"stats_totals_max_rel_err": errs,
+            "stats_totals_exact_on_integers": True}
 
 
 def embed_gn_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
@@ -890,7 +955,7 @@ def embed_gn_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 return la.local_aggregate_embed_gn(*args, impl="hopper", **kw)
 
             ms = device_ms(run)
-            split = kernel_ms_by_name(run, (EMBED_GN_STATS,) + EMBED_GN_AGG)
+            split = kernel_ms_by_name(run, EMBED_GN_STATS + EMBED_GN_AGG)
             plain_ms = device_ms(lambda: la.local_aggregate_embed_gn(
                 *args, impl="torch", **kw))
             # the yardstick of a tensor-core product: w_raw of the same
@@ -898,21 +963,53 @@ def embed_gn_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
             w2g = w2.view(groups, f // groups, cp // groups)
             wp = w_pre.view(n, groups, cp // groups, h * w)
             product_matmul_ms = device_ms(lambda: torch.matmul(w2g, wp))
-        # the statistics kernel runs exactly where its partial sums need a
-        # workspace: not where a block holds whole planes
-        stats_ms = split[EMBED_GN_STATS]
-        if stats_ms is not None and bool(stats_ms) != bool(workspace):
+        # a statistics kernel runs exactly where its partial sums need a
+        # workspace: not where a block holds whole planes; on the tiled
+        # routes it is embed_gn_stats_rows
+        stats_ms = (None if split[EMBED_GN_STATS[0]] is None
+                    else sum(split[name] for name in EMBED_GN_STATS))
+        if stats_ms is not None and (
+                bool(stats_ms) != bool(workspace)
+                or (variant != "pointwise"
+                    and bool(split[EMBED_GN_STATS[0]]) != bool(workspace))):
             raise AssertionError(f"embed_gn at {geometry}: workspace "
-                                 f"{workspace} bytes, statistics kernel "
-                                 f"{stats_ms} ms")
+                                 f"{workspace} bytes, statistics kernels "
+                                 f"{[split[n] for n in EMBED_GN_STATS]} ms")
+        # the statistics pass alone, where it runs: its bytes (w_pre and w2
+        # read, the partial sums written), or its product at the tensor
+        # cores' rate for its type, whichever takes longer; beside it the
+        # floor of its design, the product in f32 FMAs (two operations
+        # each) at the f32 rate, which the bit-identity with the
+        # aggregation's w_raw keeps it to
+        stats_bound = stats_bound_by = stats_fma_floor = None
+        item = x.element_size()
+        if workspace:
+            product = 2 * n * f * h * w * (cp // groups)
+            stats_bound, stats_bound_by = bounds_ms(
+                (w_pre.numel() + w2.numel()) * item + workspace, 0,
+                matmul_flops=product, matmul_dtype=dt)
+            stats_fma_floor = product / F32_FLOPS_PER_S * 1e3
+        totals = {}
+        if cs.get("stats_check"):
+            totals = stats_totals_check(la, cs, geometry)
+            # the statistics pass alone at these inputs, on this route
+            # (embed_gn_stats_rows) and on the pointwise one (embed_gn_stats,
+            # the tiled routes' statistics kernel before it)
+            for key, pw in (("stats_alone_ms", False),
+                            ("stats_pointwise_ms", True)):
+                totals[key] = device_ms(lambda: la.embed_gn_statistics(
+                    *args[:4], **geo, pointwise=pw))
+            log(f"  statistics pass alone {totals['stats_alone_ms']:.4f} ms, "
+                f"on the pointwise route {totals['stats_pointwise_ms']:.4f} "
+                "ms")
         # x, w_pre and w2 read, out written, the three f32 vectors; the
         # product w_pre @ w2 once, at the tensor cores' rate for its type
         # (that this kernel forms it in f32 FMAs, and twice where the
         # statistics kernel runs, is its own cost), then per w_raw element
         # the bias, the two statistics' terms and the normalize, and the
         # taps, in f32
-        nbytes = (2 * x.numel() + w_pre.numel() + w2.numel()) \
-            * x.element_size() + 3 * f * 4
+        nbytes = (2 * x.numel() + w_pre.numel() + w2.numel()) * item \
+            + 3 * f * 4
         w_raw = n * f * h * w
         bound, bound_by = bounds_ms(
             nbytes, 8 * w_raw + 2 * x.numel() * k * k,
@@ -928,6 +1025,9 @@ def embed_gn_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
             "deterministic": True, "workspace_bytes": workspace,
             "ms": ms, "plain_ms": plain_ms,
             "stats_ms": stats_ms,
+            "stats_bound_ms": stats_bound, "stats_bound_by": stats_bound_by,
+            "stats_fma_floor_ms": stats_fma_floor,
+            **totals,
             "agg_ms": (None if split[EMBED_GN_AGG[0]] is None
                        else sum(split[name] for name in EMBED_GN_AGG)),
             "product_matmul_ms": product_matmul_ms,
@@ -935,8 +1035,11 @@ def embed_gn_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
             "bound_ms_at_copy_rate": nbytes / hbm_rate * 1e3,
             "library_ms": None})
         log_entry(entries[-1])
-        log(f"  stats {fmt_ms(entries[-1]['stats_ms'])}, aggregation "
-            f"{fmt_ms(entries[-1]['agg_ms'])} (torch.profiler); "
+        log(f"  stats {fmt_ms(entries[-1]['stats_ms'])}"
+            + (f" (bound {stats_bound:.4f} ms, {stats_bound_by}; f32-FMA "
+               f"floor {stats_fma_floor:.4f} ms)" if stats_bound else "")
+            + f", aggregation {fmt_ms(entries[-1]['agg_ms'])} "
+            "(torch.profiler); "
             f"workspace {workspace} bytes; w_raw by torch.matmul "
             f"{product_matmul_ms:.4f} ms")
     return entries
@@ -1649,14 +1752,14 @@ def mix_path(la, paths: PathCounts):
     the zoo calls them): one autograd call of ``local_aggregate_mix`` (or
     ``local_aggregate_mix_merge`` for the packed weight) at each bf16 case,
     each one launch of each mix kernel and no plain call or other
-    aggregation kernel, dx and dw on their ``tiles`` route; the counts are
-    set to 0 before and read after."""
+    aggregation kernel, the forward, dx and dw on their ``tiles`` route;
+    the counts are set to 0 before and read after."""
     cases = [cs for cs in mix_cases() if cs.get("main")]
     la.reset_counts()
     for i, cs in enumerate(cases):
         x, w1, w2, dy = mix_tensors(cs, seed=20 + i)
-        routes = {k: la.mix_route(k, x, w1, w2) for k in ("dx", "dw")}
-        if routes != {"dx": "tiles", "dw": "tiles"}:
+        routes = {k: la.mix_route(k, x, w1, w2) for k in ("fwd", "dx", "dw")}
+        if set(routes.values()) != {"tiles"}:
             raise AssertionError(f"mix op at {cs}: routes {routes}")
         leaves = [t.requires_grad_() for t in (x, w1, w2) if t is not None]
         before = dict(la.MIX_LAUNCHES)
@@ -1681,18 +1784,19 @@ def mix_path(la, paths: PathCounts):
                              f"{la.MIX_LAUNCHES}")
     log(f"mix op: one autograd call at each of {len(cases)} bf16 cases "
         f"(cotnet50's geometries at bs128, weights separate and packed): "
-        f"launches {la.MIX_LAUNCHES}, 0 plain calls, dx and dw on the "
-        f"tiles route")
+        f"launches {la.MIX_LAUNCHES}, 0 plain calls, the forward, dx and dw "
+        "on the tiles route")
 
 
 def mix_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
     """The three mix kernels against the plain mix on the card; returns
-    their entries.  dx and dw name their route (``variant``, from
+    their entries.  Each names its route (``variant``, from
     ``ops.local_agg.mix_route``: ``tiles``, or ``pointwise`` where the case
-    says so), are launched twice for the same bits (``deterministic``),
-    and are timed on the pointwise route too (``pointwise_ms``, the first
-    kernels at the same inputs); dw's ``same_bits_as_pointwise`` says
-    whether the two routes' dw1 and dw2 are bit for bit the same."""
+    says so), is launched twice for the same bits (``deterministic``), and
+    is timed on the pointwise route too (``pointwise_ms``, the first
+    kernels at the same inputs); the forward's and dw's
+    ``same_bits_as_pointwise`` say whether the two routes' outputs are bit
+    for bit the same, which the forward's must be."""
     entries = []
     for i, cs in enumerate(mix_cases()):
         x, w1, w2, dy = mix_tensors(cs, seed=40 + i)
@@ -1713,25 +1817,25 @@ def mix_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
         bound, bound_by = bounds_ms(nbytes, flops)
         for kernel in ("fwd", "dx", "dw"):
             if kernel == "fwd":
-                def run():
-                    return la.local_aggregate_mix_hopper(x, w1, w2)
+                def run(pointwise=False):
+                    return (la.local_aggregate_mix_hopper(
+                        x, w1, w2, pointwise=pointwise),)
 
                 def plain():
-                    return la.local_aggregate_mix_plain(x, w1, w2)
-                pick = None
+                    return (la.local_aggregate_mix_plain(x, w1, w2),)
             else:
                 need = dict(need_dx=kernel == "dx", need_dw=kernel == "dw")
                 pick = 0 if kernel == "dx" else 1
 
-                def run():
-                    return la.local_aggregate_mix_bwd_hopper(x, w1, w2, dy,
-                                                             **need)
+                def run(pointwise=False):
+                    return la.local_aggregate_mix_bwd_hopper(
+                        x, w1, w2, dy, pointwise=pointwise,
+                        **need)[pick:pick + 2]
 
                 def plain():
-                    return la.local_aggregate_mix_bwd_plain(x, w1, w2, dy,
-                                                            **need)
+                    return la.local_aggregate_mix_bwd_plain(
+                        x, w1, w2, dy, **need)[pick:pick + 2]
             before = dict(la.MIX_LAUNCHES_BY_SHAPE)
-            routed = {}
             with torch.no_grad():
                 got = run()
                 torch.cuda.synchronize()
@@ -1739,38 +1843,35 @@ def mix_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                     "mix_" + kernel, new_key(la.MIX_LAUNCHES_BY_SHAPE,
                                              before)[1])
                 ref = plain()
-                if pick is not None:
-                    got, ref = got[pick:pick + 2], ref[pick:pick + 2]
-                    again = run()[pick:pick + 2]
-                    routed = {
-                        "variant": la.mix_route(kernel, x, w1, w2),
-                        "deterministic": all(
-                            torch.equal(a, b) for a, b in zip(got, again)
-                            if a is not None)}
-                    if routed["variant"] != cs.get("route", "tiles"):
-                        raise AssertionError(
-                            f"mix {kernel} at {geometry} took the "
-                            f"{routed['variant']} route")
-                    if not routed["deterministic"]:
-                        raise AssertionError(f"mix {kernel} at {geometry}: "
-                                             "two launches differ")
-                    if kernel == "dw":
-                        on_pointwise = la.local_aggregate_mix_bwd_hopper(
-                            x, w1, w2, dy, pointwise=True, **need)[1:]
-                        routed["same_bits_as_pointwise"] = all(
-                            torch.equal(a, b)
-                            for a, b in zip(got, on_pointwise)
-                            if a is not None)
-                else:
-                    got, ref = (got,), (ref,)
+                again = run()
+                routed = {
+                    "variant": la.mix_route(kernel, x, w1, w2),
+                    "deterministic": all(
+                        torch.equal(a, b) for a, b in zip(got, again)
+                        if a is not None)}
+                if routed["variant"] != cs.get("route", "tiles"):
+                    raise AssertionError(
+                        f"mix {kernel} at {geometry} took the "
+                        f"{routed['variant']} route")
+                if not routed["deterministic"]:
+                    raise AssertionError(f"mix {kernel} at {geometry}: "
+                                         "two launches differ")
+                if kernel != "dx":
+                    routed["same_bits_as_pointwise"] = all(
+                        torch.equal(a, b)
+                        for a, b in zip(got, run(pointwise=True))
+                        if a is not None)
+                # the forward's two accumulators take the taps in the
+                # pointwise kernel's order, from the same zeros
+                if kernel == "fwd" and not routed["same_bits_as_pointwise"]:
+                    raise AssertionError(f"mix fwd at {geometry}: not the "
+                                         "pointwise route's bits")
                 errs = [check_close(f"{geometry} {kernel}", g, r, dt)
                         for g, r in zip(got, ref) if r is not None]
                 ms = device_ms(run)
                 plain_ms = device_ms(plain)
-                if pick is not None:
-                    routed["pointwise_ms"] = device_ms(
-                        lambda: la.local_aggregate_mix_bwd_hopper(
-                            x, w1, w2, dy, pointwise=True, **need))
+                routed["pointwise_ms"] = device_ms(
+                    lambda: run(pointwise=True))
             max_err, rtol, atol = max(errs)
             entries.append({
                 "name": f"local_agg_mix_{kernel}", "route": "cuda",
@@ -1847,7 +1948,7 @@ def profile_step(fn, label: str, top: int = 12):
            for name in ("local_agg_fwd", "local_agg_bwd_dx",
                         "local_agg_bwd_dw", "local_agg_bwd_dw_affine",
                         "local_agg_bwd_dw_affine_sums",
-                        EMBED_GN_STATS, *EMBED_GN_AGG)}
+                        *EMBED_GN_STATS, *EMBED_GN_AGG)}
     log(f"profile of one {label}: {sum(r[1] for r in rows)} device kernels "
         f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
         f"({100 * busy_ms / wall_ms:.1f}%); "

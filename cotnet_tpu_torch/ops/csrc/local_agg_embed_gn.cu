@@ -30,9 +30,10 @@
 // cores (924.8 M multiply-adds at each of cotnet50's maps, about 0.03 ms
 // at the card's f32 rate).
 //
-// Two kernels: embed_gn_stats writes, per (n, cw, 32-pixel tile), the
-// tile's sum and sum of squares of w_raw; embed_gn_agg forms the weights,
-// normalizes and aggregates.  Three routes, chosen before any launch from
+// Three kernels: embed_gn_stats_rows (the tiled routes) and embed_gn_stats
+// (the pointwise route) write, per (n, cw, tile of pixels), the tile's sum
+// and sum of squares of w_raw; embed_gn_agg forms the weights, normalizes
+// and aggregates.  Three routes, chosen before any launch from
 // the geometry and the element size (agg_route with kAggEmbed, common.cuh):
 // - ``k3`` (K = 3 at dilation 1 and column padding 1; every main path) and
 //   ``general`` (runtime K <= kMaxK, V = 1): embed_gn_agg<T, KC> on the
@@ -55,10 +56,10 @@
 //     plane: every map up to 28x28 at cotnet50's widths), the block sums
 //     w_raw and w_raw^2 by plane in f32 in a fixed order (each thread over
 //     its taps and positions, then the plane's threads in turn, or a warp
-//     a plane where it has more than 64 items), and embed_gn_stats is not
-//     launched; where a plane spans several row tiles (56x56), the
-//     statistics kernel runs first and one warp reads its partial sums in
-//     the pointwise route's fixed order;
+//     a plane where it has more than 64 items), and no statistics kernel
+//     is launched; where a plane spans several row tiles (56x56),
+//     embed_gn_stats_rows runs first and one warp reads its partial sums
+//     in a fixed order (tile_stats);
 //   - the normalize in registers, subtract first, then the forward's walk
 //     of the C/Cw channels on the staged halo tiles: f32 taps, one rounding
 //     of the output, zero padding from the stages' zeros.
@@ -66,14 +67,31 @@
 //   embed_gn_agg_pointwise, a block of 32 pixels by CWB weight channels, a
 //   thread the K2 taps of one (pixel, cw), forming w_raw again and reading
 //   x's taps through L1 (the op's first design).
+// - embed_gn_stats_rows<T, K2>, the tiled routes' statistics: a row tile
+//   is as many whole rows of one image as kRowStatsItems thread items
+//   hold (spread evenly over the tiles); a block takes every weight
+//   channel (fewer where a row each is wider) and walks up to
+//   kRowStatsRun row tiles in turn; a thread item is V pixels (V = 8 at
+//   K = 3) of one channel.  The block stages w2's rows of its channels
+//   once by cp.async and turns them to f32 with each (channel, cp) pair's
+//   K2 values contiguous, and w_pre's pixels of its tiles by cp.async,
+//   kRowStatsChunk channels a stage, two stages in flight while one is
+//   summed (one __syncthreads a stage), across tiles.  Per cp a thread
+//   makes one 16-byte load of its V w_pre values and ceil(K2/4) 16-byte
+//   loads of w2 (the same address across the channel's threads) for K2*V
+//   FMAs, where embed_gn_stats makes one load per FMA.  Its sums
+//   go in a fixed order (the thread's, then its channel's threads by a
+//   warp), one owner a partial.  Its bound is w_pre's bytes (the product
+//   at the tensor cores' rate is shorter); the bit-identity below keeps
+//   the product in f32 FMAs, a floor of this design about 3.6 times that
+//   bound at cotnet50's 56x56.
 // Bit-identity: every kernel forms w_raw with embed_w_raw's arithmetic,
 // fmaf over cp = 0 .. Cp-1 in increasing order from 0.f, then + b2,
-// rounded to T and widened back to f32.  So the values whose statistics
-// embed_gn_stats takes are bit for bit the values the aggregation
-// normalizes, on the route that still launches it.  Every sum has one
-// owner and a fixed order: no atomics, the same bits from run to run.
-// Left for later: the product on tensor cores (wgmma), and the 56x56
-// statistics pass.
+// rounded to T and widened back to f32.  So the values whose statistics a
+// statistics kernel takes are bit for bit the values the aggregation
+// normalizes.  Every sum has one owner and a fixed order: no atomics, the
+// same bits from run to run.  Left for later: the product on tensor cores
+// (wgmma).
 
 #include <numeric>
 
@@ -95,12 +113,9 @@ Geometry agg_geometry(const EmbedGeometry& g) {
                   g.kw, g.ho, g.wo, g.ph, g.pw, g.dh, g.dw};
 }
 
-// The statistics kernel's pixel tiles, and its partial sums' floats.
+// The statistics kernel's pixel tiles.
 int64_t stats_tiles(const EmbedGeometry& g) {
   return (int64_t(g.ho) * g.wo + kTilePx - 1) / kTilePx;
-}
-int64_t stats_floats(const EmbedGeometry& g) {
-  return int64_t(g.n) * g.cw * stats_tiles(g) * 2;
 }
 
 // The K2 taps of w_raw for this thread's (pixel p0 + tx, cw0 + ty), zero
@@ -308,6 +323,317 @@ __device__ __forceinline__ void copy_runs(int runs, int len, int unit,
     } else {
       cp_async<4>(to, from);
     }
+  }
+}
+
+// ---- the tiled routes' statistics kernel ----------------------------------
+
+constexpr int kRowStatsItems = 256;  // a block's thread items, if a row fits
+constexpr int kRowStatsChunk = 32;   // w_pre channels of a stage, at most
+constexpr int kRowStatsStages = 3;   // w_pre stages in shared memory at once
+constexpr int kRowStatsSmemAim = 64 * 1024;  // a block's, when it can
+// row tiles a block walks, at most, spread evenly: w2 is staged once for
+// them and w_pre's copies stay in flight from one tile to the next (at
+// cotnet50's 56x56, 14 tiles of 4 rows: the card ran 7 12% faster than 1);
+// fewer where the grid would hold fewer than kRowStatsBlocks blocks (a
+// few images: there the card ran 7 four times slower than the 32-pixel
+// embed_gn_stats)
+constexpr int kRowStatsRun = 7;
+constexpr int kRowStatsBlocks = 256;
+
+// The positions of a thread item at K2 taps: its K2 x V sums stay in
+// registers.  At K = 3 the card ran 8 (72 sums) 23% faster than 4.
+__host__ __device__ constexpr int row_stats_vec(int k2) {
+  return k2 <= 9 ? 8 : k2 <= 25 ? 2 : 1;
+}
+
+// embed_gn_stats_rows' blocks: ``cwb`` weight channels (``cblocks`` blocks
+// cover Cw) by ``rows`` output rows (``tiles`` row tiles a plane) of one
+// image; ``items`` thread items of V pixels a channel.  Dynamic shared
+// memory: the block's w2 in f32 at 0, [channel][cp][K2 rounded up to 4],
+// ``w2_stride`` floats a channel; at ``w2raw``, the same values as w2
+// holds them; from ``wpre``, kRowStatsStages stages of ``chunk`` w_pre
+// channels, a channel's pixels of a tile at ``span_bytes``; from
+// ``sums``, each thread's two sums; ``bytes`` in all.  A block walks
+// ``run`` consecutive row tiles of its image (``runs`` blocks cover a
+// plane's tiles).
+struct RowStats {
+  int rows, tiles, cwb, cblocks, items, chunk, span_bytes, w2_stride;
+  int w2raw, wpre, sums, bytes;
+  int run, runs;  // row tiles a block walks; blocks a plane's tiles take
+};
+
+// The blocks of embed_gn_stats_rows at g with ``elem``-byte elements: every
+// weight channel of an image and as many whole rows as kRowStatsItems
+// thread items hold (fewer channels where one row each is wider), the
+// rows spread evenly over the tiles; w_pre staged in chunks of up to
+// kRowStatsChunk channels, halved until the block's shared memory fits
+// kRowStatsSmemAim.  False where a row is wider than kMaxThreads items,
+// one channel's w2 does not fit a block, or the grid is too large.
+inline bool plan_row_stats(const EmbedGeometry& g, int elem, RowStats* s,
+                           unsigned* blocks, unsigned* threads) {
+  const int k2p = (g.kh * g.kw + 3) / 4 * 4;
+  const int vec = row_stats_vec(g.kh * g.kw);
+  const int row_items = (g.wo + vec - 1) / vec;
+  if (g.ho <= 0 || g.wo <= 0 || g.cp <= 0 || row_items > kMaxThreads) {
+    return false;
+  }
+  const int aim = std::max(kRowStatsItems, row_items);
+  for (int cwb = std::min(g.cw, std::max(1, aim / row_items));;
+       cwb = (cwb + 1) / 2) {
+    int rows = int(std::max<int64_t>(
+        1, std::min<int64_t>(g.ho, int64_t(aim / cwb) * vec / g.wo)));
+    while (rows > 1 && cwb * ((int64_t(rows) * g.wo + vec - 1) / vec) > aim) {
+      --rows;
+    }
+    const int tiles = (g.ho + rows - 1) / rows;
+    rows = (g.ho + tiles - 1) / tiles;
+    const int items = int((int64_t(rows) * g.wo + vec - 1) / vec);
+    const int64_t nthreads = (int64_t(cwb) * items + 31) / 32 * 32;
+    const int64_t w2_stride = int64_t(g.cp) * k2p + 4;
+    const int64_t w2raw = round16(cwb * w2_stride * 4);
+    const int64_t wpre =
+        w2raw + round16(int64_t(cwb) * g.kh * g.kw * g.cp * elem);
+    // a channel's pixels of the tile, to a whole item
+    const int64_t span_bytes =
+        round16((int64_t(rows) * g.wo + vec - 1) / vec * vec * elem);
+    for (int chunk = std::min(kRowStatsChunk, g.cp);;
+         chunk = (chunk + 1) / 2) {
+      const int64_t sums = wpre + kRowStatsStages * chunk * span_bytes;
+      const int64_t bytes = sums + nthreads * 8;
+      if (bytes > kRowStatsSmemAim && chunk > 1) continue;
+      if (bytes > kMaxSmem - kStaticSmem) break;
+      const int cblocks = (g.cw + cwb - 1) / cwb;
+      const int64_t work = int64_t(g.n) * tiles * cblocks;
+      const int most = int(std::max<int64_t>(
+          1, std::min<int64_t>(kRowStatsRun, work / kRowStatsBlocks)));
+      const int runs = (tiles + most - 1) / most;
+      const int run = (tiles + runs - 1) / runs;
+      const int64_t count = int64_t(g.n) * runs * cblocks;
+      if (count > 0x7fffffff) return false;
+      *s = RowStats{rows,           tiles,           cwb,
+                    cblocks,        items,           chunk,
+                    int(span_bytes), int(w2_stride), int(w2raw),
+                    int(wpre),      int(sums),       int(bytes),
+                    run,            runs};
+      *blocks = unsigned(count);
+      *threads = unsigned(nthreads);
+      return true;
+    }
+    if (cwb == 1) return false;
+  }
+}
+
+// partials [N, Cw, s.tiles, 2] f32: per (image, weight channel, row tile)
+// the tile's sum and sum of squares of w_raw over its pixels and the K2
+// taps.  A block: image n, row tiles tile0 .. tile0 + nt - 1 in turn,
+// weight channels cw0 .. cw0 + s.cwb - 1; a thread item: V of a tile's
+// pixels (in their order in the plane, across rows) of one weight
+// channel.  w_pre [N, Cp,
+// Ho, Wo]; w2 [G, Cw*K2, Cp]; b2 [G, Cw*K2] f32.  ``wpre_unit`` and
+// ``w2_unit``: the staging's copy units.
+template <typename T, int K2>
+__global__ void __launch_bounds__(kMaxThreads)
+    embed_gn_stats_rows(const T* __restrict__ w_pre, const T* __restrict__ w2,
+                        const float* __restrict__ b2,
+                        float* __restrict__ partials, EmbedGeometry g,
+                        RowStats s, int wpre_unit, int w2_unit) {
+  constexpr int V = row_stats_vec(K2);
+  constexpr int K2P = (K2 + 3) / 4 * 4;
+  // bytes of a load of w_pre's values: V's, at most 16
+  constexpr int kLoad = V * int(sizeof(T)) < 16 ? V * int(sizeof(T)) : 16;
+  extern __shared__ __align__(16) char smem[];
+  float* w2f = reinterpret_cast<float*>(smem);
+  float2* sums = reinterpret_cast<float2*>(smem + s.sums);
+  const int hw = g.ho * g.wo;
+  const int cblk = blockIdx.x % s.cblocks;
+  const int rest = blockIdx.x / s.cblocks;
+  const int tile0 = rest % s.runs * s.run;
+  const int n = rest / s.runs, grp = n % g.groups;
+  const int nt = min(s.run, s.tiles - tile0);
+  const int cw0 = cblk * s.cwb;
+  const int ncw = min(s.cwb, g.cw - cw0);
+  const T* wp = w_pre + int64_t(n) * g.cp * hw;
+  const int chunks = (g.cp + s.chunk - 1) / s.chunk;
+  const int total = nt * chunks;  // (tile, chunk) steps of the walk
+
+  // Issue step ``k`` (chunk k % chunks of the block's tile k / chunks) of
+  // w_pre, its channels' pixels of the tile, into stage k %
+  // kRowStatsStages: one run a channel.
+  const auto issue = [&](int k) {
+    const int tile = tile0 + k / chunks;
+    const int c0 = (k % chunks) * s.chunk;
+    const int r0 = tile * s.rows;
+    const int span = min(s.rows, g.ho - r0) * g.wo;
+    char* stage =
+        smem + s.wpre + (k % kRowStatsStages) * s.chunk * s.span_bytes;
+    copy_runs<T>(
+        min(s.chunk, g.cp - c0), span, wpre_unit,
+        [&](int r) { return wp + int64_t(c0 + r) * hw + int64_t(r0) * g.wo; },
+        [&](int r) { return stage + r * s.span_bytes; });
+  };
+  // w2's rows of the block's channels, once: one run (they are contiguous
+  // in w2), copied with the first step
+  const T* w2b = w2 + (int64_t(grp) * g.cw + cw0) * K2 * g.cp;
+  const int w2_len = ncw * K2 * g.cp;
+  copy_runs<T>(
+      1, w2_len, w2_unit, [&](int) { return w2b; },
+      [&](int) { return smem + s.w2raw; });
+#pragma unroll 1
+  for (int i = 0; i < kRowStatsStages - 1; ++i) {
+    if (i < total) issue(i);
+    cp_async_commit();
+  }
+
+  // the thread: weight channel cw0 + c, pixels p0 .. p0 + V - 1 of a tile
+  const int c = threadIdx.x / s.items;
+  const int p0 = (threadIdx.x - c * s.items) * V;
+  const int step = s.span_bytes / int(sizeof(T));  // channel to channel
+  const int lane = threadIdx.x % 32;
+  // the product: f32 sums over cp = 0 .. Cp-1 in increasing order, as
+  // embed_w_raw forms them, the next steps' copies in flight
+  float acc[K2][V];
+#pragma unroll
+  for (int k = 0; k < K2; ++k) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[k][v] = 0.f;
+  }
+#pragma unroll 1
+  for (int k = 0; k < total; ++k) {
+    cp_async_wait<kRowStatsStages - 2>();  // this step has landed
+    // every thread's copies of it, and every thread is past the step
+    // before, whose stage the next issue takes, and past its sums
+    __syncthreads();
+    if (k == 0) {
+      // w2 to f32, each (channel, cp) pair's K2 values contiguous
+      const T* raw = reinterpret_cast<const T*>(smem + s.w2raw);
+      for (int j = threadIdx.x; j < w2_len; j += blockDim.x) {
+        const int f = j / g.cp, cc = f / K2;
+        w2f[cc * s.w2_stride + (j - f * g.cp) * K2P + f - cc * K2] =
+            to_f32(raw[j]);
+      }
+      __syncthreads();
+    }
+    if (k + kRowStatsStages - 1 < total) issue(k + kRowStatsStages - 1);
+    cp_async_commit();
+    const int tile = tile0 + k / chunks, i = k % chunks;
+    const int span = min(s.rows, g.ho - tile * s.rows) * g.wo;
+    const bool active = c < ncw && p0 < span;
+    if (active) {
+      const T* a_s =
+          reinterpret_cast<const T*>(smem + s.wpre + (k % kRowStatsStages) *
+                                                         s.chunk *
+                                                         s.span_bytes) +
+          p0;
+      const float* ws = w2f + c * s.w2_stride + i * s.chunk * K2P;
+      const int len = min(s.chunk, g.cp - i * s.chunk);
+#pragma unroll 4
+      for (int cc = 0; cc < len; ++cc) {
+        // V values of w_pre in one load; past the tile's pixels (its last
+        // item) they are stale, and their sums are not added
+        float a[V];
+        load_pieces<kLoad, T, V>(a_s + cc * step, a);
+        const float4* wc = reinterpret_cast<const float4*>(ws + cc * K2P);
+#pragma unroll
+        for (int q = 0; q < K2P / 4; ++q) {
+          const float4 f = wc[q];
+          const float wq[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (4 * q + e < K2) {
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                acc[4 * q + e][v] = fmaf(a[v], wq[e], acc[4 * q + e][v]);
+              }
+            }
+          }
+        }
+      }
+    }
+    if (i == chunks - 1) {
+      // the tile's w_raw: + b2, rounded to the model type and widened
+      // back, as every kernel of the op forms it; the thread's sums over
+      // its taps (in order) and its pixels; then a channel's items in a
+      // fixed order, a warp a channel, lane l taking items l, l + 32, ...
+      // in turn, then the warp's butterfly: one owner of each partial
+      const int nv = min(V, span - p0);
+      float s1 = 0.f, s2 = 0.f;
+      if (active) {
+        const float* bias = b2 + (grp * g.cw + cw0 + c) * K2;
+#pragma unroll
+        for (int kk = 0; kk < K2; ++kk) {
+          const float bk = bias[kk];
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const float w = to_f32(from_f32<T>(acc[kk][v] + bk));
+            if (v < nv) {
+              s1 += w;
+              s2 += w * w;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < K2; ++kk) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[kk][v] = 0.f;
+      }
+      sums[threadIdx.x] = make_float2(s1, s2);
+      __syncthreads();
+      for (int cc = threadIdx.x / 32; cc < ncw; cc += blockDim.x / 32) {
+        float a = 0.f, b = 0.f;
+        for (int j = lane; j < s.items; j += 32) {
+          const float2 v = sums[cc * s.items + j];
+          a += v.x;
+          b += v.y;
+        }
+        a = warp_sum(a);
+        b = warp_sum(b);
+        if (lane == 0) {
+          float* out = partials +
+                       ((int64_t(n) * g.cw + cw0 + cc) * s.tiles + tile) * 2;
+          out[0] = a;
+          out[1] = b;
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int K2>
+int launch_row_stats_taps(const void* w_pre, const void* w2, const void* b2,
+                          void* partials, const EmbedGeometry& g,
+                          const RowStats& s, unsigned blocks,
+                          unsigned threads, cudaStream_t stream) {
+  const auto kernel = embed_gn_stats_rows<T, K2>;
+  const cudaError_t err = allow_smem(kernel, size_t(s.bytes));
+  if (err != cudaSuccess) return int(err);
+  kernel<<<blocks, threads, size_t(s.bytes), stream>>>(
+      static_cast<const T*>(w_pre), static_cast<const T*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(partials), g, s,
+      copy_unit(w_pre, int64_t(g.wo) * int(sizeof(T))),
+      copy_unit(w2, int64_t(K2) * g.cp * int(sizeof(T))));
+  return int(cudaGetLastError());
+}
+
+// embed_gn_stats_rows at the instantiation of K2 (taps in registers).
+template <typename T>
+int launch_row_stats(const void* w_pre, const void* w2, const void* b2,
+                     void* partials, const EmbedGeometry& g,
+                     const RowStats& s, unsigned blocks, unsigned threads,
+                     cudaStream_t stream) {
+  switch (g.kh * g.kw) {
+    case 9:
+      return launch_row_stats_taps<T, 9>(w_pre, w2, b2, partials, g, s,
+                                         blocks, threads, stream);
+    case 25:
+      return launch_row_stats_taps<T, 25>(w_pre, w2, b2, partials, g, s,
+                                          blocks, threads, stream);
+    case 49:
+      return launch_row_stats_taps<T, 49>(w_pre, w2, b2, partials, g, s,
+                                          blocks, threads, stream);
+    default:
+      return int(cudaErrorInvalidValue);
   }
 }
 
@@ -653,8 +979,77 @@ int dispatch_taps(bool pointwise, const void* x, const void* w_pre,
   }
 }
 
+// The route of a launch at g: kRouteK3, kRouteGeneral or kRoutePointwise.
+int embed_route(const EmbedGeometry& g, int elem) {
+  return agg_route(kAggEmbed, agg_geometry(g), elem);
+}
+
+// The statistics pass of a launch: none where a block holds whole planes;
+// embed_gn_stats (kTilePx-pixel tiles) on the pointwise route; where a
+// tiled route's plane spans several row tiles, embed_gn_stats_rows with
+// blocks ``rows``, or embed_gn_stats where that does not fit.  ``tiles``:
+// the tiles of its partial sums [N, Cw, tiles, 2], 0 where it makes none.
+enum StatsPass { kStatsNone, kStatsPixels, kStatsRows };
+struct StatsPlan {
+  StatsPass pass;
+  int64_t tiles;
+  RowStats rows;
+  unsigned blocks, threads;
+};
+
+// The statistics pass of a tiled route at g whose aggregation takes
+// ``agg_tiles`` row tiles a plane.
+StatsPlan plan_stats(const EmbedGeometry& g, int elem, int agg_tiles) {
+  StatsPlan p{kStatsNone, 0, {}, 0, 0};
+  if (agg_tiles == 1) return p;
+  if (plan_row_stats(g, elem, &p.rows, &p.blocks, &p.threads)) {
+    p.pass = kStatsRows;
+    p.tiles = p.rows.tiles;
+  } else {
+    p.pass = kStatsPixels;
+    p.tiles = stats_tiles(g);
+  }
+  return p;
+}
+
+// The statistics pass of a launch at g (``pointwise``: of the pointwise
+// route, whatever the geometry's), planned as launch_tiles plans it.
+StatsPlan stats_pass(const EmbedGeometry& g, int elem, bool pointwise) {
+  const StatsPlan pixels{kStatsPixels, stats_tiles(g), {}, 0, 0};
+  if (int64_t(g.n) * g.cw * g.ho * g.wo == 0) {
+    return StatsPlan{kStatsNone, 0, {}, 0, 0};
+  }
+  const int route = pointwise ? kRoutePointwise : embed_route(g, elem);
+  if (route == kRoutePointwise) return pixels;
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_agg(kAggEmbed, agg_geometry(g), elem, route == kRouteK3 ? 4 : 1,
+                0, &t, &blocks, &threads, &smem)) {
+    return pixels;
+  }
+  return plan_stats(g, elem, t.tiles);
+}
+
+// Launch the statistics pass p, into partials.
+template <typename T>
+int launch_stats_pass(const StatsPlan& p, const void* w_pre, const void* w2,
+                      const void* b2, void* partials, const EmbedGeometry& g,
+                      cudaStream_t stream) {
+  switch (p.pass) {
+    case kStatsNone:
+      return int(cudaSuccess);
+    case kStatsPixels:
+      return dispatch_taps<T>(false, nullptr, w_pre, w2, b2, nullptr, nullptr,
+                              partials, nullptr, g, stream);
+    default:
+      return launch_row_stats<T>(w_pre, w2, b2, partials, g, p.rows, p.blocks,
+                                 p.threads, stream);
+  }
+}
+
 // The tiled routes: where a plane spans several row tiles, the statistics
-// kernel first; then embed_gn_agg.
+// pass first (plan_stats); then embed_gn_agg, told the pass' tiles.
 template <typename T, int KC>
 int launch_tiles(const void* x, const void* w_pre, const void* w2,
                  const void* b2, const void* gamma, const void* beta,
@@ -683,10 +1078,11 @@ int launch_tiles(const void* x, const void* w_pre, const void* w2,
       t.tiles == 1 ? copy_unit(w_pre, step * hw * elem)
                    : copy_unit(w_pre, int64_t(g.wo) * elem);
   const int w2_unit = copy_unit(w2, step * elem);
-  if (t.tiles > 1) {
+  const StatsPlan stats = plan_stats(g, int(elem), t.tiles);
+  if (stats.pass != kStatsNone) {
     if (partials == nullptr) return int(cudaErrorInvalidValue);
-    const int err = dispatch_taps<T>(false, x, w_pre, w2, b2, gamma, beta,
-                                     partials, out, g, stream);
+    const int err =
+        launch_stats_pass<T>(stats, w_pre, w2, b2, partials, g, stream);
     if (err != int(cudaSuccess)) return err;
   }
   const auto kernel = embed_gn_agg<T, KC>;
@@ -697,30 +1093,9 @@ int launch_tiles(const void* x, const void* w_pre, const void* w2,
       static_cast<const T*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const float*>(partials), static_cast<T*>(out), ag, t, g.cp,
-      g.groups, int(stats_tiles(g)), g.eps, e, wpre_unit, w2_unit);
+      g.groups, int(stats.tiles), g.eps, e, wpre_unit,
+      w2_unit);
   return int(cudaGetLastError());
-}
-
-// The route of a launch at g: kRouteK3, kRouteGeneral or kRoutePointwise.
-int embed_route(const EmbedGeometry& g, int elem) {
-  return agg_route(kAggEmbed, agg_geometry(g), elem);
-}
-
-// The floats of partial sums a launch at g needs: the statistics kernel's,
-// on the pointwise route and where a tiled route's plane spans several row
-// tiles; 0 where a block holds whole planes.
-int64_t workspace_floats(const EmbedGeometry& g, int elem) {
-  if (int64_t(g.n) * g.cw * g.ho * g.wo == 0) return 0;
-  const int route = embed_route(g, elem);
-  if (route == kRoutePointwise) return stats_floats(g);
-  Tiling t;
-  unsigned blocks, threads;
-  size_t smem;
-  if (!plan_agg(kAggEmbed, agg_geometry(g), elem, route == kRouteK3 ? 4 : 1,
-                0, &t, &blocks, &threads, &smem)) {
-    return stats_floats(g);
-  }
-  return t.tiles > 1 ? stats_floats(g) : 0;
 }
 
 template <typename T>
@@ -750,9 +1125,9 @@ int dispatch(const void* x, const void* w_pre, const void* w2,
 
 // dtype: 0 float32, 1 float16, 2 bfloat16 (x, w_pre, w2, out); b2, gamma,
 // beta and partials are f32.  n counts images times groups; c, cp and cw are
-// per group.  partials: local_agg_embed_gn_workspace's bytes of scratch
-// (null where that is 0).  kh*kw must be 9, 25 or 49.  Returns a
-// cudaError_t code; 0 means every launch was accepted.
+// per group.  partials: local_agg_embed_gn_workspace's bytes of scratch at
+// pointwise 0 (null where that is 0).  kh*kw must be 9, 25 or 49.  Returns
+// a cudaError_t code; 0 means every launch was accepted.
 extern "C" int local_agg_embed_gn_launch(
     int dtype, const void* x, const void* w_pre, const void* w2,
     const void* b2, const void* gamma, const void* beta, void* partials,
@@ -790,12 +1165,42 @@ extern "C" int local_agg_embed_gn_variant(int dtype, int n, int groups, int c,
 }
 
 // The bytes of f32 scratch a launch at this geometry needs for the
-// statistics kernel's partial sums: 0 where the launch makes no statistics
-// launch (a block holds whole planes).
+// statistics kernel's partial sums [N, Cw, tiles, 2] (pointwise != 0: of
+// the pointwise route's pass, whatever the geometry): 0 where the launch
+// makes no statistics launch (a block holds whole planes).
 extern "C" long long local_agg_embed_gn_workspace(
     int dtype, int n, int groups, int c, int hi, int wi, int cp, int cw,
-    int kh, int kw, int ho, int wo, int ph, int pw, int dh, int dw) {
+    int kh, int kw, int ho, int wo, int ph, int pw, int dh, int dw,
+    int pointwise) {
   const EmbedGeometry g{n,  groups, c,  hi, wi, cp, cw, kh,
                         kw, ho,     wo, ph, pw, dh, dw, 0.f};
-  return 4 * workspace_floats(g, elem_size(dtype));
+  return 8 * int64_t(n) * cw *
+         stats_pass(g, elem_size(dtype), pointwise != 0).tiles;
+}
+
+// That statistics pass alone, into partials (its tiles' floats, f32): no
+// aggregation.  For checks that hold one route's statistics against
+// another's.  Arguments as local_agg_embed_gn_launch takes them.
+extern "C" int local_agg_embed_gn_stats_launch(
+    int dtype, const void* w_pre, const void* w2, const void* b2,
+    void* partials, int n, int groups, int c, int hi, int wi, int cp, int cw,
+    int kh, int kw, int ho, int wo, int ph, int pw, int dh, int dw,
+    int pointwise, void* stream) {
+  const EmbedGeometry g{n,  groups, c,  hi, wi, cp, cw, kh,
+                        kw, ho,     wo, ph, pw, dh, dw, 0.f};
+  const int k2 = kh * kw;
+  if (k2 != 9 && k2 != 25 && k2 != 49) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const StatsPlan p = stats_pass(g, elem_size(dtype), pointwise != 0);
+  switch (dtype) {
+    case 0:
+      return launch_stats_pass<float>(p, w_pre, w2, b2, partials, g, st);
+    case 1:
+      return launch_stats_pass<__half>(p, w_pre, w2, b2, partials, g, st);
+    case 2:
+      return launch_stats_pass<__nv_bfloat16>(p, w_pre, w2, b2, partials, g,
+                                              st);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }

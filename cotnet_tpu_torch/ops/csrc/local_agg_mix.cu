@@ -12,10 +12,9 @@
 // Built by ops/_build.py with nvcc into the package's git-ignored _build/
 // at their first launch:
 //
-//   local_agg_mix_fwd: the forward above.  One thread per x element
-//     (n, c, h, w) reads x's 5x5 neighbourhood once into registers and
-//     writes all 2*heads outputs of that element: x is read once for both
-//     kernels, the point of the fused op.
+//   local_agg_mix_fwd: the forward above.  x's 5x5 neighbourhood of each
+//     position is read once for both kernel sizes and every head's
+//     outputs of that position, the point of the fused op.
 //   local_agg_mix_dx, in gather form:
 //     dx[n, c, i, j] = sum_half sum_head sum_taps
 //         dy[n, (half*heads + head)*C + c, i - kh + p, j - kw + p]
@@ -46,7 +45,20 @@
 // at 56x56 C=64 bs128 bf16), so the least time is the bytes over the HBM
 // rate; each pass touches x, w1, w2 and dy/out once.
 //
-// dx and dw run the halo tiles of common.cuh (route ``tiles``):
+// The forward, dx and dw run the halo tiles of common.cuh (route ``tiles``):
+// - the forward (local_agg_mix_fwd) is the forward's walk (fwd_tiles.cuh)
+//   turned to two kernel sizes: a block owns (n, head, cw) planes and a
+//   tile of whole output rows; a thread item is V = 2 neighbouring
+//   positions of a row and keeps its 34 x V weights (w1's 9 x V, w2's 25 x
+//   V) in registers, read once for the block.  For each channel group one
+//   stage holds x's halo tile of the group's channel (the 5x5's halo: 2
+//   rows and 2 columns a side, which covers the 3x3's), between zero rows
+//   and columns written once; a tap row reads the item's V + 4 x columns
+//   in three loads of two, and the thread sums the 3x3 (the window's taps
+//   (i + 1, j + 1)) and the 5x5 into two f32 accumulators, each in
+//   row-major tap order, and stores both halves' outputs.  That order and
+//   the padding's zeros make each output the same bits as the pointwise
+//   forward's.
 // - dw (local_agg_mix_dw) is dw's walk (dw_tiles.cuh) run once for each
 //   half, in one launch with two kinds of blocks: the first ``blocks3``
 //   run the K = 3 body (V = 4, 36 sums a thread) on half 0's dy and write
@@ -68,8 +80,10 @@
 //   zero rows and columns written once; the thread adds 9 + 25 taps a head
 //   into one accumulator and stores the dx row of channel g*Cw + cw once.
 //   A tap row reads the item's V + 4 dy columns in three loads of two.
-// The first kernels, one thread per output (local_agg_mix_dx_pointwise,
-// local_agg_mix_dw_pointwise), are the route ``pointwise`` for every
+// The first kernels, one thread per output (local_agg_mix_fwd_pointwise,
+// local_agg_mix_dx_pointwise, local_agg_mix_dw_pointwise; the forward's one
+// thread per x element, writing its 2 * heads outputs from x's 5x5
+// neighbourhood in registers), are the route ``pointwise`` for every
 // geometry the tiles do not take: a row of more than kMaxThreads items, a
 // halo tile beyond shared memory, offsets beyond 32 bits.  mix_route picks
 // the route from the geometry before any launch.
@@ -87,11 +101,13 @@ struct MixGeometry {
   int n, c, h, w, heads, cw, rows1, rows2;
 };
 
+// The pointwise route of the forward: one thread per x element.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    local_agg_mix_fwd(const T* __restrict__ x, const T* __restrict__ w1,
-                      const T* __restrict__ w2, T* __restrict__ out,
-                      MixGeometry g) {
+    local_agg_mix_fwd_pointwise(const T* __restrict__ x,
+                                const T* __restrict__ w1,
+                                const T* __restrict__ w2, T* __restrict__ out,
+                                MixGeometry g) {
   const int64_t total = int64_t(g.n) * g.c * g.h * g.w;
   const int64_t idx = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -253,6 +269,151 @@ constexpr int kMixMaxSources = 64;      // dy tiles of a dx stage, at most
 // K = 5 body's 50 sums in 80 registers, which the card ran faster than 64
 // (with spills) or 128 (two blocks)
 constexpr int kMixDwThreads = 256;
+constexpr int kMixFwdVec = 2;            // forward positions of a thread item
+// a forward block's thread items: the card ran 128 within 1% of 256 at
+// 56x56 and 4-12% faster at the smaller maps
+constexpr int kMixFwdTargetItems = 128;
+
+// x [N, C, H, W]; out [N, 2*heads*C, H, W]; w1, w2 as the pointwise
+// kernels take them.  The halo tiles of common.cuh with out as the output
+// and x as the staged source: a plane is one (n, head, cw) triple, which
+// reads x channels n*C + cw + g*Cw; its stage holds x's halo tile (2 rows
+// and 2 columns a side) of the group's channel.  Up to 128 registers: the
+// thread's 68 weights stay in them through the group walk.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    local_agg_mix_fwd(const T* __restrict__ x, const T* __restrict__ w1,
+                      const T* __restrict__ w2, T* __restrict__ out,
+                      MixGeometry g, Tiling t) {
+  constexpr int V = kMixFwdVec;
+  constexpr int PAIRS = (V + kK2 - 1 + 1) / 2;  // V + 4 x columns, in pairs
+  const int hw = g.h * g.w;
+
+  extern __shared__ __align__(16) char stages[];
+  __shared__ const T* src[kMaxPlanes];
+
+  // the block: planes plane0 .. plane0 + t.planes - 1 and rows r0 ..
+  // r0 + t.rows - 1; staged row 0 is x row ``first``, and x's rows
+  // [h_lo, h_hi) are the image's among the staged ones
+  const int tile = blockIdx.x % t.tiles;
+  const int plane0 = int(blockIdx.x / t.tiles) * t.planes;
+  const int planes = g.n * g.heads * g.cw;  // < 2^31: checked at launch
+  const int r0 = tile * t.rows;
+  const int first = r0 - 2;
+  const int h_lo = max(0, first), h_hi = min(g.h, first + t.staged);
+  if (threadIdx.x < t.planes) {
+    // plane (n * heads + head) * Cw + cw reads x channels n*C + cw + g*Cw
+    const int plane = plane0 + threadIdx.x;
+    const T* xp = nullptr;
+    if (plane < planes) {
+      const int nh = plane / g.cw;
+      xp = x + (int64_t(nh / g.heads) * g.c + (plane - nh * g.cw)) * hw;
+    }
+    src[threadIdx.x] = xp;
+  }
+  const int stage_bytes = t.planes * t.region;
+  zero_stages(stages, kStages * stage_bytes);
+
+  // the thread: plane p of the block, row h, positions col0 .. col0 + nv - 1
+  const int items = t.rows * t.q;
+  const int p = threadIdx.x / items;
+  const int rem = threadIdx.x - p * items;
+  const int row = rem / t.q;
+  const int col0 = (rem - row * t.q) * V;
+  const int h = r0 + row;
+  const int plane = plane0 + p;
+  const bool active = p < t.planes && plane < planes && h < g.h;
+  const int nv = min(V, g.w - col0);
+  // where window row 0 (x row h - 2, staged row ``row``) starts, at window
+  // column 0 (x column col0 - 2, even)
+  const int base = p * (t.region / int(sizeof(T))) + row * t.stride + t.pl +
+                   col0 - 2;
+  __syncthreads();  // src[], the zeros
+
+  const int groups = g.c / g.cw;
+  const int64_t grp_step = int64_t(g.cw) * hw;  // channel c to c + Cw
+#pragma unroll 1
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < groups) {
+      stage_rows(stages + st * stage_bytes, t, src, st * grp_step, h_lo, h_hi,
+                 first, g.w);
+    }
+    cp_async_commit();
+  }
+  // the item's weights, once, while the first stages land, element by
+  // element (load_vec's test of each address for a wider load, before each
+  // of the 34 loads, ran the forward 2.5 times slower on the card); the
+  // outputs of both halves
+  float w3[kTaps1][V], w5[kTaps2][V];
+  T* op3 = nullptr;
+  T* op5 = nullptr;
+  if (active) {
+    const int at = h * g.w + col0;
+    const T* p1 = w1 + int64_t(plane) * g.rows1 * hw + at;
+    const T* p2 = w2 + int64_t(plane) * g.rows2 * hw + at;
+#pragma unroll
+    for (int k = 0; k < kTaps1; ++k) {
+      for (int v = 0; v < V; ++v) {
+        w3[k][v] = v < nv ? to_f32(p1[k * hw + v]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kTaps2; ++k) {
+      for (int v = 0; v < V; ++v) {
+        w5[k][v] = v < nv ? to_f32(p2[k * hw + v]) : 0.f;
+      }
+    }
+    const int nh = plane / g.cw;
+    const int n = nh / g.heads;
+    op3 = out + ((int64_t(n) * 2 * g.heads + (nh - n * g.heads)) * g.c +
+                 (plane - nh * g.cw)) * hw + at;
+    op5 = op3 + int64_t(g.heads) * g.c * hw;
+  }
+#pragma unroll 1
+  for (int grp = 0; grp < groups; ++grp) {
+    cp_async_wait<kStages - 2>();  // this group's stage has landed
+    // every thread is past the previous group's sums, so its buffer is free
+    __syncthreads();
+    const int ahead = grp + kStages - 1;
+    if (ahead < groups) {
+      stage_rows(stages + (ahead % kStages) * stage_bytes, t, src,
+                 ahead * grp_step, h_lo, h_hi, first, g.w);
+    }
+    cp_async_commit();
+    if (active) {
+      const T* buf =
+          reinterpret_cast<const T*>(stages + (grp % kStages) * stage_bytes) +
+          base;
+      float a3[V], a5[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) a3[v] = a5[v] = 0.f;
+      // window row i: the 5x5's tap row i, the 3x3's row i - 1; tap column
+      // j of position v reads window column v + j (the 3x3's j - 1)
+#pragma unroll
+      for (int i = 0; i < kK2; ++i) {
+        float xs[2 * PAIRS];
+        load_pairs<T, PAIRS>(buf + i * t.stride, xs);
+#pragma unroll
+        for (int j = 0; j < kK2; ++j) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            if (i >= 1 && i <= kK1 && j >= 1 && j <= kK1) {
+              a3[v] += w3[(i - 1) * kK1 + j - 1][v] * xs[v + j];
+            }
+            a5[v] += w5[i * kK2 + j][v] * xs[v + j];
+          }
+        }
+      }
+      // element by element, as the weights are read
+      for (int v = 0; v < V; ++v) {
+        if (v < nv) {
+          op3[grp * grp_step + v] = from_f32<T>(a3[v]);
+          op5[grp * grp_step + v] = from_f32<T>(a5[v]);
+        }
+      }
+    }
+  }
+}
 
 // The weights the K x K taps (pad P = K/2) of a dx item read, of weight row
 // ``wrow`` = (n * heads + head) * Cw + cw of w (``rows`` taps a row): tap
@@ -500,11 +661,20 @@ inline bool plan_mix_dw(const MixGeometry& g, int k, int elem, int unit,
          *threads <= unsigned(kMixDwThreads);
 }
 
-enum MixKernel { kMixDx, kMixDw };
+// The tiling of the mix's forward at ``elem``-byte elements (``unit``: x's
+// copy unit); false where the tiles do not take the geometry.
+inline bool plan_mix_fwd(const MixGeometry& g, int elem, int unit, Tiling* t,
+                         unsigned* blocks, unsigned* threads, size_t* smem) {
+  return plan_tiles(int64_t(g.n) * g.heads * g.cw, g.h, g.w, g.h, g.w,
+                    kK2 - 1, false, -2, 2, elem, kMixFwdVec,
+                    kMixFwdTargetItems, unit, t, blocks, threads, smem);
+}
 
-// The route a launch of the mix's dx or dw takes at geometry g with
-// ``elem``-byte elements: kRouteMixTiles where the tiles take it (for dw,
-// both halves'), else kRoutePointwise.
+enum MixKernel { kMixFwd, kMixDx, kMixDw };
+
+// The route a launch of the mix's forward, dx or dw takes at geometry g
+// with ``elem``-byte elements: kRouteMixTiles where the tiles take it (for
+// dw, both halves'), else kRoutePointwise.
 inline int mix_route(MixKernel kernel, const MixGeometry& g, int elem) {
   // the tiled kernels' offsets within a plane and a weight row, and their
   // plane numbers, are 32-bit
@@ -517,7 +687,9 @@ inline int mix_route(MixKernel kernel, const MixGeometry& g, int elem) {
   unsigned blocks3, blocks5, threads;
   size_t smem;
   const bool fits =
-      kernel == kMixDx
+      kernel == kMixFwd
+          ? plan_mix_fwd(g, elem, 0, &t, &blocks3, &threads, &smem)
+      : kernel == kMixDx
           ? plan_mix_dx(g, elem, 0, &t, &blocks3, &threads, &smem)
           : plan_mix_dw(g, kK1, elem, 0, &t, &blocks3, &threads, &smem) &&
                 plan_mix_dw(g, kK2, elem, 0, &t, &blocks5, &threads, &smem) &&
@@ -572,16 +744,59 @@ int launch_dw_tiles(const void* x, const void* dy, void* dw1, void* dw2,
 }
 
 template <typename T>
+int launch_fwd_tiles(const void* x, const void* w1, const void* w2, void* out,
+                     const MixGeometry& g, cudaStream_t stream) {
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_mix_fwd(g, int(sizeof(T)),
+                    copy_unit(x, int64_t(g.w) * int(sizeof(T))), &t, &blocks,
+                    &threads, &smem)) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  const auto kernel = local_agg_mix_fwd<T>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1),
+      static_cast<const T*>(w2), static_cast<T*>(out), g, t);
+  return int(cudaGetLastError());
+}
+
+// ``pointwise``: the pointwise kernel whatever the geometry, else the route
+// mix_route picks.
+template <typename T>
 int launch_fwd(const void* x, const void* w1, const void* w2, void* out,
-               const MixGeometry& g, cudaStream_t stream) {
+               const MixGeometry& g, bool pointwise, cudaStream_t stream) {
   const int64_t total = int64_t(g.n) * g.c * g.h * g.w;
   if (total == 0) return int(cudaSuccess);
+  if (!pointwise &&
+      mix_route(kMixFwd, g, int(sizeof(T))) == kRouteMixTiles) {
+    return launch_fwd_tiles<T>(x, w1, w2, out, g, stream);
+  }
   unsigned blocks;
   if (!grid_for(total, &blocks)) return int(cudaErrorInvalidConfiguration);
-  local_agg_mix_fwd<T><<<blocks, kThreads, 0, stream>>>(
+  local_agg_mix_fwd_pointwise<T><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(w2), static_cast<T*>(out), g);
   return int(cudaGetLastError());
+}
+
+int fwd(int dtype, const void* x, const void* w1, int rows1, const void* w2,
+        int rows2, void* out, int n, int c, int h, int w, int heads, int cw,
+        bool pointwise, void* stream) {
+  const MixGeometry g{n, c, h, w, heads, cw, rows1, rows2};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_fwd<float>(x, w1, w2, out, g, pointwise, st);
+    case 1:
+      return launch_fwd<__half>(x, w1, w2, out, g, pointwise, st);
+    case 2:
+      return launch_fwd<__nv_bfloat16>(x, w1, w2, out, g, pointwise, st);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 // ``pointwise``: the pointwise kernels whatever the geometry, else the route
@@ -652,24 +867,25 @@ int bwd(int dtype, const void* x, const void* w1, int rows1, const void* w2,
 
 // dtype: 0 float32, 1 float16, 2 bfloat16.  rows1 / rows2: the taps per
 // (n, head, cw) row of w1 / w2 (9 / 25, or 34 each in the merged weight).
-// Returns a cudaError_t code; 0 means the launch was accepted.
+// Returns a cudaError_t code; 0 means the launch was accepted.  Runs the
+// route mix_route picks from the geometry.
 extern "C" int local_agg_mix_fwd_launch(int dtype, const void* x,
                                         const void* w1, int rows1,
                                         const void* w2, int rows2, void* out,
                                         int n, int c, int h, int w, int heads,
                                         int cw, void* stream) {
-  const MixGeometry g{n, c, h, w, heads, cw, rows1, rows2};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_fwd<float>(x, w1, w2, out, g, st);
-    case 1:
-      return launch_fwd<__half>(x, w1, w2, out, g, st);
-    case 2:
-      return launch_fwd<__nv_bfloat16>(x, w1, w2, out, g, st);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  return fwd(dtype, x, w1, rows1, w2, rows2, out, n, c, h, w, heads, cw,
+             false, stream);
+}
+
+// The same on the pointwise route whatever the geometry, to hold the tiles
+// against it and time them beside it.
+extern "C" int local_agg_mix_fwd_pointwise_launch(
+    int dtype, const void* x, const void* w1, int rows1, const void* w2,
+    int rows2, void* out, int n, int c, int h, int w, int heads, int cw,
+    void* stream) {
+  return fwd(dtype, x, w1, rows1, w2, rows2, out, n, c, h, w, heads, cw,
+             true, stream);
 }
 
 // The backward: a null dx skips the dx kernel, null dw1 and dw2 the dw
@@ -695,8 +911,14 @@ extern "C" int local_agg_mix_bwd_pointwise_launch(
              heads, cw, true, stream);
 }
 
-// The route a dx or dw launch at this geometry runs, decided as the
-// launcher decides it: 4 (tiles) or 1 (pointwise).  dtype as above.
+// The route a forward, dx or dw launch at this geometry runs, decided as
+// the launcher decides it: 4 (tiles) or 1 (pointwise).  dtype as above.
+extern "C" int local_agg_mix_fwd_variant(int dtype, int n, int c, int h,
+                                         int w, int heads, int cw) {
+  const MixGeometry g{n, c, h, w, heads, cw, kTaps1, kTaps2};
+  return mix_route(kMixFwd, g, elem_size(dtype));
+}
+
 extern "C" int local_agg_mix_dx_variant(int dtype, int n, int c, int h, int w,
                                         int heads, int cw) {
   const MixGeometry g{n, c, h, w, heads, cw, kTaps1, kTaps2};

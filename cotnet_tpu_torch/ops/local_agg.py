@@ -47,8 +47,8 @@ tiles, ``pointwise`` beyond them).
 ``local_aggregate_mix`` / ``local_aggregate_mix_merge`` aggregate one input
 with a 3x3 and a 5x5 weight at once (``local_aggregate_mix_plain`` /
 ``local_aggregate_mix_bwd_plain`` beside the three kernels of
-``csrc/local_agg_mix.cu``, whose dx and dw routes ``mix_route`` reports:
-``tiles``, halo tiles in shared memory, or ``pointwise``);
+``csrc/local_agg_mix.cu``, whose routes ``mix_route`` reports: ``tiles``,
+halo tiles in shared memory, or ``pointwise``);
 ``local_aggregate_dilated`` gives each weight channel its own dilation
 through ``local_aggregate``.
 
@@ -384,24 +384,63 @@ def embed_gn_route(x, w_pre, w2, *, kernel_size, dilation, padding,
 
 
 def embed_gn_workspace_bytes(x, w_pre, w2, *, kernel_size, dilation, padding,
-                             groups: int = 1) -> int:
+                             groups: int = 1, pointwise: bool = False) -> int:
     """The bytes of device memory the fused embed op needs for its
-    statistics kernel's partial sums, as its launcher plans the launch: 0
-    where a block holds whole planes and takes their statistics itself (no
-    statistics launch is made)."""
+    statistics kernel's partial sums ``[N*groups, Cw, tiles, 2]`` (f32), as
+    its launcher plans the launch (``pointwise=True``: the pointwise
+    route's, whatever the geometry): 0 where a block holds whole planes and
+    takes their statistics itself (no statistics launch is made)."""
     from cotnet_tpu_torch.ops import _build
 
     fn = _build.load(_EMBED_GN_LIB_NAME).local_agg_embed_gn_workspace
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 16
+        fn.argtypes = [ctypes.c_int] * 17
         fn.restype = ctypes.c_longlong
     return fn(_DTYPE_CODES[x.dtype], *_embed_gn_geometry(
-        x, w_pre, w2, kernel_size, dilation, padding, groups))
+        x, w_pre, w2, kernel_size, dilation, padding, groups), int(pointwise))
+
+
+def embed_gn_statistics(x, w_pre, w2, b2, *, kernel_size, dilation, padding,
+                        groups: int = 1, pointwise: bool = False):
+    """The statistics pass of the fused embed op alone, as its launcher
+    makes it for these tensors (``pointwise=True``: the pointwise route's
+    pass, ``embed_gn_stats``, whatever the geometry): the float32 partial
+    sums ``[N*groups, Cw, tiles, 2]`` of w_raw and w_raw^2 over each tile's
+    pixels and taps, or None where the launch makes no statistics pass (a
+    block holds whole planes).  Summed over the tiles, any route's are one
+    plane's statistics.  For checks on the card: it counts no launch and
+    computes no output.  Tensors as ``local_aggregate_embed_gn_hopper``
+    takes them."""
+    _check_kernel_tensors("embed_gn_statistics", [x, w_pre, w2, b2],
+                          (x, w_pre, w2))
+    _check_f32("b2", b2)
+    geometry = _embed_gn_geometry(x, w_pre, w2, kernel_size, dilation,
+                                  padding, groups)
+    nbytes = embed_gn_workspace_bytes(
+        x, w_pre, w2, kernel_size=kernel_size, dilation=dilation,
+        padding=padding, groups=groups, pointwise=pointwise)
+    if nbytes == 0:
+        return None
+    n, cw = geometry[0], geometry[6]
+    partials = torch.empty(n, cw, nbytes // (8 * n * cw), 2,
+                           dtype=torch.float32, device=x.device)
+    fn = _c_function(_EMBED_GN_LIB_NAME, "local_agg_embed_gn_stats_launch",
+                     [ctypes.c_int] + [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPE_CODES[x.dtype], w_pre.data_ptr(), w2.data_ptr(),
+                 b2.data_ptr(), partials.data_ptr(), *geometry,
+                 int(pointwise), stream)
+    if err != 0:
+        raise RuntimeError(f"embed_gn statistics launch failed: cudaError "
+                           f"{err}")
+    return partials
 
 
 # the route of a forward, dx, dw or affine dw launch (and "tiles" of the
-# mix's dx or dw), by the code its library's *_variant function returns for
-# the geometry
+# mix's forward, dx or dw), by the code its library's *_variant function
+# returns for the geometry
 ROUTES = {3: "k3", 0: "general", 1: "pointwise", 4: "tiles"}
 _ROUTE_FUNCTIONS = {
     "fwd": (_LIB_NAME, "local_agg_fwd_variant"),
@@ -1071,8 +1110,10 @@ def local_aggregate_mix_bwd_plain(x, w1, w2, dy, need_dx: bool = True,
     return dx, dw1, dw2
 
 
-def _mix_fwd_kernel():
-    return _c_function(_MIX_LIB_NAME, "local_agg_mix_fwd_launch",
+def _mix_fwd_kernel(pointwise: bool = False):
+    name = ("local_agg_mix_fwd_pointwise_launch" if pointwise
+            else "local_agg_mix_fwd_launch")
+    return _c_function(_MIX_LIB_NAME, name,
                        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                         ctypes.c_void_p] + [ctypes.c_int] * 6
@@ -1098,12 +1139,13 @@ def mix_key(x, w1, w2) -> tuple:
 
 def mix_route(kernel: str, x, w1, w2=None) -> str:
     """The route (``"tiles"`` or ``"pointwise"``) that a launch of the mix's
-    ``kernel`` (``"dx"`` or ``"dw"``) takes for x ``[N, C, H, W]`` and the
-    weights as ``local_aggregate_mix_hopper`` takes them, in x's dtype, as
-    its launcher decides it from the geometry before it launches.  Reads
-    only shapes and dtype; builds the kernels' library."""
-    if kernel not in ("dx", "dw"):
-        raise ValueError(f"the mix's routed kernels are dx and dw, not "
+    ``kernel`` (``"fwd"``, ``"dx"`` or ``"dw"``) takes for x
+    ``[N, C, H, W]`` and the weights as ``local_aggregate_mix_hopper`` takes
+    them, in x's dtype, as its launcher decides it from the geometry before
+    it launches.  Reads only shapes and dtype; builds the kernels'
+    library."""
+    if kernel not in ("fwd", "dx", "dw"):
+        raise ValueError(f"the mix's routed kernels are fwd, dx and dw, not "
                          f"{kernel!r}")
     _check_mix_shapes(x, w1, w2)
     fn = _c_function(_MIX_LIB_NAME, f"local_agg_mix_{kernel}_variant",
@@ -1141,17 +1183,18 @@ def _count_mix(kernel, key):
         MIX_LAUNCHES_BY_SHAPE.get((kernel, key), 0) + 1
 
 
-def local_aggregate_mix_hopper(x, w1, w2=None):
-    """Launch ``local_agg_mix_fwd`` (``csrc/local_agg_mix.cu``): x
-    ``[N, C, H, W]``, w1 ``[N, heads, Cw, 9, H, W]``, w2
-    ``[N, heads, Cw, 25, H, W]``, or w1 the merged ``[N, heads, Cw, 34, H,
-    W]`` and w2 None; contiguous CUDA tensors of one dtype (f32/f16/bf16).
-    Returns ``[N, 2*heads*C, H, W]``, kernel-major; records no autograd
-    graph."""
+def local_aggregate_mix_hopper(x, w1, w2=None, *, pointwise: bool = False):
+    """Launch ``local_agg_mix_fwd`` (``csrc/local_agg_mix.cu``) on the route
+    ``mix_route`` names (``pointwise=True``: on the pointwise route whatever
+    the geometry, to hold the tiles against it): x ``[N, C, H, W]``, w1
+    ``[N, heads, Cw, 9, H, W]``, w2 ``[N, heads, Cw, 25, H, W]``, or w1 the
+    merged ``[N, heads, Cw, 34, H, W]`` and w2 None; contiguous CUDA tensors
+    of one dtype (f32/f16/bf16).  Returns ``[N, 2*heads*C, H, W]``,
+    kernel-major; records no autograd graph."""
     _check_mix_kernel_tensors("local_aggregate_mix_hopper", x, w1, w2)
     n, c, h, w = x.shape
     heads, cw = w1.shape[1], w1.shape[2]
-    fn = _mix_fwd_kernel()
+    fn = _mix_fwd_kernel(pointwise)
     out = torch.empty(n, 2 * heads * c, h, w, dtype=x.dtype, device=x.device)
     p1, rows1, p2, rows2 = _mix_pointers(w1, w2)
     with torch.cuda.device(x.device):

@@ -398,19 +398,24 @@ def test_embed_gn_general_geometry_matches_jax_xla(k, dil, h, w):
 
 
 # (n, h, w, C, Cp) where the Hopper kernel's tiling changes its course: a
-# plane over several row tiles (57x57: the statistics kernel runs first),
-# an odd width with Cw = C/8 = 6, whole 7x7 planes with Cp = 64, several to
-# a block.  The plain version is what the CPU runs; these hold it against
-# the JAX op at the same geometries.
+# plane over several row tiles (57x57, 56x56 N = 2, 40x40: the statistics
+# kernel runs first, in row tiles of its own; at 40x40 with Cp = 20, no
+# multiple of its 16-channel stages), an odd width with Cw = C/8 = 6, whole
+# 7x7 planes with Cp = 64, several to a block.  The plain version is what
+# the CPU runs; these hold it against the JAX op at the same geometries
+# (and with groups = 2, below).
 EMBED_TILING = {
     "57x57": (2, 57, 57, 16, 8),
+    "56x56": (2, 56, 56, 32, 16),
+    "40x40_cp20": (2, 40, 40, 16, 20),
     "13x11_cw6": (2, 13, 11, 48, 24),
     "7x7_cp64": (2, 7, 7, 128, 64),
 }
 
 
 @pytest.mark.parametrize("case,impl", [
-    ("57x57", "xla"), ("13x11_cw6", "xla"), ("13x11_cw6", "pallas"),
+    ("57x57", "xla"), ("56x56", "xla"), ("40x40_cp20", "xla"),
+    ("13x11_cw6", "xla"), ("13x11_cw6", "pallas"),
     ("7x7_cp64", "xla"), ("7x7_cp64", "pallas")])
 def test_embed_gn_tiling_geometries_match_jax(case, impl):
     """The port's plain fused op against the JAX op's XLA composition, and

@@ -745,10 +745,11 @@ EMBED_PLANES = {
 @pytest.mark.parametrize("case", sorted(EMBED_PLANES))
 def test_embed_gn_statistics_launch_only_for_split_planes_on_card(case,
                                                                   dtype):
-    """Where a block holds whole planes no ``embed_gn_stats`` launch is made
+    """Where a block holds whole planes no statistics kernel is launched
     and no workspace is asked for; where a plane spans several row tiles
-    the statistics kernel runs first.  Both on the ``k3`` route and equal
-    to the plain version."""
+    the row tiles' statistics kernel (``embed_gn_stats_rows``, not the
+    pointwise route's ``embed_gn_stats``) runs first.  Both on the ``k3``
+    route and equal to the plain version."""
     _need_cuda()
     dt = getattr(torch, dtype)
     n, c, cw, h, w, whole = EMBED_PLANES[case]
@@ -759,7 +760,9 @@ def test_embed_gn_statistics_launch_only_for_split_planes_on_card(case,
     assert (workspace == 0) == whole
     got, names = _embed_kernels(args, geo)
     assert any("embed_gn_agg<" in name for name in names), names
-    assert any("embed_gn_stats<" in name for name in names) == (not whole)
+    assert any("embed_gn_stats_rows<" in name for name in names) == (
+        not whole)
+    assert not any("embed_gn_stats<" in name for name in names), names
     _check_embed(got, args, geo, dt)
 
 
@@ -792,7 +795,128 @@ def test_embed_gn_beyond_the_tiles_takes_pointwise_on_card():
     _check_embed(got, args, geo, torch.bfloat16)
 
 
-# ---- the mix's dx and dw on halo tiles --------------------------------------
+# (N, C, Cp, Cw, H, W, K, groups), C, Cp and Cw over all groups: planes over
+# several row tiles of the aggregation, where the statistics pass runs in
+# row tiles of its own: cotnet50's 56x56 widths, 57x57 (a width no multiple
+# of its items), two groups, a Cp no multiple of its 16-channel stages, and
+# the general route at K = 5 and 7
+EMBED_STATS_SPLITS = {
+    "56x56": (2, 64, 32, 8, 56, 56, 3, 1),
+    "57x57": (2, 48, 24, 6, 57, 57, 3, 1),
+    "56x56_groups2": (2, 96, 48, 12, 56, 56, 3, 2),
+    "40x40_cp20": (2, 32, 20, 4, 40, 40, 3, 1),
+    "24x23_k5": (1, 16, 24, 4, 24, 23, 5, 1),
+    "22x25_k7": (1, 16, 8, 2, 22, 25, 7, 1),
+}
+
+
+def _stats_tensors(geometry, dt, integer, seed):
+    """CUDA x, w_pre, w2, b2, gamma, beta of an EMBED_STATS_SPLITS (or
+    EMBED_STATS_FALLBACK) geometry and its geometry arguments; ``integer``: w_pre in {0, 1, 2}, w2 in
+    {-1, 0, 1} at every fourth cp (0 elsewhere) and b2 in {-2, ..., 2}, so
+    that every w_raw and every sum of the statistics is an integer below
+    2^24, exact in f32 in any order."""
+    n, c, cp, cw, h, w, k, groups = geometry
+    gen = torch.Generator("cuda").manual_seed(seed)
+    f, cpg = cw * k * k // groups, cp // groups
+    x = torch.randn(n, c, h, w, device="cuda", generator=gen).to(dt)
+    if integer:
+        w_pre = torch.randint(0, 3, (n, cp, h, w), device="cuda",
+                              generator=gen).to(dt)
+        w2 = (torch.randint(-1, 2, (groups * f, cpg), device="cuda",
+                            generator=gen)
+              * (torch.arange(cpg, device="cuda") % 4 == 0)).to(dt)
+        b2 = torch.randint(-2, 3, (groups * f,), device="cuda",
+                           generator=gen).float()
+        assert k * k * h * w * (2 * ((cpg + 3) // 4) + 2) ** 2 < 2 ** 24
+    else:
+        w_pre = torch.randn(n, cp, h, w, device="cuda",
+                            generator=gen).relu().to(dt)
+        w2 = (torch.randn(groups * f, cpg, device="cuda", generator=gen)
+              * (2.0 / f) ** 0.5).to(dt)
+        b2 = 0.1 * torch.randn(groups * f, device="cuda", generator=gen)
+    gamma = 1.0 + 0.2 * torch.randn(groups * f, device="cuda", generator=gen)
+    beta = 0.2 * torch.randn(groups * f, device="cuda", generator=gen)
+    geo = dict(kernel_size=(k, k), dilation=(1, 1), padding=(k // 2,) * 2,
+               groups=groups)
+    return (x, w_pre, w2, b2, gamma, beta), geo
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", sorted(EMBED_STATS_SPLITS))
+def test_embed_gn_statistics_totals_match_pointwise_on_card(case, dtype):
+    """The row tiles' statistics pass against the pointwise route's on the
+    same inputs: each plane's totals of w_raw and w_raw^2 within 1e-6 of
+    the largest (f32 sums in another order), equal on integer inputs; the
+    fused op, which reads the row tiles' partial sums, runs that kernel and
+    equals its plain version."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    for integer in (False, True):
+        args, geo = _stats_tensors(EMBED_STATS_SPLITS[case], dt, integer,
+                                   seed=len(case) + 90)
+        x, w_pre, w2, b2 = args[:4]
+        assert la.embed_gn_route(x, w_pre, w2, **geo) == (
+            "k3" if geo["kernel_size"] == (3, 3) else "general")
+        tiled = la.embed_gn_statistics(x, w_pre, w2, b2, **geo)
+        ref = la.embed_gn_statistics(x, w_pre, w2, b2, **geo, pointwise=True)
+        assert tiled is not None and ref.shape[:2] == tiled.shape[:2]
+        assert la.embed_gn_workspace_bytes(x, w_pre, w2, **geo) == (
+            tiled.numel() * 4)
+        got, want = tiled.double().sum(2), ref.double().sum(2)
+        if integer:
+            assert torch.equal(got, want)
+            continue
+        for i in (0, 1):
+            assert float((got[..., i] - want[..., i]).abs().max()) <= (
+                1e-6 * float(want[..., i].abs().max()))
+        out, names = _embed_kernels(args, geo)
+        assert any("embed_gn_stats_rows<" in name for name in names), names
+        _check_embed(out, args, geo, dt)
+
+
+# (N, C, Cp, Cw, H, W, K, groups) as EMBED_STATS_SPLITS: planes over several
+# row tiles of the aggregation where one channel's w2 does not fit a block
+# of the row tiles' statistics kernel (66 bytes a cp at K = 3 in bf16, 306
+# at K = 7, over 227 KB), so that the tiled routes take the pointwise
+# route's statistics kernel and its 32-pixel partial sums
+EMBED_STATS_FALLBACK = {
+    "56x56_cp4096": (2, 64, 4096, 8, 56, 56, 3, 1),
+    "22x25_k7_cp1024": (1, 16, 1024, 2, 22, 25, 7, 1),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(EMBED_STATS_FALLBACK))
+def test_embed_gn_statistics_fallback_on_tiled_routes_on_card(case, dtype):
+    """Where the row tiles' statistics kernel cannot hold a channel's w2,
+    a tiled route runs ``embed_gn_stats`` and ``embed_gn_agg``: the
+    workspace is the 32-pixel tiles' partial sums, the same bits as the
+    pointwise route's statistics pass, and the op equals its plain
+    version."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    n, _, _, cw, h, w, k, _ = EMBED_STATS_FALLBACK[case]
+    args, geo = _stats_tensors(EMBED_STATS_FALLBACK[case], dt, False,
+                               seed=len(case) + 100)
+    x, w_pre, w2, b2 = args[:4]
+    assert la.embed_gn_route(x, w_pre, w2, **geo) == (
+        "k3" if k == 3 else "general")
+    assert la.embed_gn_workspace_bytes(x, w_pre, w2, **geo) == (
+        8 * n * cw * -(-h * w // 32))
+    tiled = la.embed_gn_statistics(x, w_pre, w2, b2, **geo)
+    ref = la.embed_gn_statistics(x, w_pre, w2, b2, **geo, pointwise=True)
+    assert torch.equal(tiled, ref)
+    out, names = _embed_kernels(args, geo)
+    assert any("embed_gn_stats<" in name for name in names), names
+    assert any("embed_gn_agg<" in name for name in names), names
+    assert not any("embed_gn_stats_rows<" in name
+                   or "embed_gn_agg_pointwise<" in name
+                   for name in names), names
+    _check_embed(out, args, geo, dt)
+
+
+# ---- the mix's forward, dx and dw on halo tiles -----------------------------
 
 # (N, C, Cw, H, W): the TILING_EDGES geometries that the mix takes (its 3x3
 # and 5x5 at dilation 1, SAME padding), and maps smaller than the 5x5 window
@@ -834,6 +958,73 @@ def _check_mix_bwd_tiles(geometry, dt, heads, merged, seed):
         _close(g, r, dt)
         if i:
             assert torch.equal(g, on_pointwise[i])
+
+
+def _check_mix_fwd_tiles(geometry, dt, heads, merged, seed):
+    """The forward on the tiles route against the plain mix at the
+    chip_smoke gates, launched twice for the same bits, and bit for bit
+    the pointwise route's (both sum each half's taps in row-major order
+    into one f32 accumulator, the padding as zeros)."""
+    n, c, cw, h, w = geometry
+    x, w1, w2, _ = _mix_on_card(seed, dt, merged, n=n, c=c, cw=cw, hi=h,
+                                wi=w, heads=heads)
+    assert la.mix_route("fwd", x, w1, w2) == "tiles"
+    la.reset_counts()
+    got = la.local_aggregate_mix_hopper(x, w1, w2)
+    again = la.local_aggregate_mix_hopper(x, w1, w2)
+    torch.cuda.synchronize()
+    assert la.MIX_LAUNCHES == {"fwd": 2, "dx": 0, "dw": 0}
+    assert la.PLAIN_MIX_CALLS == 0
+    assert torch.equal(got, again)
+    _close(got, la.local_aggregate_mix_plain(x, w1, w2), dt)
+    assert torch.equal(got, la.local_aggregate_mix_hopper(x, w1, w2,
+                                                          pointwise=True))
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("edge", sorted(MIX_EDGES))
+def test_mix_fwd_tiling_edges_match_plain_on_card(edge, dtype, heads):
+    """The mix forward's tiles at the edges of their tiling, the weights
+    separate and packed."""
+    _need_cuda()
+    for merged in (False, True):
+        _check_mix_fwd_tiles(MIX_EDGES[edge], getattr(torch, dtype), heads,
+                             merged, seed=len(edge) + heads + 30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", sorted(MIX_SMALL_MAPS))
+def test_mix_fwd_small_maps_match_plain_on_card(case, dtype):
+    """The forward at maps smaller than the 5x5 window and at C = Cw, at
+    heads 1 and 2, the weights separate and packed."""
+    _need_cuda()
+    for heads in (1, 2):
+        for merged in (False, True):
+            _check_mix_fwd_tiles(MIX_SMALL_MAPS[case], getattr(torch, dtype),
+                                 heads, merged, seed=len(case) + heads + 30)
+
+
+def test_mix_fwd_routes_on_card():
+    """The forward's tiles take cotnet50's four geometries at bs128 in
+    bf16, the weights separate and packed; a row too wide for one block
+    (2x2049: 1025 items of 2) takes the pointwise route, which gives the
+    plain version's values and the same bits twice."""
+    _need_cuda()
+    for c, hw in ((64, 56), (128, 28), (256, 14), (512, 7)):
+        x = torch.empty(128, c, hw, hw, dtype=torch.bfloat16, device="meta")
+        w1, w2, packed = (torch.empty(128, 1, c // 8, k, hw, hw,
+                                      dtype=torch.bfloat16, device="meta")
+                          for k in (9, 25, 34))
+        assert la.mix_route("fwd", x, w1, w2) == "tiles", c
+        assert la.mix_route("fwd", x, packed) == "tiles", c
+    for dt in (torch.bfloat16, torch.float32):
+        x, w1, w2, _ = _mix_on_card(91, dt, False, n=1, c=16, cw=8, hi=2,
+                                    wi=2049, heads=1)
+        assert la.mix_route("fwd", x, w1, w2) == "pointwise"
+        got = la.local_aggregate_mix_hopper(x, w1, w2)
+        assert torch.equal(got, la.local_aggregate_mix_hopper(x, w1, w2))
+        _close(got, la.local_aggregate_mix_plain(x, w1, w2), dt)
 
 
 @pytest.mark.parametrize("heads", [1, 2])

@@ -99,12 +99,13 @@ def test_mix_grads_match_jax(impl, heads):
                                    err_msg=name)
 
 
-# (N, C, Cw, H, W, heads, the JAX form): the edges of the card's dx and dw
-# tiles, where the card's checks trust the plain backward: maps smaller
-# than the 5x5 window (1x1, 2x3) and than one row tile (3x3), one weight
-# channel a group (C = Cw), 13x11 with Cw = 6 at two heads.  "pallas": the
-# JAX package's fused TPU kernels in interpret mode, which ``mix_plan``
-# takes at every one of these geometries (the XLA form otherwise).
+# (N, C, Cw, H, W, heads, the JAX form): the edges of the card's forward,
+# dx and dw tiles, where the card's checks trust the plain versions: maps
+# smaller than the 5x5 window (1x1, 2x3) and than one row tile (3x3), one
+# weight channel a group (C = Cw), 13x11 with Cw = 6 at two heads.
+# "pallas": the JAX package's fused TPU kernels in interpret mode, which
+# ``mix_plan`` takes at every one of these geometries (the XLA form
+# otherwise).
 MIX_TILE_EDGES = {
     "1x1": (2, 8, 4, 1, 1, 1, "pallas"),
     "2x3": (2, 8, 4, 2, 3, 2, "pallas"),
@@ -112,6 +113,38 @@ MIX_TILE_EDGES = {
     "c_eq_cw": (2, 4, 4, 7, 6, 1, "pallas"),
     "13x11_cw6_heads2": (2, 12, 6, 13, 11, 2, "pallas"),
 }
+
+
+@pytest.mark.parametrize("merge", [False, True])
+@pytest.mark.parametrize("edge", sorted(MIX_TILE_EDGES))
+def test_mix_matches_jax_at_the_tile_edges(edge, merge):
+    """The plain mix forward (the oracle of the card's forward tiles)
+    against the JAX mix forward at the edges of the tiles, the weights
+    separate and packed (``_mix_merge`` on both sides), f32, rtol/atol
+    1e-5."""
+    from cotnet_tpu.ops.local_agg_pallas import mix_plan
+
+    n, c, cw, h, w, heads, impl = MIX_TILE_EDGES[edge]
+    assert (mix_plan((n, h, w, c), (n, h, w, heads, 9, cw),
+                     (n, h, w, heads, 25, cw), 4) is not None) == (
+        impl == "pallas")
+    x, w1, w2 = make_mix_inputs(len(edge) + 5 * heads, n=n, c=c, cw=cw,
+                                hi=h, wi=w, heads=heads)
+    xt, w1t, w2t = _port_mix(x, w1, w2)
+    la.reset_counts()
+    if merge:
+        got = la.local_aggregate_mix_merge(xt, torch.cat([w1t, w2t], dim=3))
+        ref = jax_mix_merge(jnp.asarray(x),
+                            jnp.asarray(np.concatenate([w1, w2], axis=4)),
+                            impl=impl)
+    else:
+        got = la.local_aggregate_mix(xt, w1t, w2t)
+        ref = jax_mix(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(w2),
+                      impl=impl)
+    assert (la.PLAIN_MIX_CALLS, la.PLAIN_CALLS) == (1, 0)
+    assert got.shape == (n, 2 * heads * c, h, w)
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5, err_msg=f"against JAX {impl}")
 
 
 @pytest.mark.parametrize("merge", [False, True])
@@ -320,11 +353,12 @@ def test_mix_refuses_bad_shapes_and_impl():
 
 
 def test_mix_route_refuses_other_kernels_and_bad_shapes():
-    """``mix_route`` routes the mix's dx and dw only, and checks the
-    weights' shapes before it asks the kernels' library."""
+    """``mix_route`` routes the mix's own kernels only (the forward, dx and
+    dw), and checks the weights' shapes before it asks the kernels'
+    library."""
     x, w1, w2 = _port_mix(*make_mix_inputs(0))
-    with pytest.raises(ValueError, match="dx and dw"):
-        la.mix_route("fwd", x, w1, w2)
+    with pytest.raises(ValueError, match="fwd, dx and dw"):
+        la.mix_route("dw_affine", x, w1, w2)
     with pytest.raises(ValueError, match="weights"):
         la.mix_route("dx", x, w2, w1)
 

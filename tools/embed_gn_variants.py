@@ -13,9 +13,10 @@ the op at the path-B geometries of
 ``chip_smoke.embed_gn_cases()`` in turns: the tree's kernels, each
 variant, the tree's again, all in one process on one card.  Per case and
 run it prints the kernel-against-plain check, the op's cold-L2 time
-(``chip_smoke.device_ms``) and its statistics and aggregation kernels'
-device time (``chip_smoke.kernel_ms_by_name``).  The variants' sources go
-to ``chip_tree/variants/``, which git ignores.
+(``chip_smoke.device_ms``), its statistics and aggregation kernels'
+device time (``chip_smoke.kernel_ms_by_name``) and, where a statistics
+pass runs, that pass alone (``ops.local_agg.embed_gn_statistics``).  The
+variants' sources go to ``chip_tree/variants/``, which git ignores.
 """
 
 from __future__ import annotations
@@ -80,12 +81,20 @@ def time_cases(label: str):
                        > 4e-3 * scale + 8e-3 * ref.float().abs()).sum())
             ms = chip_smoke.device_ms(run)
             split = chip_smoke.kernel_ms_by_name(
-                run, (chip_smoke.EMBED_GN_STATS,) + chip_smoke.EMBED_GN_AGG)
+                run, chip_smoke.EMBED_GN_STATS + chip_smoke.EMBED_GN_AGG)
+            geo = {key: (v, v) if key != "groups" else v
+                   for key, v in kw.items()}
+            alone = ""
+            if la.embed_gn_workspace_bytes(*args[:3], **geo):
+                alone = (", statistics pass alone " + chip_smoke.fmt_ms(
+                    chip_smoke.device_ms(lambda: la.embed_gn_statistics(
+                        *args[:4], **geo))))
+        stats = [split[name] for name in chip_smoke.EMBED_GN_STATS]
         print(f"{label} {geometry}: {bad} elements off, {ms:.4f} ms, stats "
-              f"{chip_smoke.fmt_ms(split[chip_smoke.EMBED_GN_STATS])}, "
+              f"{chip_smoke.fmt_ms(None if None in stats else sum(stats))}, "
               f"aggregation "
-              f"{chip_smoke.fmt_ms(split[chip_smoke.EMBED_GN_AGG[0]])}",
-              flush=True)
+              f"{chip_smoke.fmt_ms(split[chip_smoke.EMBED_GN_AGG[0]])}"
+              f"{alone}", flush=True)
 
 
 def main() -> int:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the mix op's backward kernels on one CUDA card.
+"""Time variants of the mix op's kernels on one CUDA card.
 
     python3 tools/mix_variants.py 'NAME|FILE|OLD|NEW' ...
 
@@ -10,14 +10,14 @@ text OLD replaced by NEW; the edits that share a NAME make one variant
 file's first line, for a ``#define``).  The sources are prepared, and
 every edit checked, before the card is asked for.  The script builds every
 variant's ``local_agg_mix`` library with the port's nvcc flags and prints
-what ptxas says of its dx and dw kernels (registers, spills), then times
-the mix's dx and dw at cotnet50's four geometries (bf16, bs128, the
+what ptxas says of its kernels (registers, spills), then times the mix's
+forward, dx and dw at cotnet50's four geometries (bf16, bs128, the
 weights separate: ``chip_smoke.mix_cases()``'s main cases) in turns: the
 tree's kernels, each variant, the tree's again, all in one process on one
 card, with the pointwise route (the first kernels) timed once beside them.
-Per case and run it checks the kernel against the pointwise route (dw bit
-for bit, dx at ``chip_smoke.check_close``'s gate) and prints the cold-L2
-time (``chip_smoke.device_ms``).
+Per case and run it checks the kernel against the pointwise route (the
+forward and dw bit for bit, dx at ``chip_smoke.check_close``'s gate) and
+prints the cold-L2 time (``chip_smoke.device_ms``).
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def report(label: str, ptxas: str):
     for line in ptxas.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line
-        elif fn and "_mix_d" in fn and ("spill" in line or "Used" in line):
+        elif fn and "_mix_" in fn and ("spill" in line or "Used" in line):
             print(f"{label} ptxas {fn}: "
                   f"{line.replace('ptxas info    :', '').strip()}",
                   flush=True)
@@ -82,19 +82,21 @@ def time_cases(label: str, pointwise: bool = False):
              if cs.get("main") and not cs["merged"]]
     for i, cs in enumerate(cases):
         x, w1, w2, dy = chip_smoke.mix_tensors(cs, seed=60 + i)
-        for kernel in ("dx", "dw"):
+        for kernel in ("fwd", "dx", "dw"):
             need = dict(need_dx=kernel == "dx", need_dw=kernel == "dw")
-            pick = slice(0, 1) if kernel == "dx" else slice(1, 3)
+            pick = slice(0, 1) if kernel != "dw" else slice(1, 3)
 
-            def run():
+            def run(pointwise=pointwise):
+                if kernel == "fwd":
+                    return (la.local_aggregate_mix_hopper(
+                        x, w1, w2, pointwise=pointwise),)
                 return la.local_aggregate_mix_bwd_hopper(
                     x, w1, w2, dy, pointwise=pointwise, **need)
 
             with torch.no_grad():
                 got = run()[pick]
-                ref = la.local_aggregate_mix_bwd_hopper(
-                    x, w1, w2, dy, pointwise=True, **need)[pick]
-                if kernel == "dw":
+                ref = run(pointwise=True)[pick]
+                if kernel != "dx":
                     same = all(torch.equal(a, b) for a, b in zip(got, ref))
                     check = f"same bits as pointwise: {same}"
                 else:
