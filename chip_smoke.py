@@ -28,7 +28,22 @@ printing the last line:
    SGD with masked weight decay, cosine warm-up, EMA), 2 warm-up and 8
    timed steps, with its images/s, peak memory, launches of each kernel by
    input shape, and one step under torch.profiler.
-4. The switches and CoTNeXt.  For cotnet50 and for cotnext50_2x48d, in f32
+4. The training stack: every optimizer name of the port's
+   ``create_optimizer`` (adahessian apart) and ``lookahead_adamp``, each
+   from the same start, through cotnet50's bf16 ``make_train_step`` at
+   224x224 bs128 under the recipe's model, mixup and EMA settings, from
+   epoch 150 on (past the warm-up): 3 steps each, 7 for Lookahead (its
+   sync fires at the sixth); ``adamw`` with AGC 0.01 and tanh, ``lamb``
+   with norm clipping 1.0 and step decay, ``adafactor`` with multistep
+   decay and LR noise, ``lookahead_adamp`` with value clipping 0.01 and
+   the plateau schedule scaled by a ``PlateauController``.  Each with 16
+   forward, dx and dw launches a step on ``k3``, no plain call, finite
+   losses and gradient norms, the schedule's LRs, the parameters moved,
+   its images/s, peak memory and device kernels a step (torch.profiler)
+   beside sgd's.  Then one f32 update of each optimizer and AdaHessian on
+   the card against the CPU from one cotnet50 backward (rtol 1e-5), and
+   ``make_train_step(second_order=True)`` refusing cotnet50.
+5. The switches and CoTNeXt.  For cotnet50 and for cotnext50_2x48d, in f32
    at bs16 with TF32 off: the logits of the fused-embed eval
    (``mega_fuse=True``) against the unfused ones of the same weights; one
    loss and backward of the folded model (``gn_fold_train=True``) with
@@ -39,7 +54,7 @@ printing the last line:
    and one step under torch.profiler: path A, the folded train step, and
    path B, the fused-embed eval, for both models; for cotnext50_2x48d its
    default eval and train steps as well.
-5. SE-CoTNetD: se_cotnetd_152 with seeded random weights, calibrated
+6. SE-CoTNetD: se_cotnetd_152 with seeded random weights, calibrated
    as in phase 2.  In f32 at bs4 and 256x256 with TF32 off: logits
    through the kernels against the plain path, 21 forward launches and no
    plain call; every dx and dw launch of one backward held against the
@@ -50,7 +65,7 @@ printing the last line:
    drop path 0.15, LR 0.2, the rest as CoTNet-50's), each with images/s,
    peak memory, launches by kernel and input shape (21 a step, at the
    pre-pool 32x32 and 16x16 maps too), no plain call and a profile.
-6. The op entry points: the mix op's main path, one autograd call of
+7. The op entry points: the mix op's main path, one autograd call of
    ``local_aggregate_mix`` (and of ``_merge`` with the packed weight) at
    cotnet50's four geometries in bf16 at bs128, each one launch of each
    mix kernel, the forward, dx and dw on their ``tiles`` route, and no
@@ -58,7 +73,7 @@ printing the last line:
    ``local_aggregate_dilated`` with dilations 1 and 2 in f32, forward and
    gradients against the plain path, one forward, dx and dw launch per
    distinct dilation.
-7. Kernels: each Hopper kernel against its plain PyTorch version on the
+8. Kernels: each Hopper kernel against its plain PyTorch version on the
    card.  The forward at the four aggregation geometries of cotnet50
    (N=128), the four per-group ones of cotnext50_2x48d (N=256) and those
    of se_cotnetd_152 (N=128 and 64), bf16, with and without the GroupNorm
@@ -197,6 +212,29 @@ REPLACES_EMBED_GN = "cotnet_tpu/ops/local_agg_pallas.py:1985 _fused_embed_kernel
 EMBED_GN_STATS = ("embed_gn_stats_rows", "embed_gn_stats")
 EMBED_GN_AGG = ("embed_gn_agg", "embed_gn_agg_pointwise")
 IMAGENET_TRAIN_IMAGES = 1281167
+# phase 4, the training stack: every optimizer name of the port's
+# create_optimizer but adahessian (whose second-order step refuses a model
+# with the op), and the Lookahead form of one, each from the same start;
+# four carry the stack's other pieces (clipping, schedules, LR noise, the
+# plateau scale)
+STACK_OPTIMIZERS = ("sgd", "nesterov", "momentum", "adam", "adamw", "nadam",
+                    "radam", "adamp", "sgdp", "adadelta", "rmsprop",
+                    "rmsproptf", "rmsprop_tf", "novograd", "nvnovograd",
+                    "adafactor", "lamb", "lars", "lookahead_adamp")
+STACK_SOLVERS = {
+    "adamw": dict(clip_mode="agc", clip_grad=0.01, sched="tanh"),
+    "lamb": dict(clip_mode="norm", clip_grad=1.0, sched="step",
+                 decay_epochs=100),
+    "adafactor": dict(sched="multistep", decay_milestones=[100, 200],
+                      lr_noise=0.4),
+    "lookahead_adamp": dict(clip_mode="value", clip_grad=0.01,
+                            sched="plateau"),
+}
+# the recipe's LR (0.25) is SGD's: the optimizers that normalize their
+# update take 1e-3, Adadelta its customary 1.0
+SGD_LIKE = ("sgd", "nesterov", "momentum", "sgdp", "lars")
+# the phase's first step: past the warm-up, inside the LR noise's window
+STACK_EPOCH = 150
 # the kernels a main path of each kind must launch once per CoT layer a
 # step (16 in cotnet50 and cotnext50_2x48d, 21 in se_cotnetd_152); every
 # other count, the plain versions' and the mix kernels' included, must be 0
@@ -1125,7 +1163,7 @@ def make_batch(n: int = BATCH, size: int = IMAGE) -> dict:
 
 def model_phase(la, paths: PathCounts) -> dict:
     """Phases 2 and 3, on cotnet50; records the two main paths' launches
-    in ``paths``.  Returns the calibrated f32 state_dict, for phase 4."""
+    in ``paths``.  Returns the calibrated f32 state_dict, for phase 5."""
     from cotnet_tpu_torch.models import create_model
     from cotnet_tpu_torch.train.step import make_eval_step
 
@@ -1463,6 +1501,187 @@ def train_main_path(la, batch, paths: PathCounts):
     profile_step(lambda: step(state, batch, gen), "bf16 train step")
 
 
+def stack_solver(name: str) -> dict:
+    """Phase 4's solver config for an optimizer name: the CoTNet-50
+    recipe's, with the name's LR and ``STACK_SOLVERS``' pieces."""
+    lr = 1.0 if name == "adadelta" else (
+        RECIPE["solver"]["lr"] if name in SGD_LIKE else 1e-3)
+    return dict(RECIPE["solver"], opt=name, lr=lr,
+                **STACK_SOLVERS.get(name, {}))
+
+
+def train_stack_phase(la, paths: PathCounts):
+    """Phase 4: every optimizer name through cotnet50's bf16 train step at
+    224x224 bs128 under the recipe's model, mixup and EMA settings, from
+    the same start; then one f32 update of each optimizer on the card
+    against the CPU, and the second-order step's refusal of the op."""
+    from cotnet_tpu_torch.data.mixup import Mixup
+    from cotnet_tpu_torch.models import create_model
+    from cotnet_tpu_torch.train.loss import create_loss_fn
+    from cotnet_tpu_torch.train.optim import create_optimizer
+    from cotnet_tpu_torch.train.schedule import (PlateauController,
+                                                 create_scheduler)
+    from cotnet_tpu_torch.train.state import TrainState, float_state
+    from cotnet_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    model = create_model("cotnet50", device="cuda", dtype=torch.bfloat16,
+                         seed=0, **RECIPE["model"])
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = make_batch()
+    images = {"image": batch["image"], "label": batch["label"]}
+    spe = IMAGENET_TRAIN_IMAGES // BATCH
+    loss_fn, _ = create_loss_fn(RECIPE["loss"], mixup_active=True)
+    table = []
+    for name in STACK_OPTIMIZERS:
+        model.load_state_dict(start)
+        cfg = stack_solver(name)
+        schedule_fn, _ = create_scheduler(cfg, spe)
+        optimizer = create_optimizer(cfg, model.parameters())
+        step = make_train_step(model, optimizer, schedule_fn, loss_fn,
+                               ema_decay=RECIPE["ema_decay"],
+                               mixup_fn=Mixup(**RECIPE["mixup"]))
+        state = TrainState.create(model, optimizer, ema=True)
+        state.step = first = STACK_EPOCH * spe
+        if cfg["sched"] == "plateau":
+            # an epoch's top-1 below the one before, patience 0
+            plateau = PlateauController(patience=0)
+            plateau.update(0.5)
+            state.lr_scale = plateau.update(0.4)
+        steps = 7 if name.startswith("lookahead") else 3
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        la.reset_counts()
+        times, metrics = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, images, gen)
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.perf_counter() - t1)
+            metrics.append(m)
+        peak = torch.cuda.max_memory_allocated()
+        # 16 forward, dx and dw launches a step on k3, no plain call
+        check_path_launches(paths.record(la, f"cotnet50 train {name}", steps),
+                            "train", "cotnet50", steps)
+        losses = [float(m["loss"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        lrs = [m["lr"] for m in metrics]
+        want = [float(schedule_fn(first + i)) * state.lr_scale
+                for i in range(steps)]
+        if not all(v == v and abs(v) < float("inf") for v in losses + norms):
+            raise AssertionError(f"{name}: losses {losses}, grad norms "
+                                 f"{norms}")
+        if lrs != want or optimizer.param_groups[0]["lr"] != want[-1]:
+            raise AssertionError(f"{name}: LRs {lrs}, the schedule's {want}")
+        if name.startswith("lookahead") and optimizer.count != steps:
+            raise AssertionError(f"{name}: {optimizer.count} steps counted")
+        # every bn3 scale (it starts at zero, so any update shows) and a
+        # quarter of the weights: a small update of a weight rounds away in
+        # f32 (RAdam's first steps are momentum SGD at its LR of 1e-3)
+        live = float_state(model)
+        for kind, share in (("bn3.weight", 1.0), ("weight", 0.25)):
+            keys = [k for k in live if k.endswith(kind)]
+            moved = sum(not torch.equal(live[k], start[k]) for k in keys)
+            if moved < share * len(keys):
+                raise AssertionError(f"{name}: only {moved} of {len(keys)} "
+                                     f"{kind} tensors moved")
+        if any(not torch.isfinite(v).all() for v in live.values()):
+            raise AssertionError(f"{name}: a parameter is not finite")
+        median = statistics.median(times)
+        kernels, busy_ms = device_kernels(lambda: step(state, images, gen))
+        table.append((name, BATCH / median, peak / 2 ** 30, kernels))
+        log(f"bf16 train cotnet50 {IMAGE}x{IMAGE} bs{BATCH}, {name} "
+            f"({', '.join(f'{k} {v}' for k, v in STACK_SOLVERS.get(name, {}).items()) or cfg['sched']}"
+            f", LR scale {state.lr_scale}): {BATCH / median:.1f} img/s "
+            f"(median of {steps - 1} steps, {median * 1e3:.1f} ms a step); "
+            f"peak memory {peak / 2 ** 30:.2f} GiB; loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, grad norm {norms[0]:.3f} -> {norms[-1]:.3f}, "
+            f"LR {lrs[0]:.6g} -> {lrs[-1]:.6g} (the schedule's); per step 16 "
+            f"launches each of fwd, dx, dw, 0 plain calls; one more step: "
+            f"{kernels} device kernels busy {busy_ms:.3f} ms (torch.profiler); "
+            f"done at {time.perf_counter() - t0:.1f} s")
+        del optimizer, step, state
+    base = table[0]
+    log(f"train stack on {nvidia_smi()}: optimizer, img/s, peak GiB, device "
+        "kernels a step (sgd's in brackets): " + "; ".join(
+            f"{n} {ips:.1f} ({base[1]:.1f}), {gib:.2f} ({base[2]:.2f}), "
+            f"{k} ({base[3]})" for n, ips, gib, k in table))
+    del model
+    torch.cuda.empty_cache()
+    optimizers_card_against_cpu()
+    log(f"train-stack phase: {time.perf_counter() - t0:.1f} s")
+
+
+def optimizers_card_against_cpu(rtol: float = 1e-5):
+    """One f32 update of each optimizer (and AdaHessian's, given a Hessian
+    diagonal) on the card against the same optimizer on the CPU, from the
+    same parameters and gradients of one cotnet50 backward; and
+    ``make_train_step(second_order=True)`` refusing cotnet50.  The same
+    function in other rounding: each tensor within ``rtol`` of the CPU's
+    value and of its largest update."""
+    from cotnet_tpu_torch.models import create_model
+    from cotnet_tpu_torch.train.loss import cross_entropy
+    from cotnet_tpu_torch.train.optim import create_optimizer
+    from cotnet_tpu_torch.train.step import make_train_step
+
+    model = create_model("cotnet50", device="cuda", seed=0)
+    x = images_f32(8)
+    labels = torch.arange(8, device="cuda") * 97 % 1000
+    with tf32_off():
+        train_loss(model, x, labels).backward()
+    names = [n for n, p in model.named_parameters()]
+    start = [p.detach().clone() for p in model.parameters()]
+    grads = [p.grad.clone() for p in model.parameters()]
+    worst = {}
+    for name in STACK_OPTIMIZERS + ("adahessian",):
+        cfg = stack_solver(name)
+        out = []
+        for device in ("cuda", "cpu"):
+            params = [p.to(device, copy=True).requires_grad_()
+                      for p in start]
+            # copies: an update may write into its gradients (SGD's
+            # Nesterov term, the clipping)
+            for p, g in zip(params, grads):
+                p.grad = g.to(device, copy=True)
+            optimizer = create_optimizer(cfg, params)
+            for group in optimizer.param_groups:
+                group["lr"] = cfg["lr"]
+            extra = {"hessian_diag": [g.to(device, copy=True)
+                                      for g in grads]} \
+                if name == "adahessian" else {}
+            optimizer.step(**extra)
+            out.append([p.detach().cpu() for p in params])
+        ratio = 0.0
+        for n, got, ref, s in zip(names, *out, start):
+            moved = (ref - s.cpu()).abs().max()
+            bound = rtol * (ref.abs() + moved)
+            ratio = max(ratio, float(((got - ref).abs() / bound.clamp_min(
+                1e-30)).max()))
+            if not (got - ref).abs().le(bound).all():
+                raise AssertionError(f"{name}: {n} on the card against the "
+                                     "CPU beyond rtol 1e-5")
+        worst[name] = ratio
+    log("f32 update of each optimizer, card against CPU (largest |err| over "
+        f"rtol x (|ref| + the tensor's largest update), limit 1): "
+        + ", ".join(f"{n} {r:.3g}" for n, r in worst.items()))
+    optimizer = create_optimizer(dict(opt="adahessian"), model.parameters())
+    try:
+        make_train_step(model, optimizer, lambda s: 0.1, cross_entropy,
+                        second_order=True)
+    except ValueError as err:
+        if "aggregation" not in str(err):
+            raise
+        log(f"make_train_step(second_order=True) on cotnet50 refuses: {err}")
+    else:
+        raise AssertionError("the second-order step took a model with the "
+                             "aggregation op")
+    del model
+    torch.cuda.empty_cache()
+
+
 def affine_backward_launches_match_plain(la, model, x, labels) -> tuple:
     """One f32 loss and backward of a folded model through the kernels,
     with every affine backward launch held, on the model's own x, w, s, b
@@ -1515,7 +1734,7 @@ def affine_backward_launches_match_plain(la, model, x, labels) -> tuple:
 
 
 def switch_checks_f32(la, model_name: str, state=None):
-    """Phase 4's f32 checks for one model, at bs16 with TF32 off: the
+    """Phase 5's f32 checks for one model, at bs16 with TF32 off: the
     fused-embed eval against the unfused one, and the folded model's
     backward and five train steps.  ``state`` is a calibrated f32
     state_dict; without one the model is calibrated here."""
@@ -1646,7 +1865,7 @@ def run_main_path(la, paths: PathCounts, model_name: str, kind: str,
 
 
 def switches_phase(la, paths: PathCounts, cotnet50_state):
-    """Phase 4: the two switches on cotnet50, and cotnext50_2x48d with and
+    """Phase 5: the two switches on cotnet50, and cotnext50_2x48d with and
     without them."""
     switch_checks_f32(la, "cotnet50", cotnet50_state)
     switch_checks_f32(la, "cotnext50_2x48d")
@@ -1661,7 +1880,7 @@ def switches_phase(la, paths: PathCounts, cotnet50_state):
 
 
 def hybrid_phase(la, paths: PathCounts):
-    """Phase 5: se_cotnetd_152.  f32 at bs4 and 256x256, TF32 off: logits
+    """Phase 6: se_cotnetd_152.  f32 at bs4 and 256x256, TF32 off: logits
     through the kernels against the plain path, every backward launch
     inside the model against the plain backward, five steps that lower the
     loss; then its bf16 main paths, the eval step at 256 bs128 and the
@@ -1961,6 +2180,24 @@ def profile_step(fn, label: str, top: int = 12):
             f"{name[:100]}")
 
 
+def device_kernels(fn) -> tuple:
+    """(device kernels, their busy ms) of one call of ``fn`` under
+    torch.profiler, counted from its raw device events: the same kernels
+    ``profile_step`` counts, without building its per-name table, which
+    takes seconds for a train step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler recorded no device event")
+    return len(events), sum(e.duration_ns() for e in events) / 1e6
+
+
 def per_step_summary(entries, path: str):
     """Each case a main path launched, at its launches per step there; and
     by kernel, the ms a step it loses to its bound, launches x (ms - bound),
@@ -2050,6 +2287,8 @@ def main() -> int:
 
     paths = PathCounts()
     state = model_phase(la, paths)
+    torch.cuda.empty_cache()
+    train_stack_phase(la, paths)
     switches_phase(la, paths, state)
     del state
     torch.cuda.empty_cache()

@@ -7,8 +7,10 @@ the mixup/cutmix switch and the box stay device tensors.  ``Mixup.sample``
 draws them from an explicit ``torch.Generator``; ``Mixup.apply`` is the
 deterministic rest, so the two can be tested apart.
 
-Modes: ``'batch'`` (one lam for the whole batch) and ``'elem'`` (one per
-sample); both mix with the flipped batch.  The reference's semantics: mixup
+Modes: ``'batch'`` (one lam for the whole batch), and ``'elem'`` and
+``'pair'`` (one per sample; in the JAX package ``'pair'`` is exactly
+``'elem'``, ``cotnet_tpu/data/mixup.py:92``); all mix with the flipped
+batch.  The reference's semantics: mixup
 OR cutmix per draw via ``switch_prob``, lam from Beta(alpha, alpha), the
 cutmix box per rand_bbox (mixup.py:30-55), and soft targets
 ``lam * y + (1 - lam) * y_flipped`` with label smoothing (mixup.py:17-28).
@@ -48,18 +50,20 @@ class Mixup:
     targets).
 
     Args mirror the reference Mixup (mixup.py:90-121): mixup_alpha,
-    cutmix_alpha, prob, switch_prob, mode, correct_lam, label_smoothing,
-    num_classes.
+    cutmix_alpha, cutmix_minmax, prob, switch_prob, mode, correct_lam,
+    label_smoothing, num_classes.  ``cutmix_minmax`` is stored so that a
+    config carrying it is accepted; neither this package nor the JAX one
+    reads it (the box follows lam).
     """
 
-    def __init__(self, mixup_alpha=1.0, cutmix_alpha=0.0, prob=1.0,
-                 switch_prob=0.5, mode="batch", correct_lam=True,
+    def __init__(self, mixup_alpha=1.0, cutmix_alpha=0.0, cutmix_minmax=None,
+                 prob=1.0, switch_prob=0.5, mode="batch", correct_lam=True,
                  label_smoothing=0.1, num_classes=1000):
-        if mode not in ("batch", "elem"):
-            raise NotImplementedError(f"mixup mode {mode!r} is not ported; "
-                                      "'batch' and 'elem' are")
+        if mode not in ("batch", "elem", "pair"):
+            raise ValueError(f"unknown mixup mode {mode!r}")
         self.mixup_alpha = mixup_alpha
         self.cutmix_alpha = cutmix_alpha
+        self.cutmix_minmax = cutmix_minmax
         self.mix_prob = prob
         self.switch_prob = switch_prob
         self.mode = mode
@@ -70,9 +74,10 @@ class Mixup:
     def sample(self, n: int, h: int, w: int, device,
                generator: Optional[torch.Generator] = None):
         """Draw ``(lam, use_cutmix, box)``: lam f32 and use_cutmix bool of
-        shape ``[n]`` in mode 'elem' and ``[]`` in mode 'batch', box the int
+        shape ``[n]`` in modes 'elem' and 'pair' and ``[]`` in mode 'batch',
+        box the int
         tensors (yl, yh, xl, xh) of the same shape."""
-        shape = (n,) if self.mode == "elem" else ()
+        shape = () if self.mode == "batch" else (n,)
 
         def rand():
             return torch.rand(shape, generator=generator, device=device)

@@ -1,9 +1,9 @@
 """Training losses, counterpart of ``cotnet_tpu/train/loss.py`` (reference
 loss/cross_entropy.py, loss/jsd.py).
 
-All take logits ``[N, K]`` and either int labels ``[N]`` or soft targets
-``[N, K]``, and return a scalar mean loss in f32.  Not ported yet: the two
-asymmetric losses.
+All take logits ``[N, K]`` and either int labels ``[N]``, soft targets
+``[N, K]`` or (the multi-label asymmetric loss) 0/1 targets ``[N, K]``, and
+return a scalar loss in f32.
 """
 
 from __future__ import annotations
@@ -51,6 +51,40 @@ def jsd_cross_entropy(logits_splits, labels, num_splits: int = 3,
     kl = sum((p * (p.clamp(1e-7, 1.0).log() - logm)).sum(-1)
              for p in probs) / len(probs)
     return ce + alpha * kl.mean()
+
+
+def asymmetric_loss_multilabel(logits, target, gamma_neg: float = 4.0,
+                               gamma_pos: float = 1.0, clip: float = 0.05,
+                               eps: float = 1e-8):
+    """ASL for multi-label targets (reference asymmetric_loss.py:5-52):
+    the negatives' probability shifted by ``clip``, each term weighted by
+    ``(1 - pt)^gamma``; the sum over the batch, as the reference returns."""
+    p = torch.sigmoid(logits.float())
+    target = target.float()
+    pn = (1.0 - p + clip).clamp(max=1.0) if clip else 1.0 - p
+    loss = (target * p.clamp(min=eps).log()
+            + (1.0 - target) * pn.clamp(min=eps).log())
+    pt = p * target + pn * (1.0 - target)
+    gamma = gamma_pos * target + gamma_neg * (1.0 - target)
+    return -(loss * (1.0 - pt).pow(gamma)).sum()
+
+
+def asymmetric_loss_single_label(logits, labels, gamma_neg: float = 4.0,
+                                 gamma_pos: float = 0.0,
+                                 smoothing: float = 0.1, eps: float = 0.1):
+    """ASL for single-label targets (reference asymmetric_loss.py:55-97):
+    focal weights ``(1 - pt)^gamma`` on the (``eps``-smoothed) one-hot
+    cross-entropy; ``smoothing`` is accepted and unused, as in the JAX
+    package."""
+    logp = _log_softmax(logits)
+    k = logp.shape[-1]
+    onehot = F.one_hot(labels, k).float()
+    if eps > 0:
+        onehot = onehot * (1 - eps) + eps / k
+    p = logp.exp()
+    pt = p * onehot + (1.0 - p) * (1.0 - onehot)
+    gamma = gamma_pos * onehot + gamma_neg * (1.0 - onehot)
+    return (-onehot * logp * (1.0 - pt).pow(gamma)).sum(-1).mean()
 
 
 def create_loss_fn(cfg_loss: dict, mixup_active: bool = False):

@@ -8,13 +8,16 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from cotnet_tpu_torch.models.cotnet import CotLayer
 from cotnet_tpu_torch.nn.drop import set_generator
+from cotnet_tpu_torch.train.optim import global_norm
 from cotnet_tpu_torch.train.state import TrainState, ema_update, float_state
 
 
 def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
                     ema_decay: float = 0.0,
-                    mixup_fn: Optional[Callable] = None) -> Callable:
+                    mixup_fn: Optional[Callable] = None,
+                    second_order: bool = False) -> Callable:
     """Build the train step: mixup, forward, loss, backward, the optimizer's
     update and the EMA.
 
@@ -31,11 +34,28 @@ def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
 
     The model computes in its own ``dtype`` with f32 parameters cast at use
     (as its eval forward does), so gradients and the update are f32;
-    ``torch.autocast`` is not used.  Not ported: the ``second_order`` branch
-    (AdaHessian's Hessian probe).
+    ``torch.autocast`` is not used.
+
+    ``second_order`` adds AdaHessian's Hutchinson probe (the reference's
+    ``create_graph=True`` backward, train.py:249): Rademacher vectors z
+    drawn from ``generator``, ``Hz`` by a second backward through the
+    gradients, and ``hessian_diag = z * Hz`` passed to ``optimizer.step``.
+    It needs a twice-differentiable model: the CoT aggregation's backward
+    is not (nor is the JAX package's, whose ``jax.jvp`` of ``jax.grad``
+    raises through ``local_aggregate``), so a model holding a ``CotLayer``
+    raises ``ValueError`` here.  An optimizer with ``schedule_offset`` (1
+    for AdaHessian) takes the schedule's rate that many steps ahead, as the
+    JAX package's does; the ``lr`` metric stays ``schedule_fn(step)``.
     """
-    params = [p for p in model.parameters() if p.requires_grad]
+    if second_order and any(isinstance(m, CotLayer) for m in model.modules()):
+        raise ValueError(
+            "make_train_step(second_order=True): the model holds the CoT "
+            "aggregation op (local_aggregate, in CotLayer), whose backward "
+            "is not twice differentiable; the JAX package cannot take this "
+            "step either")
+    params = [p for g in optimizer.param_groups for p in g["params"]]
     live = list(float_state(model).items())
+    offset = getattr(optimizer, "schedule_offset", 0)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
@@ -46,15 +66,21 @@ def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
         set_generator(model, generator)
 
         lr = float(schedule_fn(state.step)) * state.lr_scale
+        step_lr = lr if not offset else (
+            float(schedule_fn(state.step + offset)) * state.lr_scale)
         for group in optimizer.param_groups:
-            group["lr"] = lr
+            group["lr"] = step_lr
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model(images), labels)
-        loss.backward()
+        if second_order:
+            extra = {"hessian_diag": hessian_diagonal(
+                loss, params, rademacher_probes(params, generator))}
+        else:
+            loss.backward()
+            extra = {}
         grads = [p.grad for p in params if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
-        optimizer.step()
+        grad_norm = global_norm(grads)
+        optimizer.step(**extra)
 
         if ema_decay and state.ema is not None:
             ema_update([state.ema[k] for k, _ in live],
@@ -64,6 +90,26 @@ def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
                        "grad_norm": grad_norm}
 
     return train_step
+
+
+def rademacher_probes(params, generator: Optional[torch.Generator] = None):
+    """One Rademacher vector (+-1 with equal odds) per parameter, drawn from
+    ``generator``."""
+    return [torch.randint(0, 2, p.shape, generator=generator,
+                          device=p.device).to(p.dtype) * 2 - 1
+            for p in params]
+
+
+def hessian_diagonal(loss, params, probes):
+    """Hutchinson's estimate of the Hessian diagonal, ``z * Hz`` for each
+    probe z: the gradients by a backward that records its own graph, then
+    ``Hz`` by a backward of them against the probes.  Sets each
+    parameter's ``.grad`` to its gradient."""
+    grads = torch.autograd.grad(loss, params, create_graph=True)
+    hz = torch.autograd.grad(grads, params, grad_outputs=probes)
+    for p, g in zip(params, grads):
+        p.grad = g.detach()
+    return torch._foreach_mul(probes, hz)
 
 
 def make_eval_step(model, tta_hflip: bool = False,
