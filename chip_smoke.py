@@ -73,7 +73,27 @@ printing the last line:
    ``local_aggregate_dilated`` with dilations 1 and 2 in f32, forward and
    gradients against the plain path, one forward, dx and dw launch per
    distinct dilation.
-8. Kernels: each Hopper kernel against its plain PyTorch version on the
+8. The data pipeline (``cotnet_tpu_torch.data``): the host's CPUs, its
+   Pillow and the g++ that builds the native batch ops, which must load.
+   Seeded JPEGs (500x375 and 375x500, quality 90, 10 classes: 3 x 128 +
+   16 train, 165 val) in a temporary directory; without Pillow, seeded
+   uint8 samples at 224 from a numpy dataset instead, and the log says
+   that decode and the host transforms did not run.  The train
+   ``Loader`` under the CoTNet-50 recipe's augmentation (RandomResizedCrop
+   bicubic, hflip, host ``rand-m15-mstd0.5-n2``) on 6 worker processes
+   at bs128: images/s over an epoch, H2D + device augment a batch, epoch
+   0 twice the same bytes and epoch 1 others; cotnet50's bf16 recipe
+   train step fed by it for two epochs (images/s, the device busy share
+   of a profiled steady-state step beside the train main path's, 16
+   forward, dx and dw launches a step, recorded as the path "cotnet50
+   train (loader)"); the eval step over the val loader (two batches,
+   37 valid in the second, 165 counted, the step's top-1 count equal to
+   the unpadded logits', recorded as "cotnet50 eval (loader)"); then one
+   bs128 224 batch of each device augment (RandAugment, AutoAugment
+   ``v0``, AugMix with 3 splits, RandomErasing ``pixel`` 0.25 x3) with
+   its ms a batch, and each on the card against the CPU given the same
+   draws.
+9. Kernels: each Hopper kernel against its plain PyTorch version on the
    card.  The forward at the four aggregation geometries of cotnet50
    (N=128), the four per-group ones of cotnext50_2x48d (N=256) and those
    of se_cotnetd_152 (N=128 and 64), bf16, with and without the GroupNorm
@@ -244,6 +264,19 @@ PATH_KERNELS = {
     "train": ("fwd", "dx", "dw"),
     "train_fold": ("fwd_affine", "dx_affine", "dw_affine"),
 }
+# phase 8, the data pipeline: the train loader of
+# cot_experiments/CoTNet-50-350epoch/config.yaml (its augmentation section
+# and its 6 workers) at the main path's batch, over 3 batches and 16 more
+# train images and 165 val images (two eval batches, the second with 37
+# valid), JPEGs of ImageNet's common sizes
+DATA_LOADER = dict(scale=(0.08, 1.0), ratio=(0.75, 1.333333333333),
+                   hflip=0.5, auto_augment="rand-m15-mstd0.5-n2", reprob=0.0,
+                   interpolation="bicubic")
+DATA_WORKERS = 6
+DATA_CLASSES = 10
+DATA_TRAIN_IMAGES = 3 * BATCH + 16
+DATA_VAL_IMAGES = 165
+DATA_SIZES = ((500, 375), (375, 500))
 
 
 def log(*args):
@@ -1161,9 +1194,10 @@ def make_batch(n: int = BATCH, size: int = IMAGE) -> dict:
     }
 
 
-def model_phase(la, paths: PathCounts) -> dict:
+def model_phase(la, paths: PathCounts) -> tuple:
     """Phases 2 and 3, on cotnet50; records the two main paths' launches
-    in ``paths``.  Returns the calibrated f32 state_dict, for phase 5."""
+    in ``paths``.  Returns the calibrated f32 state_dict, for phase 5, and
+    the train main path's images/s and profile, for phase 8."""
     from cotnet_tpu_torch.models import create_model
     from cotnet_tpu_torch.train.step import make_eval_step
 
@@ -1248,8 +1282,7 @@ def model_phase(la, paths: PathCounts) -> dict:
     del model16, eval_step
     torch.cuda.empty_cache()
 
-    train_main_path(la, batch, paths)
-    return state
+    return state, train_main_path(la, batch, paths)
 
 
 def train_loss(model, x, labels):
@@ -1498,7 +1531,8 @@ def train_main_path(la, batch, paths: PathCounts):
         f"{norms[-1]:.3f}, LR {lrs[0]:.3g} -> {lrs[-1]:.3g}; launches in "
         f"{steps} steps: fwd {totals[0]}, dx {totals[1]['dx']}, dw "
         f"{totals[1]['dw']}, 0 plain calls")
-    profile_step(lambda: step(state, batch, gen), "bf16 train step")
+    busy = profile_step(lambda: step(state, batch, gen), "bf16 train step")
+    return {"img_s": BATCH / statistics.median(times), "busy": busy}
 
 
 def stack_solver(name: str) -> dict:
@@ -2137,10 +2171,365 @@ def dilated_check(la):
         f"{errs[2]:.3g} (rtol/atol 1e-5)")
 
 
+# ---- phase 8: the data pipeline -------------------------------------------
+
+class SeededImages:
+    """A map-style dataset of seeded uint8 HWC images at the crop size and
+    their labels, for a host without Pillow: what the loader's transform
+    would have produced, which is then not applied.  Module-level, so that
+    the loader's worker processes can unpickle it."""
+
+    def __init__(self, n: int, size: int, seed: int):
+        self.n, self.size, self.seed = n, size, seed
+        self.transform = self.draft_size = None
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        rng = np.random.RandomState(self.seed * 100003 + i)
+        return (rng.randint(0, 256, (self.size, self.size, 3), np.uint8),
+                i % DATA_CLASSES)
+
+
+def write_image_tree(root: str, n: int, seed: int):
+    """``n`` seeded JPEGs (quality 90) in DATA_CLASSES class folders under
+    ``root``, alternately 500x375 and 375x500: smooth colour fields with
+    noise, so that decode and resampling do the work of photographs."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    fields = {}
+    for w, h in DATA_SIZES:
+        # a field twice the image's size, each image a seeded crop of it
+        yy, xx = np.mgrid[0:2 * h, 0:2 * w].astype(np.float32)
+        field = np.stack([
+            120 + 70 * np.sin(xx / (17 + 9 * c)) + 50 * np.cos(yy / (23 + 7 * c))
+            for c in range(3)], -1) + rng.normal(0, 12, (2 * h, 2 * w, 3))
+        fields[(w, h)] = np.clip(field, 0, 255).astype(np.uint8)
+    for i in range(n):
+        w, h = DATA_SIZES[i % 2]
+        y, x = rng.randint(0, h), rng.randint(0, w)
+        d = os.path.join(root, f"class_{i % DATA_CLASSES}")
+        os.makedirs(d, exist_ok=True)
+        Image.fromarray(fields[(w, h)][y:y + h, x:x + w]).save(
+            os.path.join(d, f"img_{i:05d}.jpg"), quality=90)
+
+
+def wall_ms(fn, runs: int = 10, warmup: int = 2) -> float:
+    """Median ms of ``fn()`` from a synchronized start to its synchronized
+    end, on the host's clock: the device work and every host wait inside
+    (the device augment reads its op draws back to the host)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def data_phase(la, paths: PathCounts, main_train: dict):
+    """Phase 8: the port's loader on the card: the host, a written dataset,
+    the train loader alone, cotnet50's bf16 recipe train step and eval step
+    fed by it (launches recorded in ``paths``), and the device backend."""
+    import os
+    import shutil
+    import tempfile
+
+    from cotnet_tpu_torch.data import native
+    from cotnet_tpu_torch.data.dataset import ImageFolderDataset
+    from cotnet_tpu_torch.data.loader import Loader
+
+    t0 = time.perf_counter()
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    cxx = shutil.which(native.CXX)
+    cxx_version = (subprocess.run([cxx, "--version"], capture_output=True,
+                                  text=True).stdout.splitlines()[0]
+                   if cxx else "absent")
+    log(f"data: host {os.cpu_count()} CPUs; Pillow {pil or 'absent'}; "
+        f"{native.CXX} {cxx}: {cxx_version}")
+    if not native.available():
+        raise AssertionError(f"{native.CXX} did not build "
+                             f"{native.SOURCE} into {native.library_path()}")
+    log(f"data: native batch ops loaded from {native.library_path()}")
+    kw = dict(batch_size=BATCH, image_size=IMAGE, workers=DATA_WORKERS,
+              worker_procs=True, dtype=torch.bfloat16, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        if pil:
+            t1 = time.perf_counter()
+            for split, n, seed in (("train", DATA_TRAIN_IMAGES, 0),
+                                   ("val", DATA_VAL_IMAGES, 1)):
+                write_image_tree(os.path.join(tmp, split), n, seed)
+            train_ds = ImageFolderDataset(os.path.join(tmp, "train"))
+            val_ds = ImageFolderDataset(os.path.join(tmp, "val"))
+            log(f"data: wrote {len(train_ds)} train and {len(val_ds)} val "
+                f"JPEGs ({DATA_SIZES[0][0]}x{DATA_SIZES[0][1]} and "
+                f"{DATA_SIZES[1][0]}x{DATA_SIZES[1][1]}, quality 90, "
+                f"{DATA_CLASSES} classes) in "
+                f"{time.perf_counter() - t1:.1f} s")
+        else:
+            log("PIL absent: decode and host transforms not run on the card")
+            train_ds = SeededImages(DATA_TRAIN_IMAGES, IMAGE, 0)
+            val_ds = SeededImages(DATA_VAL_IMAGES, IMAGE, 1)
+        train = Loader(train_ds, train=True, seed=0, **DATA_LOADER, **kw)
+        val = Loader(val_ds, train=False, crop_pct=0.875,
+                     interpolation="bicubic", **kw)
+        try:
+            loader_alone(train)
+            loader_fed_train(la, paths, train, main_train)
+            loader_fed_eval(la, paths, val)
+        finally:
+            train.close()
+            val.close()
+    device_backend_phase()
+    log(f"data phase: {time.perf_counter() - t0:.1f} s")
+
+
+def loader_alone(loader):
+    """The train loader's images/s over an epoch and its H2D + device
+    augment per batch; epoch 0 twice gives the same bytes, epoch 1 others."""
+    t = time.perf_counter()
+    loader.start_workers()
+    # a spawned process re-imports the main script: through chip_smoke.py
+    # the workers import torch, which the library's own modules do not
+    log(f"data: {loader.workers} worker processes spawned in "
+        f"{time.perf_counter() - t:.1f} s (they imported "
+        f"{', '.join(loader.worker_imports) or 'neither torch nor jax'}; "
+        f"the card hidden from them)")
+
+    def epoch(e):
+        loader.set_epoch(e)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        images = [b["image"] for b in loader]
+        torch.cuda.synchronize()
+        return images, time.perf_counter() - t
+
+    first, secs = epoch(0)
+    again, secs_again = epoch(0)
+    other, _ = epoch(1)
+    n = sum(x.shape[0] for x in first)
+    if not (len(first) == len(loader) == DATA_TRAIN_IMAGES // BATCH
+            and all(x.shape == (BATCH, 3, IMAGE, IMAGE)
+                    and x.dtype == torch.bfloat16 and x.is_contiguous()
+                    and x.is_cuda for x in first)):
+        raise AssertionError(f"train loader batches: {len(first)}, "
+                             f"{[tuple(x.shape) for x in first]}")
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("epoch 0 iterated twice gave other bytes")
+    if any(torch.equal(a, b) for a, b in zip(first, other)):
+        raise AssertionError("epoch 1 repeated a batch of epoch 0")
+    host = loader.host_batches()
+    imgs = next(host)[0]
+    host.close()
+    gen = torch.Generator(device="cuda")
+
+    def h2d_augment():
+        return loader.device_augment(imgs.to("cuda", non_blocking=True), gen)
+
+    ms = wall_ms(h2d_augment)
+    log(f"data: train loader ({', '.join(f'{k} {v}' for k, v in DATA_LOADER.items())}, "
+        f"{loader.workers} worker processes, bs{BATCH} at {IMAGE}): "
+        f"{n / secs_again:.1f} img/s over epoch 0's second pass ({n} "
+        f"images in {secs_again:.3f} s; the first {n / secs:.1f} img/s); "
+        f"H2D of the pinned uint8 batch + device augment {ms:.3f} ms a "
+        f"batch (pinned: {imgs.is_pinned()}); epoch 0 twice the same bytes, "
+        f"epoch 1 other bytes, on {nvidia_smi()}")
+
+
+def loader_fed_train(la, paths: PathCounts, loader, main_train: dict):
+    """cotnet50's bf16 recipe train step fed by the loader, two epochs: 2
+    warm-up steps and the rest timed, launches recorded and checked."""
+    from cotnet_tpu_torch.models import create_model
+
+    model = create_model("cotnet50", device="cuda", dtype=torch.bfloat16,
+                         seed=0, **RECIPE["model"])
+    step, state = recipe_train_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    warmup, losses = 2, []
+    la.reset_counts()
+    torch.cuda.synchronize()
+    for e in range(2):
+        loader.set_epoch(e)
+        for batch in loader:
+            if len(losses) == warmup:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            state, m = step(state, batch, gen)
+            losses.append(m["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    steps = len(losses)
+    check_path_launches(paths.record(la, "cotnet50 train (loader)", steps),
+                        "train", "cotnet50", steps)
+    losses = [float(v) for v in losses]
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"loader-fed train losses {losses}")
+    # a step in the steady state: the loader has had a step's time to
+    # prefetch the batch it takes
+    loader.set_epoch(2)
+    batches = iter(loader)
+    state, _ = step(state, next(batches), gen)
+    busy = profile_step(lambda: step(state, next(batches), gen),
+                        "bf16 train step fed by the loader")
+    batches.close()
+    ips = (steps - warmup) * BATCH / secs
+
+    def share(b):
+        return "not measured" if b is None else (
+            f"{100 * b[0] / b[1]:.1f}% ({b[0]:.1f} of {b[1]:.1f} ms)")
+
+    log(f"data: bf16 train cotnet50 {IMAGE}x{IMAGE} bs{BATCH} fed by the "
+        f"loader: {ips:.1f} img/s ({steps - warmup} timed steps after "
+        f"{warmup}, across an epoch boundary; the train main path "
+        f"{main_train['img_s']:.1f} img/s on random tensors in this call); "
+        f"device busy in one profiled step with its batch fetch "
+        f"{share(busy)}, the main path's {share(main_train['busy'])}; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; per step 16 launches each of "
+        f"fwd, dx, dw, 0 plain calls")
+    del model, step, state
+    torch.cuda.empty_cache()
+
+
+def loader_fed_eval(la, paths: PathCounts, loader):
+    """cotnet50's bf16 eval step over the val loader: 165 images in two
+    batches, the second padded with 37 valid; the step's counts against the
+    unpadded logits."""
+    from cotnet_tpu_torch.models import create_model
+    from cotnet_tpu_torch.train.step import make_eval_step
+
+    model = create_model("cotnet50", device="cuda", dtype=torch.bfloat16,
+                         seed=0)
+    eval_step = make_eval_step(model)
+    loader.start_workers()
+    la.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runs = [(b, eval_step(b)) for b in loader]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    check_path_launches(paths.record(la, "cotnet50 eval (loader)", len(runs)),
+                        "eval", "cotnet50", len(runs))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for b in loader:
+        eval_step(b)
+    torch.cuda.synchronize()
+    secs_again = time.perf_counter() - t
+    valid = [int(b["valid"].sum()) for b, _ in runs]
+    total = sum(float(out["n"]) for _, out in runs)
+    if valid != [BATCH, DATA_VAL_IMAGES - BATCH] or total != DATA_VAL_IMAGES:
+        raise AssertionError(f"eval valid counts {valid}, n {total}")
+    top1 = 0
+    with torch.no_grad():
+        for (b, out), v in zip(runs, valid):
+            # the step's rule for the top class (topk's first), so that a
+            # tie of bf16 logits counts alike
+            top = model(b["image"])[:v].float().topk(1).indices[:, 0]
+            want = int((top == b["label"][:v]).sum())
+            if float(out["top1_count"]) != want:
+                raise AssertionError(f"eval top1 count {float(out['top1_count'])}"
+                                     f", the unpadded logits' {want}")
+            top1 += want
+    log(f"data: bf16 eval cotnet50 {IMAGE}x{IMAGE} bs{BATCH} over the val "
+        f"loader (ResizeCenterCrop 0.875 bicubic, draft decode): "
+        f"{DATA_VAL_IMAGES} images in {len(runs)} batches ({valid} valid), "
+        f"{DATA_VAL_IMAGES / secs_again:.1f} img/s on a second pass (the "
+        f"first, the workers' first epoch, {DATA_VAL_IMAGES / secs:.1f}); "
+        f"top1 {top1} (random weights), equal to the unpadded logits' "
+        f"argmax; per step 16 fwd_affine launches, 0 plain calls")
+    del model, eval_step
+    torch.cuda.empty_cache()
+
+
+def device_backend_phase(parity_n: int = 32):
+    """One bs128 224 batch of each device augment (its ms a batch), then
+    each policy on the card against the port's CPU result given the same
+    draws, on ``parity_n`` images, at the CPU tests' tolerances
+    (``tests/test_torch_augment.py``)."""
+    import numpy as np
+
+    from cotnet_tpu_torch.data.auto_augment import (
+        augment_and_mix_transform, auto_augment_transform)
+    from cotnet_tpu_torch.data.loader import make_device_augment
+    from cotnet_tpu_torch.data.rand_augment import rand_augment_transform
+    from cotnet_tpu_torch.data.random_erasing import RandomErasing
+
+    cpu = torch.Generator().manual_seed(7)
+    x_u8 = torch.randint(0, 256, (BATCH, IMAGE, IMAGE, 3), generator=cpu,
+                         dtype=torch.uint8).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    normalized = make_device_augment(dtype=torch.bfloat16)(x_u8)
+    cases = [
+        ("rand-m15-mstd0.5-n2 (aug_backend='device')",
+         rand_augment_transform("rand-m15-mstd0.5-n2"), None, 0),
+        ("AutoAugment v0", auto_augment_transform("v0"), None, 0),
+        ("augmix-m3-w3, num_aug_splits=3",
+         augment_and_mix_transform("augmix-m3-w3"), None, 3),
+        ("RandomErasing pixel, reprob 0.25, count 3", None,
+         RandomErasing(0.25, mode="pixel", count=3), 0),
+    ]
+    for label, policy, erasing, splits in cases:
+        fn = make_device_augment(policy=policy, random_erasing=erasing,
+                                 dtype=torch.bfloat16, num_aug_splits=splits)
+        out = fn(x_u8, gen)
+        rows = BATCH * max(splits, 1)
+        if not (out.shape == (rows, 3, IMAGE, IMAGE)
+                and torch.isfinite(out.float()).all()):
+            raise AssertionError(f"{label}: {tuple(out.shape)}")
+        if splits and not torch.equal(out[:BATCH], normalized):
+            raise AssertionError(f"{label}: the first split is not clean")
+        ms = wall_ms(lambda: fn(x_u8, gen))
+        # given the same draws: the policy on 0..255 images, the erasing on
+        # normalized ones
+        aug = policy or erasing
+        x = x_u8[:parity_n].permute(0, 3, 1, 2).float().contiguous()
+        if erasing is not None:
+            x = torch.randn(x.shape, generator=cpu).cuda()
+            draws = aug.draw(cpu, parity_n, 3, IMAGE, IMAGE)
+        else:
+            draws = aug.draw(cpu, parity_n, IMAGE, IMAGE)
+        t = time.perf_counter()
+        want = aug.apply(x.cpu(), draws).numpy()
+        cpu_s = time.perf_counter() - t
+        got = aug.apply(x, draws).cpu().numpy()
+        err = np.abs(got - want)
+        # the CPU tests' bounds (tests/test_torch_augment.py): erasing
+        # exact; a policy's chain of ops within three times the affine
+        # ops' bound, four roundings of a coordinate up to twice the image
+        # size times a bilinear slope of 255 a pixel, on all but 0.1%
+        tol = (0.0 if erasing is not None else
+               float(3 * 4 * 255 * np.spacing(np.float32(2 * IMAGE))))
+        beyond = int((err > tol).sum())
+        if beyond > (0 if erasing is not None else 1e-3 * err.size):
+            raise AssertionError(f"{label}: card against CPU, {beyond} of "
+                                 f"{err.size} elements beyond {tol}, max "
+                                 f"{err.max()}")
+        log(f"data: device augment {label}: {ms:.3f} ms a bs{BATCH} "
+            f"{IMAGE}x{IMAGE} batch ({rows} images out; host clock around "
+            f"a synchronized call); card against CPU given the same draws "
+            f"on {parity_n} images: max |err| {err.max():.3g}, {beyond} "
+            f"elements beyond {tol} (CPU {cpu_s:.1f} s)")
+
+
 def profile_step(fn, label: str, top: int = 12):
     """One step under torch.profiler: the device time by kernel name and the
     device's busy share of the step's wall time (the profiler's own cost is
-    in that wall time)."""
+    in that wall time).  Returns (busy ms, wall ms), None where the profiler
+    recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2158,7 +2547,7 @@ def profile_step(fn, label: str, top: int = 12):
     if not rows:
         log(f"profile of one {label}: the profiler recorded no device time "
             "(not measured)")
-        return
+        return None
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     # a template's name ends at its "<", any other at its "("
@@ -2178,6 +2567,7 @@ def profile_step(fn, label: str, top: int = 12):
     for ms, count, name in rows[:top]:
         log(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:<4d} "
             f"{name[:100]}")
+    return busy_ms, wall_ms
 
 
 def device_kernels(fn) -> tuple:
@@ -2286,7 +2676,7 @@ def main() -> int:
     log(f"set-up (kernel build included): {time.perf_counter() - t0:.1f} s")
 
     paths = PathCounts()
-    state = model_phase(la, paths)
+    state, main_train = model_phase(la, paths)
     torch.cuda.empty_cache()
     train_stack_phase(la, paths)
     switches_phase(la, paths, state)
@@ -2297,6 +2687,8 @@ def main() -> int:
     mix_path(la, paths)
     dilated_check(la)
     log(f"model and op phases done at {time.perf_counter() - t0:.1f} s")
+    data_phase(la, paths, main_train)
+    log(f"data phase done at {time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()
     log(f"device copy rate: {hbm_rate / 1e12:.3f} TB/s (data sheet "

@@ -1080,3 +1080,141 @@ def test_mix_bwd_routes_on_card():
         for g, a, r in zip(got, again, ref):
             assert torch.equal(g, a)
             _close(g, r, dt)
+
+
+# ---- the data pipeline's device augment and loader on the card -------------
+
+# the device augment ops' tolerances on the 0-255 scale, shared with the CPU
+# parity tests (``test_torch_augment.py`` names the rounding behind each)
+AUG_EXACT = ("AutoContrast", "Equalize", "Invert", "Posterize", "Solarize",
+             "SolarizeAdd", "TranslateX", "TranslateY", "Cutout",
+             "PosterizeIncreasing", "PosterizeOriginal", "SolarizeIncreasing")
+AUG_BLENDS = ("Color", "Contrast", "Brightness", "Sharpness",
+              "ColorIncreasing", "ContrastIncreasing", "BrightnessIncreasing",
+              "SharpnessIncreasing")
+AUG_AFFINE = ("Rotate", "ShearX", "ShearY", "TranslateXRel", "TranslateYRel")
+# a chain of ops: all but this share of the elements within its tolerance
+AUG_CHAIN_FRACTION = 1e-3
+
+
+def aug_affine_tol(h, w) -> float:
+    """Four roundings of a sample coordinate (a sum up to twice the image
+    size) times the largest bilinear slope, 255 a pixel."""
+    return float(4 * 255 * np.spacing(np.float32(2 * max(h, w))))
+
+
+def aug_op_tol(name, h, w) -> float:
+    if name in AUG_EXACT:
+        return 0.0
+    if name in AUG_BLENDS:
+        return float(4 * np.spacing(np.float32(255)))  # 6.1e-5
+    assert name in AUG_AFFINE, name
+    return aug_affine_tol(h, w)
+
+
+def aug_chain_tol(h, w) -> float:
+    """An affine op's error carried through the enhance factors of later
+    ops (up to 2.8 at magnitude 15)."""
+    return 3 * aug_affine_tol(h, w)
+
+
+def assert_chain_close(got, ref):
+    got, ref = (np.asarray(a, np.float32) for a in (got, ref))
+    tol = aug_chain_tol(*got.shape[-2:])
+    err = np.abs(got - ref)
+    assert np.mean(err > tol) <= AUG_CHAIN_FRACTION, (
+        f"{int((err > tol).sum())} of {err.size} elements beyond {tol}, "
+        f"max {err.max()}")
+
+
+def _augment_batch(seed, n=8, size=224):
+    """Seeded 0..255 float NCHW images on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, (n, 3, size, size), generator=gen).float()
+
+
+@pytest.mark.parametrize("name", AUG_EXACT + AUG_BLENDS + AUG_AFFINE)
+def test_augment_op_on_card(name):
+    """Each device augment op at bs8 224 on the card against the CPU, at two
+    levels and both signs."""
+    _need_cuda()
+    from cotnet_tpu_torch.data import policies
+    from cotnet_tpu_torch.data.rand_augment import apply_op
+
+    op = policies.OP_IDX[name]
+    x = _augment_batch(0)
+    xy = torch.rand((8, 2), generator=torch.Generator().manual_seed(1)) * 224
+    for level in (3.0, 13.7):
+        for sign in (1.0, -1.0):
+            lv, sg = torch.full((8,), level), torch.full((8,), sign)
+            want = apply_op(op, x, lv, sg, xy)
+            got = apply_op(op, x.cuda(), lv.cuda(), sg.cuda(), xy.cuda())
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=0,
+                                       atol=aug_op_tol(name, 224, 224),
+                                       err_msg=f"{name} {level} {sign}")
+
+
+@pytest.mark.parametrize("config", ["rand-m15-mstd0.5-n2", "rand-m9-n3-w0",
+                                    "v0-mstd0.5", "augmix-m3-w3"])
+def test_policy_on_card(config):
+    """A policy's draws from a CPU generator, applied on the card and on the
+    CPU, at bs8 224."""
+    _need_cuda()
+    from cotnet_tpu_torch.data.auto_augment import create_batch_augment
+
+    aug = create_batch_augment(config)
+    x = _augment_batch(2)
+    draws = aug.draw(torch.Generator().manual_seed(3), 8, 224, 224)
+    got = aug.apply(x.cuda(), draws)
+    assert got.is_cuda
+    assert_chain_close(got.cpu().numpy(), aug.apply(x, draws).numpy())
+    # the card's own generator draws on the card
+    out = aug(x.cuda(), torch.Generator(device="cuda").manual_seed(0))
+    assert out.shape == x.shape and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("mode", ["const", "rand", "pixel"])
+def test_random_erasing_on_card(mode):
+    _need_cuda()
+    from cotnet_tpu_torch.data.random_erasing import RandomErasing
+
+    erasing = RandomErasing(0.5, mode=mode, count=3, num_splits=2)
+    x = torch.randn((8, 3, 224, 224), generator=torch.Generator().manual_seed(4))
+    draws = erasing.draw(torch.Generator().manual_seed(5), 8, 3, 224, 224)
+    got = erasing.apply(x.cuda(), draws).cpu()
+    assert torch.equal(got, erasing.apply(x, draws))
+    assert torch.equal(got[:4], x[:4])
+
+
+def test_loader_on_card(tmp_path):
+    """The loader on a written image tree yields contiguous NCHW images,
+    int64 labels and a float32 mask on the card, through pinned memory."""
+    _need_cuda()
+    Image = pytest.importorskip("PIL.Image")
+    from cotnet_tpu_torch.data.dataset import ImageFolderDataset
+    from cotnet_tpu_torch.data.loader import Loader
+
+    rng = np.random.RandomState(0)
+    for cls in ("a", "b"):
+        (tmp_path / cls).mkdir()
+        for i in range(6):
+            Image.fromarray(rng.randint(0, 255, (50, 60, 3), np.uint8)).save(
+                tmp_path / cls / f"{i}.jpg", quality=90)
+    ds = ImageFolderDataset(str(tmp_path))
+    train = Loader(ds, batch_size=4, train=True, image_size=32, workers=2,
+                   auto_augment="rand-m9-n2", aug_backend="device",
+                   reprob=0.25, dtype=torch.bfloat16)
+    batches = list(train)
+    assert len(batches) == 3
+    for b in batches:
+        assert b["image"].is_cuda and b["image"].is_contiguous()
+        assert b["image"].shape == (4, 3, 32, 32)
+        assert b["image"].dtype == torch.bfloat16
+        assert b["label"].is_cuda and b["label"].dtype == torch.int64
+        assert b["valid"].dtype == torch.float32
+    host = train.host_batches()
+    assert next(host)[0].is_pinned()
+    host.close()
+    val = Loader(ds, batch_size=5, train=False, image_size=32, workers=2)
+    assert [int(b["valid"].sum()) for b in val] == [5, 5, 2]
