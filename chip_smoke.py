@@ -93,9 +93,31 @@ printing the last line:
    ``v0``, AugMix with 3 splits, RandomErasing ``pixel`` 0.25 x3) with
    its ms a batch, and each on the card against the CPU given the same
    draws.
-9. Kernels: each Hopper kernel against its plain PyTorch version on the
+9. The CLI, checkpoints and the bench (``train_cli``, ``utils/checkpoint``,
+   ``evaler``, ``bench``).  The CoTNet-50 recipe, copied to a temporary
+   folder with its ``recovery_interval`` set to 1, through
+   ``train_cli.main`` in-process: synthetic data at the recipe's batch (80)
+   and vbatch (128) at 224, 3 steps an epoch for 2 epochs, launches
+   recorded as "cotnet50 train (cli)" (16 forward, dx and dw a step) and
+   "cotnet50 eval (cli)" (16 affine forwards a step, the live weights and
+   the EMA), no plain call; ``log.txt``'s eval and "done; best" lines, the
+   checkpoints, ``index.json``, ``last.pth.tar`` and the recovery files;
+   then ``--eval-only`` with ``model.resume`` set to the best checkpoint,
+   whose top-1 and top-5 must equal that epoch's eval and whose weights
+   the checkpoint's.  One CLI epoch of 3 steps on phase 8's seeded JPEG
+   tree, whose eval counts 165 samples.  Resume at full width: cotnet50
+   bf16 at 224 under the recipe's solver with EMA and mixup, 2N
+   uninterrupted steps against N steps, ``save_recovery``, a restore into
+   a fresh model and optimizer and N more, with cuDNN deterministic: the
+   parameters, BN stats, EMA, optimizer state, step and LR trace must be
+   the same bits; the save and restore ms.  The CLI-built train step's ms
+   at the recipe's batch, one step under ``utils.profiler.trace``, whose
+   Chrome trace must hold 16 launches each of the ``k3`` forward, dx and
+   dw; then ``cotnet_tpu_torch.bench.main()`` at its defaults, whose JSON
+   line comes before the kernels line.
+10. Kernels: each Hopper kernel against its plain PyTorch version on the
    card.  The forward at the four aggregation geometries of cotnet50
-   (N=128), the four per-group ones of cotnext50_2x48d (N=256) and those
+   (N=128 and 80, the CLI's train batch), the four per-group ones of cotnext50_2x48d (N=256) and those
    of se_cotnetd_152 (N=128 and 64), bf16, with and without the GroupNorm
    affine, general f32 cases (heads=2, K=5 and 7, dilation 2, odd H != W),
    a reflect-padded case, the edges of the halo tiles in bf16 (a 3x3 map,
@@ -277,6 +299,16 @@ DATA_CLASSES = 10
 DATA_TRAIN_IMAGES = 3 * BATCH + 16
 DATA_VAL_IMAGES = 165
 DATA_SIZES = ((500, 375), (375, 500))
+# phase 9, the CLI: the recipe it runs, its train batch (the recipe's
+# batch_size; its vbatch_size is BATCH) and the smoke run's length
+CLI_RECIPE = "cot_experiments/CoTNet-50-350epoch"
+CLI_BATCH = 80
+CLI_STEPS = 3
+CLI_EPOCHS = 2
+# the batches of each model's main paths besides BATCH and TRAIN_BATCH
+CLI_BATCHES = {"cotnet50": (CLI_BATCH,)}
+# the resume check: 2N uninterrupted steps against N, save, restore, N
+RESUME_STEPS = 2
 
 
 def log(*args):
@@ -388,8 +420,8 @@ def check_close(what, got, ref, dtype) -> tuple:
 def kernel_cases() -> list:
     cases = []
     for name, (groups, geometries, _) in MODELS.items():
-        for batch in sorted({BATCH, TRAIN_BATCH.get(name, BATCH)},
-                            reverse=True):
+        for batch in sorted({BATCH, TRAIN_BATCH.get(name, BATCH),
+                             *CLI_BATCHES.get(name, ())}, reverse=True):
             for c, hw, _ in geometries:
                 case = dict(n=batch * groups, c=c, h=hw, w=hw, heads=1,
                             cw=c // 8, k=3, dil=1, pad_mode="zeros",
@@ -497,7 +529,9 @@ class PathCounts:
 
     def record(self, la, label: str, steps: int) -> dict:
         """Read the counts a main path's run left; returns the snapshot."""
-        snapshot = launch_snapshot(la)
+        return self.record_snapshot(launch_snapshot(la), label, steps)
+
+    def record_snapshot(self, snapshot: dict, label: str, steps: int) -> dict:
         for key, count in snapshot["by_key"].items():
             self.by_key.setdefault(key, {})[label] = (count, steps)
         return snapshot
@@ -2525,6 +2559,382 @@ def device_backend_phase(parity_n: int = 32):
             f"elements beyond {tol} (CPU {cpu_s:.1f} s)")
 
 
+# ---- phase 9: the CLI, checkpoints and the bench ---------------------------
+
+def _edit_recipe(exp: str, old: str, new: str):
+    """Replace one line of ``exp``'s config.yaml; raises if it is absent."""
+    import os
+
+    path = os.path.join(exp, "config.yaml")
+    with open(path) as f:
+        text = f.read()
+    if text.count(old) != 1:
+        raise AssertionError(f"{path}: {old!r} found {text.count(old)} times")
+    with open(path, "w") as f:
+        f.write(text.replace(old, new))
+
+
+def cli_phase(la, paths: PathCounts, main_train: dict):
+    """Phase 9: ``train_cli`` on the recipe (synthetic data, then JPEGs),
+    ``--eval-only`` from the best checkpoint, resume at full width, the
+    profiler around a CLI-built step, and the bench."""
+    import os
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    recipe = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          CLI_RECIPE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        exp = os.path.join(tmp, "exp")
+        shutil.copytree(recipe, exp)
+        _edit_recipe(exp, "recovery_interval: 10", "recovery_interval: 1")
+        top1 = cli_synthetic(la, paths, exp)
+        cli_eval_only(exp, top1)
+        cli_jpegs(recipe, tmp)
+        resume_check(exp)
+        cli_step_profile(exp, tmp, main_train)
+        bench_check()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"CLI phase: {time.perf_counter() - t0:.1f} s")
+
+
+def _eval_lines(log_text: str) -> dict:
+    """``(tag, epoch) -> (top1, top5, samples)`` from a log's eval lines,
+    the first of each."""
+    import re
+
+    out = {}
+    for m in re.finditer(r"eval(\(ema\))? epoch (\d+): top1 ([\d.]+) top5 "
+                         r"([\d.]+) \((\d+) samples\)", log_text):
+        out.setdefault((m.group(1) or "", int(m.group(2))),
+                       (float(m.group(3)), float(m.group(4)),
+                        int(m.group(5))))
+    return out
+
+
+def cli_synthetic(la, paths: PathCounts, exp: str) -> dict:
+    """The recipe through ``train_cli.main`` on synthetic data: launches of
+    its train and eval steps checked and recorded; the log and the files.
+    Returns the log's eval lines."""
+    import json
+    import os
+
+    from cotnet_tpu_torch import train_cli
+
+    la.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = train_cli.main(["--folder", exp, "--synthetic", "--steps",
+                          str(CLI_STEPS), "--epochs", str(CLI_EPOCHS)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    snapshot = launch_snapshot(la)
+    train_steps = CLI_EPOCHS * CLI_STEPS
+    # an eval a epoch of the live weights and one of the EMA, one batch each
+    eval_steps = 2 * CLI_EPOCHS
+    split = {kind: {"by_key": {k: c for k, c in snapshot["by_key"].items()
+                               if (k[0] in PATH_KERNELS["train"])
+                               == (kind == "train")},
+                    "plain": snapshot["plain"]}
+             for kind in ("train", "eval")}
+    check_path_launches(split["train"], "train", "cotnet50", train_steps,
+                        batch=CLI_BATCH)
+    check_path_launches(split["eval"], "eval", "cotnet50", eval_steps)
+    paths.record_snapshot(split["train"], "cotnet50 train (cli)", train_steps)
+    paths.record_snapshot(split["eval"], "cotnet50 eval (cli)", eval_steps)
+
+    with open(os.path.join(exp, "log.txt")) as f:
+        text = f.read()
+    evals = _eval_lines(text)
+    want = {(tag, e) for tag in ("", "(ema)")
+            for e in range(1, CLI_EPOCHS + 1)}
+    if set(evals) != want or "done; best top1:" not in text \
+            or any(v[2] != BATCH for v in evals.values()):
+        raise AssertionError(f"CLI log: eval lines {evals}; 'done; best' "
+                             f"{'done; best' in text}")
+    ckpts = os.path.join(exp, "checkpoints")
+    with open(os.path.join(ckpts, "index.json")) as f:
+        index = json.load(f)
+    with open(os.path.join(ckpts, "recovery.json")) as f:
+        recovery = json.load(f)
+    names = sorted(os.listdir(ckpts))
+    want_names = sorted([f"checkpoint-{e}.pth.tar"
+                         for e in range(1, CLI_EPOCHS + 1)]
+                        + ["index.json", "last.pth.tar", "recovery.json",
+                           "recovery.pth.tar"])
+    if (names != want_names
+            or sorted(e["epoch"] for e in index) != list(
+                range(1, CLI_EPOCHS + 1))
+            or os.readlink(os.path.join(ckpts, "last.pth.tar"))
+            != f"checkpoint-{CLI_EPOCHS}.pth.tar"
+            or recovery != {"epoch": CLI_EPOCHS}
+            or out["state"].step != train_steps):
+        raise AssertionError(f"CLI files {names}, index {index}, recovery "
+                             f"{recovery}, step {out['state'].step}")
+    sizes = {n: os.path.getsize(os.path.join(ckpts, n)) for n in names}
+    log(f"cli: train_cli.main on {CLI_RECIPE} (synthetic, bs{CLI_BATCH} "
+        f"train, bs{BATCH} eval, 224, {CLI_STEPS} steps x {CLI_EPOCHS} "
+        f"epochs) in {secs:.1f} s: per train step 16 launches each of fwd, "
+        f"dx, dw, per eval step 16 fwd_affine (the live weights and the EMA),"
+        f" 0 plain calls; evals {evals}; best top1 {out['best']}; files "
+        f"{sizes}")
+    del out
+    torch.cuda.empty_cache()
+    return evals
+
+
+def cli_eval_only(exp: str, evals: dict):
+    """``--eval-only`` with ``model.resume`` at the best checkpoint: the
+    same weights, and that epoch's top-1 and top-5."""
+    import os
+
+    from cotnet_tpu_torch import train_cli
+    from cotnet_tpu_torch.utils.checkpoint import CheckpointSaver
+
+    best = CheckpointSaver(os.path.join(exp, "checkpoints")).best()
+    _edit_recipe(exp, "model:\n", f"model:\n  resume: '{best['path']}'\n")
+    t = time.perf_counter()
+    out = train_cli.main(["--folder", exp, "--synthetic", "--steps",
+                          str(CLI_STEPS), "--eval-only"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    _edit_recipe(exp, f"model:\n  resume: '{best['path']}'\n", "model:\n")
+    saved = torch.load(best["path"], map_location="cuda", weights_only=True)
+    live = out["state"].model.state_dict()
+    if not all(torch.equal(live[k], v) for k, v in saved["state_dict"].items()):
+        raise AssertionError("--eval-only did not restore the best "
+                             "checkpoint's weights")
+    # as the log line prints them
+    got = (float(f"{out['eval']['top1']:.3f}"),
+           float(f"{out['eval']['top5']:.3f}"), int(out["eval"]["samples"]))
+    want = evals[("", best["epoch"])]
+    if got != want:
+        raise AssertionError(f"--eval-only from epoch {best['epoch']}: "
+                             f"{got}, that epoch's eval {want}")
+    log(f"cli: --eval-only from the best checkpoint (epoch {best['epoch']}, "
+        f"metric {best['metric']}) in {secs:.1f} s: top1/top5/samples {got}, "
+        f"that epoch's eval {want}; the checkpoint's weights bit for bit")
+    del out, saved, live
+    torch.cuda.empty_cache()
+
+
+def cli_jpegs(recipe: str, tmp: str):
+    """One CLI epoch of 3 steps on phase 8's seeded JPEG tree (the recipe's
+    loader, augmentation and 6 workers); its eval counts 165 samples."""
+    import os
+    import shutil
+
+    from cotnet_tpu_torch import train_cli
+
+    root = os.path.join(tmp, "images")
+    for split, n, seed in (("train", DATA_TRAIN_IMAGES, 0),
+                           ("val", DATA_VAL_IMAGES, 1)):
+        write_image_tree(os.path.join(root, split), n, seed)
+    exp = os.path.join(tmp, "exp_jpeg")
+    shutil.copytree(recipe, exp)
+    _edit_recipe(exp, "data_path: '/export/dataset/imagenet'",
+                 f"data_path: '{root}'")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = train_cli.main(["--folder", exp, "--steps", str(CLI_STEPS),
+                          "--epochs", "1"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    if out["eval"]["samples"] != DATA_VAL_IMAGES or out["state"].step != \
+            CLI_STEPS:
+        raise AssertionError(f"CLI on JPEGs: eval {out['eval']}, step "
+                             f"{out['state'].step}")
+    log(f"cli: train_cli.main on {DATA_TRAIN_IMAGES} train and "
+        f"{DATA_VAL_IMAGES} val JPEGs (the recipe's loader, 6 worker "
+        f"processes, bs{CLI_BATCH}, {CLI_STEPS} steps, one epoch) in "
+        f"{secs:.1f} s: eval {out['eval']}")
+    del out
+    torch.cuda.empty_cache()
+
+
+def _recipe_state(cfg, seed: int):
+    """A fresh cotnet50 TrainState and train step as ``train_cli`` builds
+    them, the weights from ``seed``."""
+    from cotnet_tpu_torch import train_cli
+    from cotnet_tpu_torch.config import Config
+    from cotnet_tpu_torch.train.state import TrainState
+    from cotnet_tpu_torch.train.step import make_train_step
+
+    cfg = Config(cfg, seed=float(seed))
+    model, _ = train_cli.build_model(cfg, "cuda")
+    schedule_fn, _, optimizer, loss, mixup_fn = train_cli.build_solver(
+        cfg, model, CLI_STEPS)
+    state = TrainState.create(model, optimizer, ema=True)
+    step = make_train_step(model, optimizer, schedule_fn, loss,
+                           ema_decay=cfg.model.model_ema_decay,
+                           mixup_fn=mixup_fn)
+    return state, step
+
+
+def _cli_batch(i: int) -> dict:
+    """The i-th batch of the resume check: seeded by i alone."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + i)
+    return {"image": torch.randn((CLI_BATCH, 3, IMAGE, IMAGE), generator=gen,
+                                 device="cuda"),
+            "label": torch.randint(0, 1000, (CLI_BATCH,), generator=gen,
+                                   device="cuda")}
+
+
+def _run_steps(state, step, cfg, first: int, last: int) -> list:
+    from cotnet_tpu_torch import train_cli
+
+    gen = torch.Generator(device="cuda")
+    lrs = []
+    for i in range(first, last):
+        gen.manual_seed(train_cli.step_seed(int(cfg.seed) + 777, state.step))
+        state, m = step(state, _cli_batch(i), gen)
+        lrs.append(m["lr"])
+    return lrs
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor a resumed state must match, by name."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in state.ema.items()})
+    for i, s in state.optimizer.state_dict()["state"].items():
+        out.update({f"optimizer.{i}.{k}": v for k, v in s.items()
+                    if torch.is_tensor(v)})
+    return out
+
+
+def resume_check(exp: str):
+    """2N uninterrupted steps against N, ``save_recovery``, a restore into a
+    fresh model and optimizer, N more: the same bits, with cuDNN
+    deterministic (the port's kernels use no atomics)."""
+    import os
+
+    from cotnet_tpu_torch.config import load_experiment
+    from cotnet_tpu_torch.utils.checkpoint import CheckpointSaver
+
+    cfg = load_experiment(exp)
+    n = RESUME_STEPS
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        state_a, step_a = _recipe_state(cfg, int(cfg.seed))
+        lrs_a = _run_steps(state_a, step_a, cfg, 0, 2 * n)
+        want = {k: v.clone() for k, v in _state_tensors(state_a).items()}
+        want_step = state_a.step
+        del state_a, step_a
+        torch.cuda.empty_cache()
+
+        state_b, step_b = _recipe_state(cfg, int(cfg.seed))
+        lrs_b = _run_steps(state_b, step_b, cfg, 0, n)
+        saver = CheckpointSaver(os.path.join(exp, "resume"),
+                                recovery_interval=1, arch="cotnet50")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        saver.save_recovery(state_b, 1)
+        save_ms = (time.perf_counter() - t) * 1e3
+        del state_b, step_b
+        torch.cuda.empty_cache()
+        # a fresh model of other weights and a fresh optimizer
+        state_c, step_c = _recipe_state(cfg, int(cfg.seed) + 1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        saver.restore(state_c, saver.find_recovery()["path"])
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        lrs_b += _run_steps(state_c, step_c, cfg, n, 2 * n)
+        got = _state_tensors(state_c)
+        bad = sorted(k for k, v in want.items()
+                     if k not in got or not torch.equal(got[k], v))
+        if bad or set(got) != set(want) or lrs_a != lrs_b \
+                or state_c.step != want_step:
+            raise AssertionError(
+                f"resumed run differs from the uninterrupted one: "
+                f"{len(bad)} tensors ({bad[:8]}), LRs {lrs_a} / {lrs_b}, "
+                f"step {state_c.step} / {want_step}")
+        size = os.path.getsize(saver.find_recovery()["path"])
+        tensors = len(want)
+        del state_c, step_c, got, want
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    torch.cuda.empty_cache()
+    log(f"cli: resume at full width (cotnet50 bf16 224 bs{CLI_BATCH}, the "
+        f"recipe's nesterov SGD, cosine warm-up, EMA, mixup and cutmix, "
+        f"drop 0.25, drop path 0.1; cuDNN deterministic): {2 * n} "
+        f"uninterrupted steps against {n}, save_recovery, restore into a "
+        f"fresh model and optimizer, {n} more: parameters, BN stats, EMA, "
+        f"optimizer state ({tensors} tensors), step "
+        f"and LRs {lrs_a} the same bits; save {save_ms:.1f} ms, restore "
+        f"{restore_ms:.1f} ms, {size / 2**20:.1f} MiB")
+
+
+def cli_step_profile(exp: str, tmp: str, main_train: dict):
+    """The CLI-built train step at the recipe's batch: its ms over timed
+    steps, and one step under ``utils.profiler.trace``, whose Chrome trace
+    must hold 16 launches each of the k3 forward, dx and dw."""
+    import json
+    import os
+    import re
+
+    from cotnet_tpu_torch.config import load_experiment
+    from cotnet_tpu_torch.utils import profiler
+
+    cfg = load_experiment(exp)
+    state, step = _recipe_state(cfg, int(cfg.seed))
+    _run_steps(state, step, cfg, 0, 2)
+    torch.cuda.synchronize()
+    t, timed = time.perf_counter(), 5
+    _run_steps(state, step, cfg, 2, 2 + timed)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / timed
+    trace_dir = os.path.join(tmp, "trace")
+    with profiler.trace(trace_dir):
+        with profiler.annotate("cli train step"):
+            _run_steps(state, step, cfg, 7, 8)
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    counts = {name: sum(1 for k in kernels
+                        if re.search(rf"\b{name}<[^<>]*,\s*3>", k))
+              for name in ("local_agg_fwd", "local_agg_bwd_dx",
+                           "local_agg_bwd_dw")}
+    annotated = any(e.get("name") == "cli train step" for e in events)
+    if set(counts.values()) != {16} or not annotated:
+        raise AssertionError(f"the trace's k3 kernels {counts}, annotation "
+                             f"{annotated}")
+    size = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+    log(f"cli: the CLI-built bf16 train step (bs{CLI_BATCH} 224, the "
+        f"recipe): {ms:.1f} ms a step, {CLI_BATCH * 1e3 / ms:.1f} img/s over "
+        f"{timed} steps (host clock, synchronized; the train main path "
+        f"{main_train['img_s']:.1f} img/s at bs{BATCH} in this call); "
+        f"utils.profiler.trace wrote a {size / 2**20:.1f} MiB Chrome trace "
+        f"of one step with {len(kernels)} device kernels, the k3 ones "
+        f"{counts}")
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def bench_check():
+    """``cotnet_tpu_torch.bench.main()`` at its defaults (it prints its JSON
+    line); both sides of each pair finite and positive."""
+    from cotnet_tpu_torch import bench
+
+    t = time.perf_counter()
+    result = bench.main()
+    d = result["detail"]
+    sides = [d[k] for k in ("pallas_ips", "xla_ips", "train_imgs_per_sec",
+                            "train_imgs_per_sec_xla")]
+    if d["platform"] != "gpu" or not all(0 < v < float("inf")
+                                         for v in sides):
+        raise AssertionError(f"bench result {result}")
+    log(f"bench: {time.perf_counter() - t:.1f} s; eval kernels/plain "
+        f"{result['vs_baseline']:.4f}, train {d['train_vs_baseline']:.4f}")
+
+
 def profile_step(fn, label: str, top: int = 12):
     """One step under torch.profiler: the device time by kernel name and the
     device's busy share of the step's wall time (the profiler's own cost is
@@ -2689,6 +3099,8 @@ def main() -> int:
     log(f"model and op phases done at {time.perf_counter() - t0:.1f} s")
     data_phase(la, paths, main_train)
     log(f"data phase done at {time.perf_counter() - t0:.1f} s")
+    cli_phase(la, paths, main_train)
+    log(f"CLI phase done at {time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()
     log(f"device copy rate: {hbm_rate / 1e12:.3f} TB/s (data sheet "

@@ -7,6 +7,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.func import functional_call
 
 from cotnet_tpu_torch.models.cotnet import CotLayer
 from cotnet_tpu_torch.nn.drop import set_generator
@@ -117,19 +118,31 @@ def make_eval_step(model, tta_hflip: bool = False,
     """Top-1/top-5 correct counts on one batch (reference
     utils/meters.py:12-19).
 
-    The returned ``eval_step(batch)`` takes ``{"image": [N, C, H, W],
-    "label": [N] int, optional "valid": [N] float mask}`` on the model's
-    device and returns float32 scalars ``top1_count``, ``top5_count`` and
-    ``n`` (plus ``topk`` indices with ``return_topk``).  ``tta_hflip``
-    averages the logits with those of the horizontally flipped images."""
+    The returned ``eval_step(batch, tensors=None)`` takes ``{"image": [N,
+    C, H, W], "label": [N] int, optional "valid": [N] float mask}`` on the
+    model's device and returns float32 scalars ``top1_count``,
+    ``top5_count`` and ``n`` (plus ``topk`` indices with ``return_topk``).
+    ``tta_hflip`` averages the logits with those of the horizontally
+    flipped images.  ``tensors`` (state_dict name -> tensor, such as
+    ``TrainState.ema``) stand in for the model's own for this call
+    (``torch.func.functional_call``): the EMA is evaluated without touching
+    the live weights (the JAX step's ``use_ema``)."""
 
     @torch.no_grad()
-    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def eval_step(batch: Dict[str, torch.Tensor],
+                  tensors: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Dict[str, torch.Tensor]:
         model.eval()
         images = batch["image"]
-        logits = model(images)
+
+        def forward(x):
+            if tensors is None:
+                return model(x)
+            return functional_call(model, tensors, (x,))
+
+        logits = forward(images)
         if tta_hflip:
-            logits = 0.5 * (logits + model(images.flip(-1)))
+            logits = 0.5 * (logits + forward(images.flip(-1)))
         labels = batch["label"]
         valid = batch.get("valid")
         if valid is None:

@@ -1,4 +1,5 @@
-"""JAX (flax) variables -> the port's state_dict.
+"""JAX (flax) variables -> the port's state_dict, and the reference's
+checkpoint files into the port.
 
 The inverse of ``cotnet_tpu.utils.convert.convert_torch_state_dict``
 (``cotnet_tpu/utils/convert.py:475-605``) for the names the CoT family
@@ -21,10 +22,19 @@ state_dict is the reference's torch layout:
   output channels permuted from the JAX package's k-major order
   (k*Cw + cw) back to the reference's cw-major order (cw*K^2 + k), within
   each of the layer's ``dw_group`` channel groups (2 for CoTNeXt).
+
+The port's state_dict keys are the reference's, so a reference
+``.pth.tar`` needs no key conversion: ``load_checkpoint_into`` reads it
+(``module.`` stripped, ``state_dict_ema`` under ``use_ema``) and loads it,
+with the first conv adapted to ``in_chans`` and a fresh classifier where the
+class count differs (``surgery``), as
+``cotnet_tpu/utils/convert.py:40-62, 608-641`` do for the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
+import re
 from typing import Dict
 
 import numpy as np
@@ -122,3 +132,88 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
     # own, writable memory: arrays that come from JAX are read-only
     return {k: torch.from_numpy(np.require(v, requirements="CW"))
             for k, v in sd.items()}
+
+
+def load_torch_checkpoint(path: str, use_ema: bool = False,
+                          map_location="cpu") -> Dict[str, torch.Tensor]:
+    """A checkpoint file's state_dict in the reference's dict layout
+    (models/helpers.py:23-43): ``state_dict_ema`` where ``use_ema`` and the
+    file has one, else ``state_dict``, else ``model``, else the file itself;
+    keys with the ``module.`` prefix of a DataParallel model stripped.
+
+    Read with ``weights_only=True``: tensors, containers and numbers, and
+    the ``argparse.Namespace`` the reference's saver stores as ``args``;
+    nothing else in the file is unpickled."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        ckpt = torch.load(path, map_location=map_location, weights_only=True)
+    sd = ckpt
+    if isinstance(ckpt, dict):
+        key = "state_dict_ema" if use_ema and "state_dict_ema" in ckpt else (
+            "state_dict" if "state_dict" in ckpt else None)
+        if key is not None:
+            sd = ckpt[key]
+        elif "model" in ckpt:
+            sd = ckpt["model"]
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
+def adapt_input_conv(weight: torch.Tensor, in_chans: int) -> torch.Tensor:
+    """First-conv surgery for ``in_chans`` != the weight's (reference
+    helpers.py:91-126), OIHW: one channel is the sum over RGB; other
+    counts tile the channels and rescale by ``cin / in_chans``."""
+    cin = weight.shape[1]
+    if in_chans == cin:
+        return weight
+    if in_chans == 1:
+        return weight.sum(dim=1, keepdim=True)
+    reps = -(-in_chans // cin)
+    return weight.repeat(1, reps, 1, 1)[:, :in_chans] * (cin / in_chans)
+
+
+def surgery(state_dict: Dict[str, torch.Tensor],
+            model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``state_dict`` against ``model``'s own shapes (reference
+    load_pretrained, helpers.py:127-153): a conv whose input channels
+    differ is adapted (``adapt_input_conv``), any other tensor of another
+    shape (the classifier of another class count) is left out, so the
+    model keeps its fresh one; keys the model does not have are dropped."""
+    out = {}
+    for key, ref in model.state_dict().items():
+        v = state_dict.get(key)
+        if v is None:
+            continue
+        if tuple(v.shape) != tuple(ref.shape):
+            if v.dim() == 4 and v.shape[0] == ref.shape[0] \
+                    and v.shape[2:] == ref.shape[2:]:
+                v = adapt_input_conv(v, ref.shape[1])
+            else:
+                continue
+        out[key] = v
+    return out
+
+
+def model_avg_down(model_name: str) -> bool:
+    """Whether the family uses the avg-pool shortcut (ResNet-D), whose
+    downsample keys sit at ``.1``/``.2`` instead of ``.0``/``.1``: the
+    SE-CoTNetD models do (cotnet_hybrid.py make_blocks); CoTNet and CoTNeXt
+    do not, and a cardinality suffix like ``2x48d`` is no ResNet-D
+    marker."""
+    if "cotnext" in model_name or re.search(r"\d+x\d+d$", model_name):
+        return False
+    return "cotnetd" in model_name or model_name.endswith("d")
+
+
+def load_checkpoint_into(model: torch.nn.Module, path: str,
+                         use_ema: bool = False, strict: bool = True,
+                         in_chans: int = 3):
+    """Load a reference-layout checkpoint file into ``model`` in place, on
+    the model's device.  With ``in_chans`` != 3 the state_dict goes through
+    ``surgery`` first and loads without ``strict`` (a fresh classifier may
+    stay), as ``cotnet_tpu.utils.convert.convert_torch_checkpoint`` does.
+    Returns ``load_state_dict``'s missing and unexpected keys."""
+    device = next(model.parameters()).device
+    sd = load_torch_checkpoint(path, use_ema=use_ema, map_location=device)
+    if in_chans != 3:
+        sd = surgery(sd, model)
+    return model.load_state_dict(sd, strict=strict and in_chans == 3)

@@ -1218,3 +1218,127 @@ def test_loader_on_card(tmp_path):
     host.close()
     val = Loader(ds, batch_size=5, train=False, image_size=32, workers=2)
     assert [int(b["valid"].sum()) for b in val] == [5, 5, 2]
+
+
+# ---- checkpoints, the CLI and the evaler on the card ----------------------
+
+# the small CoT net: one CotBottleneck a stage, CoT widths 16..128
+GPU_SMALL_NET = dict(layers=(1, 1, 1, 1), base_width=16, num_classes=10)
+
+
+def _small_cuda_state(seed, ema=True):
+    from cotnet_tpu_torch.models.cotnet import CotBottleneck
+    from cotnet_tpu_torch.models.resnet import ResNet
+    from cotnet_tpu_torch.train.optim import create_optimizer
+    from cotnet_tpu_torch.train.state import TrainState
+
+    torch.manual_seed(seed)
+    model = ResNet(block=CotBottleneck, **GPU_SMALL_NET).cuda()
+    opt = create_optimizer(dict(opt="lookahead_adamw", weight_decay=0.05),
+                           model.parameters(), lr=1e-3)
+    return TrainState.create(model, opt, ema=ema)
+
+
+def _one_step(state):
+    from cotnet_tpu_torch.train.loss import cross_entropy
+    from cotnet_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(state.model, state.optimizer, lambda s: 1e-3,
+                           cross_entropy, ema_decay=0.9)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"image": torch.randn(4, 3, 64, 64, generator=gen,
+                                  device="cuda"),
+             "label": torch.arange(4, device="cuda")}
+    return step(state, batch, gen)[0]
+
+
+def test_checkpoint_round_trip_and_restore_on_card(tmp_path):
+    """A checkpoint saved from the card restores onto the card, into a
+    fresh model and optimizer (Lookahead around AdamW): every tensor on the
+    card and equal; one saved from the CPU restores onto the card too."""
+    _need_cuda()
+    from cotnet_tpu_torch.utils.checkpoint import CheckpointSaver
+
+    state = _one_step(_small_cuda_state(0))
+    saver = CheckpointSaver(str(tmp_path / "ckpt"), recovery_interval=1)
+    saver.save_checkpoint(state, 1, metric=1.0)
+    fresh = saver.restore(_small_cuda_state(1))
+    assert fresh.step == state.step == 1
+    for k, v in state.model.state_dict().items():
+        got = fresh.model.state_dict()[k]
+        assert got.is_cuda and torch.equal(got, v), k
+    for k, v in state.ema.items():
+        assert torch.equal(fresh.ema[k], v), k
+    assert all(torch.equal(a, b) for a, b in
+               zip(fresh.optimizer.slow, state.optimizer.slow))
+    inner = fresh.optimizer.inner.state_dict()["state"]
+    assert inner and all(t.is_cuda for s in inner.values()
+                         for t in s.values() if torch.is_tensor(t))
+
+    cpu = _small_cuda_state(2)
+    cpu.model.cpu()
+    cpu_saver = CheckpointSaver(str(tmp_path / "cpu"))
+    cpu_saver.save_checkpoint(cpu, 1, metric=0.0)
+    onto_card = cpu_saver.restore(_small_cuda_state(3, ema=True))
+    for k, v in cpu.model.state_dict().items():
+        got = onto_card.model.state_dict()[k]
+        assert got.is_cuda and torch.equal(got.cpu(), v), k
+
+
+def test_cli_step_on_card(tmp_path):
+    """train_cli on the card: one epoch of one synthetic step of cotnet50 at
+    64 px under the CoTNet-50 recipe, through the Hopper kernels (no plain
+    call), with its checkpoint written."""
+    _need_cuda()
+    import os
+
+    from cotnet_tpu_torch import train_cli
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = os.path.join(repo, "cot_experiments", "CoTNet-50-350epoch",
+                       "config.yaml")
+    (tmp_path / "config.yaml").write_text(open(src).read())
+    la.reset_counts()
+    out = train_cli.main(["--folder", str(tmp_path), "--synthetic",
+                          "--steps", "1", "--epochs", "1", "--img-size", "64",
+                          "--batch-size", "4"])
+    torch.cuda.synchronize()
+    assert out["state"].step == 1 and out["eval"]["samples"] == 4
+    assert la.LAUNCHES == 16 + 2 * 16      # train, eval and the EMA's eval
+    assert la.BWD_LAUNCHES == {"dx": 16, "dw": 16}
+    assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
+    assert (tmp_path / "checkpoints" / "checkpoint-1.pth.tar").exists()
+    log = (tmp_path / "log.txt").read_text()
+    assert "eval(ema) epoch 1:" in log and "done; best" in log
+
+
+def test_ema_evaler_on_card():
+    """The EMA evaluated on the card without touching the live weights,
+    equal to a model that holds the EMA."""
+    _need_cuda()
+    from cotnet_tpu_torch.evaler import Evaler
+    from cotnet_tpu_torch.models.cotnet import CotBottleneck
+    from cotnet_tpu_torch.models.resnet import ResNet
+
+    state = _small_cuda_state(4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.no_grad():
+        for v in state.ema.values():
+            v.add_(0.3 * torch.randn(v.shape, generator=gen,
+                                     device="cuda")).abs_()
+    live = {k: v.clone() for k, v in state.model.state_dict().items()}
+    batches = [{"image": torch.randn(4, 3, 64, 64, generator=gen,
+                                     device="cuda"),
+                "label": torch.randint(0, 10, (4,), generator=gen,
+                                       device="cuda"),
+                "valid": torch.tensor([1.0, 1.0, 1.0, 0.0], device="cuda")}
+               for _ in range(2)]
+    la.reset_counts()
+    got = Evaler(state.model, batches, use_ema=True)(0, state)
+    assert la.LAUNCHES == 8 and la.PLAIN_CALLS == 0
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, live[k]), k
+    twin = ResNet(block=CotBottleneck, **GPU_SMALL_NET).cuda()
+    twin.load_state_dict({**live, **state.ema})
+    assert got == Evaler(twin, batches)(0, state)
+    assert got["samples"] == 6.0
