@@ -115,7 +115,36 @@ printing the last line:
    Chrome trace must hold 16 launches each of the ``k3`` forward, dx and
    dw; then ``cotnet_tpu_torch.bench.main()`` at its defaults, whose JSON
    line comes before the kernels line.
-10. Kernels: each Hopper kernel against its plain PyTorch version on the
+10. Data parallelism (``cotnet_tpu_torch.parallel``).  (a) A world-size-1
+   NCCL group under torchrun's environment variables:
+   ``torch.distributed.is_nccl_available()``, the NCCL version, an
+   all-reduce of a card tensor of cotnet50's 22,222,416 gradients (raw,
+   timed, and through ``scaled_all_reduce``, which must leave it as it
+   is); then ``train_cli.main`` inside that group (synthetic, the recipe's
+   bs80, 3 steps, one epoch), launches recorded as "cotnet50 train (cli,
+   nccl)" and "cotnet50 eval (cli, nccl)", no plain call and no
+   all-reduce (the collectives are the identity at world size 1), rank
+   0's checkpoint.  (b) Two gloo ranks sharing the card with CUDA tensors
+   (NCCL refuses two ranks on one device), spawned: cotnet50 in f32 at
+   224, global batch 128 (64 a rank), 3 recipe steps at the base LR with
+   mixup over the global batch (TF32 off, cuDNN deterministic); the two
+   ranks must hold the same bits, each launch the ``k3`` forward, dx and
+   dw 16 times a step at N=64 and make no plain call, and the loss and the
+   sums of |parameters| and |BN running means| must be within
+   ``tests/test_multiproc.py``'s tolerances (2e-5, 1e-4) of one process
+   on the whole batch, or within 3x that process's own noise (the same
+   run on images scaled by 1 + 1e-7); each rank's collectives a step by
+   helper (``parallel.collectives.CollectiveTimer``: the BN sums, the
+   gradients, mixup's gather): calls, MB, ms on the stream.
+11. The plain ResNet chassis: seresnet50, resnet18 and ecaresnet50d, f32
+   logits on the card against the port on the CPU (seeded weights, BN
+   statistics calibrated on the images, TF32 off) at 1e-3 of the largest
+   logit; each one's bf16 eval step at 224 bs128 (images/s, device
+   kernels and busy ms a step, peak memory); seresnet50's bf16 train step
+   under the CoTNet-50 recipe (3 timed steps after one warm-up, images/s,
+   device kernels a step, peak memory).  No launch of the op and no plain
+   call.
+12. Kernels: each Hopper kernel against its plain PyTorch version on the
    card.  The forward at the four aggregation geometries of cotnet50
    (N=128 and 80, the CLI's train batch), the four per-group ones of cotnext50_2x48d (N=256) and those
    of se_cotnetd_152 (N=128 and 64), bf16, with and without the GroupNorm
@@ -309,6 +338,17 @@ CLI_EPOCHS = 2
 CLI_BATCHES = {"cotnet50": (CLI_BATCH,)}
 # the resume check: 2N uninterrupted steps against N, save, restore, N
 RESUME_STEPS = 2
+# phase 10, data parallelism: check (b)'s global batch, ranks and steps
+DP_BATCH = 128
+DP_RANKS = 2
+DP_STEPS = 3
+# the CoTNet-50 recipe without its warm-up, so that three updates at the
+# base LR move the weights well beyond rounding
+DP_RECIPE = dict(RECIPE, solver=dict(RECIPE["solver"], warmup_epochs=0))
+# phase 11, the plain ResNet chassis: the models, and seresnet50's timed
+# train steps
+CHASSIS_MODELS = ("seresnet50", "resnet18", "ecaresnet50d")
+CHASSIS_TRAIN_STEPS = 3
 
 
 def log(*args):
@@ -2935,6 +2975,429 @@ def bench_check():
         f"{result['vs_baseline']:.4f}, train {d['train_vs_baseline']:.4f}")
 
 
+# ---- phase 10: data parallelism ---------------------------------------------
+
+def _dp_model_and_batch(rows: slice):
+    """Check (b)'s cotnet50 in f32 without drop layers, its recipe train
+    step (mixup over the global batch, nesterov SGD, the EMA) and this
+    process's rows of the global batch of DP_BATCH seeded images."""
+    from cotnet_tpu_torch.models import create_model
+
+    model = create_model("cotnet50", device="cuda", seed=0)
+    step, state = recipe_train_step(model, DP_RECIPE, DP_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    labels = torch.randint(0, 1000, (DP_BATCH,), generator=gen,
+                           device="cuda")
+    return step, state, {"image": images_f32(DP_BATCH)[rows],
+                         "label": labels[rows]}
+
+
+def _dp_fingerprint(state, loss: float) -> dict:
+    """test_multiproc's fingerprints (the loss, the sums of |parameters| and
+    of |BN running means| in f64), a digest of every parameter and buffer's
+    bits, and the parameters as one f64 vector on the CPU."""
+    import hashlib
+
+    sd = state.model.state_dict()
+    digest = hashlib.sha256()
+    for k in sorted(sd):
+        digest.update(sd[k].detach().cpu().numpy().tobytes())
+    params = torch.cat([p.detach().double().flatten()
+                        for p in state.model.parameters()])
+    return {"loss": loss, "p": float(params.abs().sum()),
+            "b": float(sum(v.double().abs().sum() for k, v in sd.items()
+                           if k.endswith("running_mean"))),
+            "digest": digest.hexdigest(), "params": params.cpu()}
+
+
+def _dp_steps(step, state, batch, gen_seed: int = 6):
+    """DP_STEPS steps; (losses, ms of each step)."""
+    gen = torch.Generator(device="cuda")
+    losses, times = [], []
+    for i in range(DP_STEPS):
+        gen.manual_seed(gen_seed + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return losses, times
+
+
+def _dp_rank(rank: int, world: int, backend: str, init_method: str, queue):
+    """One rank of a data-parallel group of ``world`` CUDA ranks: under
+    gloo all on card 0 (check (b)), under NCCL rank r on card r
+    (``tools/torch_dp_cards.py``).  Puts (rank, result or the error's
+    text)."""
+    try:
+        import torch.distributed as dist
+
+        from cotnet_tpu_torch.ops import local_agg as la
+        from cotnet_tpu_torch.parallel import mesh
+        from cotnet_tpu_torch.parallel.collectives import CollectiveTimer
+
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        with tf32_off():
+            mesh.initialize_distributed(init_method, world, rank,
+                                        backend=backend, device="cuda")
+            step, state, batch = _dp_model_and_batch(
+                mesh.rank_rows(DP_BATCH))
+            la.reset_counts()
+            with CollectiveTimer() as timer:
+                losses, times = _dp_steps(step, state, batch)
+            snapshot = launch_snapshot(la)
+            routes = sorted({la.kernel_route(
+                kernel, torch.empty(key[2], device="cuda"),
+                torch.empty(key[3], device="cuda"), kernel_size=(3, 3),
+                dilation=key[4], padding=key[5])
+                for kernel, key in snapshot["by_key"]})
+            fp = _dp_fingerprint(state, losses[-1])
+            if rank:  # rank 0's parameters stand for both (same digest)
+                fp.pop("params")
+            dist.barrier()
+            dist.destroy_process_group()
+        queue.put((rank, dict(
+            fp, losses=losses, times=times, routes=routes,
+            plain=snapshot["plain"],
+            launches={k: sum(c for (kern, _), c in snapshot["by_key"].items()
+                             if kern == k) for k in ("fwd", "dx", "dw")},
+            batch_shapes=sorted({key[2][0] for _, key in snapshot["by_key"]}),
+            collectives=timer.by,
+            peak=torch.cuda.max_memory_allocated())))
+    except BaseException as e:  # reported to the parent, which raises
+        import traceback
+        queue.put((rank, traceback.format_exc()))
+        raise SystemExit(1) from e
+
+
+def dp_nccl_cli(la, paths: PathCounts):
+    """Check (a): a world-size-1 NCCL group under torchrun's environment
+    variables; an all-reduce of a card tensor in it (raw, and through
+    ``scaled_all_reduce``); then the CLI's synthetic run inside the group,
+    whose launches are recorded as "cotnet50 train (cli, nccl)" and
+    "cotnet50 eval (cli, nccl)"."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from cotnet_tpu_torch import train_cli
+    from cotnet_tpu_torch.parallel import mesh
+    from cotnet_tpu_torch.parallel.collectives import (CollectiveTimer,
+                                                       scaled_all_reduce)
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(mesh.free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        if not mesh.initialize_distributed():
+            raise AssertionError("no group under torchrun's environment")
+        backend = dist.get_backend()
+        nccl = torch.cuda.nccl.version()
+        t = torch.randn(22222416, device="cuda")
+        raw = t.clone()
+        dist.all_reduce(raw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            dist.all_reduce(raw)
+        torch.cuda.synchronize()
+        ar_ms = (time.perf_counter() - t0) * 100
+        scaled = scaled_all_reduce([t])[0]
+        if backend != "nccl" or not (torch.equal(raw, t)
+                                     and torch.equal(scaled, t)):
+            raise AssertionError(f"world-size-1 {backend} all-reduce "
+                                 "changed the tensor")
+        log(f"dp (a): torch.distributed.is_nccl_available() "
+            f"{dist.is_nccl_available()}, NCCL {nccl}, backend {backend}, "
+            f"world {dist.get_world_size()}, device {mesh.local_device()}; "
+            f"an all-reduce of cotnet50's {t.numel()} f32 gradients "
+            f"(88.9 MB) at world size 1: {ar_ms:.3f} ms, and "
+            "scaled_all_reduce leaves it as it is")
+        exp = os.path.join(tmp, "exp")
+        shutil.copytree(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), CLI_RECIPE), exp)
+        la.reset_counts()
+        with CollectiveTimer() as timer:
+            out = train_cli.main(["--folder", exp, "--synthetic", "--steps",
+                                  str(CLI_STEPS), "--epochs", "1"])
+        torch.cuda.synchronize()
+        if not dist.is_initialized():
+            raise AssertionError("the CLI left the caller's group")
+        if timer.by:  # every collective is the identity at world size 1
+            raise AssertionError(f"all-reduces at world size 1: {timer.by}")
+        snapshot = launch_snapshot(la)
+        split = {kind: {"by_key": {
+            k: c for k, c in snapshot["by_key"].items()
+            if (k[0] in PATH_KERNELS["train"]) == (kind == "train")},
+            "plain": snapshot["plain"]} for kind in ("train", "eval")}
+        check_path_launches(split["train"], "train", "cotnet50", CLI_STEPS,
+                            batch=CLI_BATCH)
+        check_path_launches(split["eval"], "eval", "cotnet50", 2)
+        paths.record_snapshot(split["train"], "cotnet50 train (cli, nccl)",
+                              CLI_STEPS)
+        paths.record_snapshot(split["eval"], "cotnet50 eval (cli, nccl)", 2)
+        files = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        if "checkpoint-1.pth.tar" not in files or out["state"].step != \
+                CLI_STEPS:
+            raise AssertionError(f"CLI in the NCCL group: files {files}, "
+                                 f"step {out['state'].step}")
+        log(f"dp (a): train_cli.main in the world-size-1 NCCL group "
+            f"(synthetic, bs{CLI_BATCH}, {CLI_STEPS} steps, one epoch): 16 "
+            f"launches each of fwd, dx, dw a train step, 16 fwd_affine an "
+            f"eval step, 0 plain calls, 0 all-reduces; rank 0 wrote "
+            f"{files}")
+        del out
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def dp_against_one_process(la, world: int = DP_RANKS, backend: str = "gloo",
+                           label: str = "dp (b)"):
+    """``world`` CUDA ranks, each on its rows of cotnet50's global batch of
+    DP_BATCH in f32 (TF32 off, cuDNN deterministic), DP_STEPS recipe steps;
+    held against one process on the whole batch, and against that
+    process's own noise (the same run on images scaled by 1 + 1e-7).
+    Check (b) is two gloo ranks sharing the card (NCCL refuses two ranks
+    on a device); ``tools/torch_dp_cards.py`` runs NCCL ranks, one a
+    card.  Returns rank 0's collectives a step by helper (calls, MB,
+    ms)."""
+    import torch.multiprocessing as mp
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tf32_off():
+            runs = {}
+            for run, scale in (("one", 1.0), ("noise", 1.0 + 1e-7)):
+                step, state, batch = _dp_model_and_batch(slice(0, DP_BATCH))
+                batch["image"] = batch["image"] * scale
+                la.reset_counts()
+                losses, times = _dp_steps(step, state, batch)
+                if run == "one":
+                    plain, fwd = launch_snapshot(la)["plain"], la.LAUNCHES
+                runs[run] = dict(_dp_fingerprint(state, losses[-1]),
+                                   losses=losses, times=times)
+                del step, state, batch
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if plain or fwd != 16 * DP_STEPS:
+        raise AssertionError(f"one process: {fwd} forward launches, {plain} "
+                             "plain calls")
+
+    import queue as queues
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    from cotnet_tpu_torch.parallel.mesh import free_port
+
+    init = f"tcp://127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dp_rank, args=(r, world, backend, init,
+                                                queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    try:
+        # read before joining: a rank exits once its result is read
+        while len(ranks) < world:
+            r, res = queue.get(timeout=max(1.0, 300 - (time.perf_counter()
+                                                       - t0)))
+            ranks[r] = res
+            if isinstance(res, str):
+                break
+        for p in procs:
+            p.join(max(1.0, 300 - (time.perf_counter() - t0)))
+    except queues.Empty:
+        pass
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if len(ranks) != world or any(isinstance(v, str)
+                                  for v in ranks.values()) \
+            or any(p.exitcode for p in procs):
+        raise AssertionError(f"{label}: exit codes "
+                             f"{[p.exitcode for p in procs]}: {ranks}")
+    secs = time.perf_counter() - t0
+    a = ranks[0]
+    if any((res["digest"], res["losses"]) != (a["digest"], a["losses"])
+           for res in ranks.values()):
+        raise AssertionError(f"{label}: the ranks hold different bits")
+    for r, res in ranks.items():
+        if (res["launches"] != {k: 16 * DP_STEPS for k in ("fwd", "dx", "dw")}
+                or res["plain"] or res["routes"] != ["k3"]
+                or res["batch_shapes"] != [DP_BATCH // world]):
+            raise AssertionError(f"{label} rank {r}: launches "
+                                 f"{res['launches']}, plain {res['plain']}, "
+                                 f"routes {res['routes']}, batches "
+                                 f"{res['batch_shapes']}")
+    one, noise = runs["one"], runs["noise"]
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
+    def dist_params(x):
+        return float((x["params"] - one["params"]).norm()
+                     / one["params"].norm())
+
+    got = {k: rel(a[k], one[k]) for k in ("loss", "p", "b")}
+    floor = {k: rel(noise[k], one[k]) for k in ("loss", "p", "b")}
+    limits = {"loss": 2e-5, "p": 1e-4, "b": 1e-4}
+    bad = {k: v for k, v in got.items()
+           if v > max(limits[k], 3 * floor[k])}
+    if bad:
+        raise AssertionError(f"{label} against one process: {bad}, limits "
+                             f"{limits}, the one process's noise {floor}")
+    per_step = {k: (round(c / DP_STEPS, 1), round(b / DP_STEPS / 1e6, 3),
+                    round(ms / DP_STEPS, 2))
+                for k, (c, b, ms) in a["collectives"].items()}
+    where = "on one card" if backend == "gloo" else "one a card"
+    log(f"{label}: {world} {backend} ranks {where} (CUDA tensors), cotnet50 "
+        f"f32 224 global bs{DP_BATCH} ({DP_BATCH // world} a rank), "
+        f"{DP_STEPS} recipe steps at the base LR (mixup over the global "
+        f"batch, nesterov, EMA; TF32 off, cuDNN deterministic) in {secs:.1f} s with the "
+        f"spawn: the ranks hold the same bits ({a['digest'][:16]}); each "
+        f"{16 * DP_STEPS} launches of fwd, dx and dw on the k3 route, 0 "
+        f"plain calls; losses {a['losses']} against one process's "
+        f"{one['losses']}; relative differences {got} (limits {limits}, "
+        f"one process's own noise {floor}); parameters' relative L2 "
+        f"distance {dist_params(a):.3e} (noise {dist_params(noise):.3e}); "
+        f"rank step ms {[round(t, 1) for t in a['times']]} against one "
+        f"process's {[round(t, 1) for t in one['times']]}; rank 0's "
+        f"collectives a step by helper (calls, MB, ms on the stream): "
+        f"{per_step}; peak "
+        f"memory {a['peak'] / 2 ** 30:.2f} GiB a rank")
+    return per_step
+
+
+def dp_phase(la, paths: PathCounts):
+    """Phase 10: checks (a) and (b)."""
+    t0 = time.perf_counter()
+    dp_nccl_cli(la, paths)
+    dp_against_one_process(la)
+    log(f"data-parallel phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---- phase 11: the plain ResNet chassis --------------------------------------
+
+def chassis_logits(name: str):
+    """f32 logits of ``name`` (seeded weights, BN stats calibrated on the
+    images, the last BN of each block not zero) on the card against the
+    port on the CPU, TF32 off, at 1e-3 of the largest logit."""
+    from cotnet_tpu_torch.models import create_model
+
+    cpu = create_model(name, device="cpu", seed=0, zero_init_last_bn=False)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(4, 3, IMAGE, IMAGE, generator=gen) \
+        * torch.linspace(0.5, 2.0, 4)[:, None, None, None]
+    calibrate_bn(cpu, x, seed=1)
+    card = create_model(name, device="cuda", seed=0,
+                        zero_init_last_bn=False)
+    card.load_state_dict(cpu.state_dict())
+    with torch.no_grad(), tf32_off():
+        ref = cpu(x)
+        got = card(x.cuda()).cpu()
+    err = float((got - ref).abs().max())
+    limit = 1e-3 * float(ref.abs().max())
+    if not err <= limit:
+        raise AssertionError(f"{name} f32 logits, card against CPU: max "
+                             f"|err| {err} > {limit}")
+    return err, limit
+
+
+def chassis_phase(la):
+    """Phase 11: seresnet50's bf16 eval and train steps at 224 bs128 (the
+    CoTNet-50 recipe's drop rates, mixup, solver and EMA), resnet18's and
+    ecaresnet50d's eval, and each model's f32 logits on the card against
+    the CPU.  The chassis runs no op of the port: no launch and no plain
+    call."""
+    from cotnet_tpu_torch.models import create_model
+    from cotnet_tpu_torch.train.step import make_eval_step
+
+    t_phase = time.perf_counter()
+    batch = make_batch()
+    la.reset_counts()
+    for name in CHASSIS_MODELS:
+        err, limit = chassis_logits(name)
+        torch.cuda.reset_peak_memory_stats()
+        model = create_model(name, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+        eval_step = make_eval_step(model)
+        times = []
+        for i in range(2 + 5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eval_step(batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(time.perf_counter() - t0)
+        top1, top5, n = (float(out[k]) for k in ("top1_count", "top5_count",
+                                                  "n"))
+        if not 0 <= top1 <= top5 <= n == BATCH - 8:
+            raise AssertionError(f"{name} eval: {top1} {top5} {n}")
+        kernels, busy = device_kernels(lambda: eval_step(batch))
+        median = statistics.median(times)
+        log(f"chassis: {name} f32 logits, card against CPU: max |err| "
+            f"{err:.3e} (limit {limit:.3e}); bf16 eval 224 bs{BATCH}: "
+            f"{BATCH / median:.1f} img/s ({median * 1e3:.2f} ms a step, "
+            f"median of 5), {kernels} device kernels busy {busy:.2f} ms a "
+            f"step, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
+            f"{nvidia_smi()}")
+        if name == "seresnet50":
+            del eval_step, out
+            torch.cuda.reset_peak_memory_stats()
+            model = create_model(name, device="cuda", dtype=torch.bfloat16,
+                                 seed=0, **RECIPE["model"])
+            step, state = recipe_train_step(model)
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            images = {"image": batch["image"], "label": batch["label"]}
+            times, losses = [], []
+            for i in range(1 + CHASSIS_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, images, gen)
+                losses.append(float(m["loss"]))
+                if i >= 1:
+                    times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            kernels, busy = device_kernels(
+                lambda: step(state, images, gen))
+            if not all(v == v and abs(v) < float("inf") for v in losses):
+                raise AssertionError(f"{name} train losses {losses}")
+            median = statistics.median(times)
+            log(f"chassis: {name} bf16 train 224 bs{BATCH} (the CoTNet-50 "
+                f"recipe: mixup/cutmix, drop 0.25, drop path 0.1, nesterov, "
+                f"EMA): {BATCH / median:.1f} img/s ({median * 1e3:.1f} ms a "
+                f"step, median of {CHASSIS_TRAIN_STEPS} after one warm-up), "
+                f"{kernels} device kernels busy {busy:.2f} ms a step, peak "
+                f"memory {peak / 2 ** 30:.2f} GiB, losses {losses}")
+            del step, state
+        del model
+        torch.cuda.empty_cache()
+    snapshot = launch_snapshot(la)
+    if snapshot["by_key"] or snapshot["plain"]:
+        raise AssertionError(f"the chassis reached the op: {snapshot}")
+    log(f"chassis phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def profile_step(fn, label: str, top: int = 12):
     """One step under torch.profiler: the device time by kernel name and the
     device's busy share of the step's wall time (the profiler's own cost is
@@ -3101,6 +3564,10 @@ def main() -> int:
     log(f"data phase done at {time.perf_counter() - t0:.1f} s")
     cli_phase(la, paths, main_train)
     log(f"CLI phase done at {time.perf_counter() - t0:.1f} s")
+    dp_phase(la, paths)
+    chassis_phase(la)
+    log(f"data-parallel and chassis phases done at "
+        f"{time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()
     log(f"device copy rate: {hbm_rate / 1e12:.3f} TB/s (data sheet "

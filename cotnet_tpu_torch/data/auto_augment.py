@@ -36,6 +36,9 @@ def _device(generator, device):
 class AutoAugment:
     """Callable (float NCHW batch in 0..255, generator) -> augmented batch."""
 
+    # each draw's batch dimension (loader.draw_rows)
+    BATCH_DIMS = {"sub": 0, "apply": 1, "sign": 1, "mag": 1, "xy": 1}
+
     def __init__(self, policy: str = "v0", magnitude_std: float = 0.0):
         table = POLICIES[policy]
         self.magnitude_std = float(magnitude_std)
@@ -86,6 +89,8 @@ _AUGMIX_IDX = torch.tensor([OP_IDX[n] for n in AUGMIX_OPS], dtype=torch.int64)
 
 class AugMix:
     """AugMix (arXiv 1912.02781): out = m*x + (1-m)*sum_i w_i chain_i(x)."""
+
+    BATCH_DIMS = {"ws": 0, "m": 0, "op": 2, "sign": 2, "keep": 2, "xy": 2}
 
     def __init__(self, magnitude: float = 3, width: int = 3, depth: int = -1,
                  alpha: float = 1.0):

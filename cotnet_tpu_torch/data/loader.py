@@ -10,8 +10,15 @@ of ``cotnet_tpu/data/loader.py`` (reference datasets/loader.py).
   augment (if on the device), normalize, RandomErasing and the cast, and
   hands the model a contiguous NCHW batch;
 - eval pads the final batch and carries a ``valid`` mask instead of the
-  reference's silent rank-striding.  There is one process: a per-rank
-  split of the indices comes with data parallelism.
+  reference's silent rank-striding;
+- data parallel: ``batch_size`` is the global batch, as in the JAX
+  ``Loader``.  Each rank decodes, augments and yields only its own rows of
+  every global batch, ``parallel.mesh.rank_rows`` (the rows GSPMD places
+  on it), each row drawn as the one-process loader draws it at that place:
+  the host seeds per sample place, and the device draws for the whole
+  global batch from the batch's generator and keeps the rank's rows.  The
+  eval loader pads the final global batch and splits it, the rank's
+  ``valid`` being its slice of the global mask.
 
 Every draw is seeded.  The host draws per sample, from the loader seed,
 the epoch and the sample's place (``workers._sample_seed``); the device
@@ -42,6 +49,7 @@ from cotnet_tpu_torch.data.transforms import (create_eval_transform,
                                               create_train_transform)
 from cotnet_tpu_torch.data.workers import (_proc_fetch, _sample_seed,
                                            _spawn_worker_pool)
+from cotnet_tpu_torch.parallel import mesh
 
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
@@ -50,6 +58,16 @@ IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
 def batch_seed(seed: int, epoch: int, i: int) -> int:
     """The device generator's seed for batch ``i`` of ``epoch``."""
     return ((seed * 1000 + epoch) * 1000003 + i) % (2 ** 63)
+
+
+def draw_rows(aug, generator, n_global: int, rows: torch.Tensor, *shape,
+              device=None):
+    """``aug.draw`` for a global batch of ``n_global`` images, kept at the
+    batch places ``rows`` (a data-parallel rank's), along each draw's batch
+    dimension (``aug.BATCH_DIMS``)."""
+    draws = aug.draw(generator, n_global, *shape, device=device)
+    return {k: v.index_select(aug.BATCH_DIMS[k], rows.to(v.device))
+            for k, v in draws.items()}
 
 
 def make_device_augment(mean=IMAGENET_DEFAULT_MEAN, std=IMAGENET_DEFAULT_STD,
@@ -65,22 +83,44 @@ def make_device_augment(mean=IMAGENET_DEFAULT_MEAN, std=IMAGENET_DEFAULT_STD,
 
     ``num_aug_splits`` > 1 produces [clean; aug_1; ...; aug_{S-1}] stacked on
     the batch dim (the AugMixDataset arrangement, dataset.py:181-218) for JSD
-    consistency training — the clean split skips the policy augmentation."""
+    consistency training — the clean split skips the policy augmentation.
+
+    ``rows`` (a slice) and ``n_global``: the batch holds a data-parallel
+    rank's ``rows`` of a global batch of ``n_global``; every draw is made
+    for the global batch and the rank keeps its rows' (``draw_rows``)."""
     mean = torch.tensor(mean, dtype=torch.float32) * 255.0
     std = torch.tensor(std, dtype=torch.float32) * 255.0
+    splits = num_aug_splits if num_aug_splits > 1 and policy is not None \
+        else 1
 
-    def device_augment(batch_u8, generator: Optional[torch.Generator] = None):
+    def device_augment(batch_u8, generator: Optional[torch.Generator] = None,
+                       rows: Optional[slice] = None,
+                       n_global: Optional[int] = None):
         x = batch_u8.permute(0, 3, 1, 2).to(
             torch.float32, memory_format=torch.contiguous_format)
-        if num_aug_splits > 1 and policy is not None:
-            x = torch.cat([x] + [policy(x, generator)
-                                 for _ in range(num_aug_splits - 1)])
-        elif policy is not None:
-            x = policy(x, generator)
+        _, c, h, w = x.shape
+        if rows is not None:
+            idx = torch.arange(rows.start, rows.stop)
+
+        def augment(x):
+            if rows is None:
+                return policy(x, generator)
+            return policy.apply(x, draw_rows(policy, generator, n_global,
+                                             idx, h, w, device=x.device))
+
+        if policy is not None:
+            x = torch.cat([x] + [augment(x) for _ in range(splits - 1)]) \
+                if splits > 1 else augment(x)
         x = ((x - mean.to(x.device).reshape(1, 3, 1, 1))
              / std.to(x.device).reshape(1, 3, 1, 1))
         if random_erasing is not None:
-            x = random_erasing(x, generator)
+            if rows is None:
+                x = random_erasing(x, generator)
+            elif random_erasing.probability > 0:
+                idx_s = torch.cat([idx + s * n_global for s in range(splits)])
+                x = random_erasing.apply(x, draw_rows(
+                    random_erasing, generator, splits * n_global, idx_s, c,
+                    h, w, device=x.device))
         return x.to(dtype)
 
     return device_augment
@@ -98,7 +138,7 @@ class _Prefetcher:
 
     def __init__(self, dataset, indices, batch_size, workers=8, depth=4,
                  drop_last=True, pad_last=False, proc_pool=None, seed=0,
-                 pin_memory=False):
+                 pin_memory=False, rows: Optional[slice] = None):
         self.dataset = dataset
         self.indices = indices
         self.batch_size = batch_size
@@ -109,6 +149,8 @@ class _Prefetcher:
         self.proc_pool = proc_pool
         self.seed = seed
         self.pin_memory = pin_memory
+        # the places of each (padded) global batch this process fetches
+        self.rows = rows or slice(0, batch_size)
 
     def _batches(self):
         n = len(self.indices)
@@ -144,13 +186,21 @@ class _Prefetcher:
                     pass
             return False
 
-        def fetch_procs(pool, chunk, bidx):
+        def fetch_procs(pool, chunk, bidx, lo, hi):
+            # the global batch's parts fix every sample's seed; this
+            # process fetches the pieces of its places [lo, hi), split
+            # again over its workers (each piece's k0 keeps the seed)
             sub = max(1, -(-len(chunk) // self.workers))
-            parts = [(chunk[j:j + sub], self.seed * 1000003 + bidx * 997 + j)
-                     for j in range(0, len(chunk), sub)]
+            sub_own = max(1, -(-(hi - lo) // self.workers))
+            parts = []
+            for j in range(0, len(chunk), sub):
+                seed = self.seed * 1000003 + bidx * 997 + j
+                for a in range(max(j, lo), min(j + sub, hi), sub_own):
+                    b = min(a + sub_own, j + sub, hi)
+                    parts.append((chunk[a:b], seed, a - j))
             results = list(pool.map(_proc_fetch, parts))
             first = results[0][0]
-            imgs = self._buffer((len(chunk), *first.shape[1:]))
+            imgs = self._buffer((hi - lo, *first.shape[1:]))
             np.concatenate([r[0] for r in results], out=imgs.numpy())
             labels = np.concatenate([r[1] for r in results])
             return imgs, labels
@@ -172,15 +222,17 @@ class _Prefetcher:
 
                 with ThreadPoolExecutor(self.workers) as pool:
                     for bidx, (chunk, valid) in enumerate(self._batches()):
+                        lo = min(self.rows.start, len(chunk))
+                        hi = min(self.rows.stop, len(chunk))
                         if self.proc_pool is not None:
                             imgs, labels = fetch_procs(self.proc_pool, chunk,
-                                                       bidx)
+                                                       bidx, lo, hi)
                         else:
                             bseed = self.seed * 1000003 + bidx * 997
                             samples = list(pool.map(
                                 fetch_one,
-                                [(bseed, k, i)
-                                 for k, i in enumerate(chunk)]))
+                                [(bseed, k, chunk[k])
+                                 for k in range(lo, hi)]))
                             arrs = [np.asarray(s[0]) for s in samples]
                             imgs = self._buffer((len(arrs), *arrs[0].shape))
                             if (use_native and arrs[0].ndim == 3
@@ -198,7 +250,7 @@ class _Prefetcher:
                                                 np.int64)
                         mask = np.zeros((len(chunk),), np.float32)
                         mask[:valid] = 1.0
-                        if not put((imgs, labels, mask)):
+                        if not put((imgs, labels, mask[lo:hi])):
                             return
             except BaseException as err:  # re-raised in the consumer
                 errors.append(err)
@@ -236,6 +288,12 @@ class Loader:
     raises without a card, or ``"cpu"``), and there is no ``mesh``.  Policy
     augments run on the host unless ``aug_backend="device"``,
     ``num_aug_splits`` or ``tf_preprocessing`` puts them on the device.
+
+    ``batch_size`` is the global batch.  ``rank`` / ``world_size`` (the
+    default process group's where None) choose the rows this process
+    yields, ``parallel.mesh.rank_rows(batch_size)``: ``batch_size /
+    world_size`` a batch, each as the one-process loader makes it at its
+    place.
     """
 
     def __init__(self, dataset, batch_size: int, train: bool,
@@ -249,8 +307,13 @@ class Loader:
                  num_aug_splits: int = 0, dtype: torch.dtype = torch.float32,
                  seed: int = 0, tf_preprocessing: bool = False,
                  worker_procs: bool = False, aug_backend: str = "host",
-                 draft_decode: bool = True, device="cuda"):
+                 draft_decode: bool = True, device="cuda",
+                 rank: Optional[int] = None,
+                 world_size: Optional[int] = None):
         self.device = torch.device(device)
+        self.world_size = (mesh.world_size() if world_size is None
+                           else world_size)
+        self.rows = mesh.rank_rows(batch_size, rank, self.world_size)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Loader(device='cuda') needs a CUDA device; "
                                "pass device='cpu' to load onto the CPU")
@@ -361,14 +424,16 @@ class Loader:
             self.dataset, indices, self.batch_size, self.workers,
             drop_last=self.train, pad_last=not self.train,
             proc_pool=self._pool, seed=self.seed * 131 + self.epoch,
-            pin_memory=self.device.type == "cuda"))
+            pin_memory=self.device.type == "cuda", rows=self.rows))
 
     def __iter__(self) -> Iterator[dict]:
         generator = torch.Generator(device=self.device)
+        rows = self.rows if self.world_size > 1 else None
         for i, (imgs, labels, mask) in enumerate(self.host_batches()):
             generator.manual_seed(batch_seed(self.seed, self.epoch, i))
             batch_u8 = imgs.to(self.device, non_blocking=True)
-            yield {"image": self.device_augment(batch_u8, generator),
+            yield {"image": self.device_augment(batch_u8, generator, rows,
+                                                self.batch_size),
                    "label": torch.from_numpy(labels).to(self.device),
                    "valid": torch.from_numpy(mask).to(self.device)}
 
@@ -376,12 +441,15 @@ class Loader:
 class SyntheticLoader:
     """Random batches for smoke tests and benches (no reference analog):
     one NCHW batch of normal images, drawn once from a generator seeded
-    with ``seed`` on ``device``, yielded ``steps`` times."""
+    with ``seed`` on ``device``, yielded ``steps`` times.  ``batch_size`` is
+    the global batch: every rank draws it and yields its ``rank_rows``."""
 
     def __init__(self, batch_size: int, image_size: int = 224,
                  num_classes: int = 1000, steps: int = 100,
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", rank: Optional[int] = None,
+                 world_size: Optional[int] = None):
+        self.rows = mesh.rank_rows(batch_size, rank, world_size)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SyntheticLoader(device='cuda') needs a CUDA "
@@ -401,8 +469,10 @@ class SyntheticLoader:
         n, s = self.batch_size, self.image_size
         batch = {
             "image": torch.randn((n, 3, s, s), generator=generator,
-                                 device=self.device).to(self.dtype),
-            "label": torch.arange(n, device=self.device) % self.num_classes,
-            "valid": torch.ones((n,), device=self.device)}
+                                 device=self.device)[self.rows].to(
+                                     self.dtype),
+            "label": (torch.arange(n, device=self.device)
+                      % self.num_classes)[self.rows],
+            "valid": torch.ones((n,), device=self.device)[self.rows]}
         for _ in range(self.steps):
             yield batch

@@ -14,6 +14,15 @@ batch.  The reference's semantics: mixup
 OR cutmix per draw via ``switch_prob``, lam from Beta(alpha, alpha), the
 cutmix box per rand_bbox (mixup.py:30-55), and soft targets
 ``lam * y + (1 - lam) * y_flipped`` with label smoothing (mixup.py:17-28).
+
+Data parallel: under a process group of more than one rank the batch is a
+rank's rows of the global batch (``parallel.mesh.rank_rows``), and the
+call mixes as the JAX package does over the global batch.  The global flip
+pairs rank r's row i with rank W-1-r's row n-1-i, so the rank takes that
+rank's images and labels (``parallel.collectives.partner_rows``, one
+all-gather) and flips them; the per-sample draws of 'elem' and 'pair' are
+made for the global batch and the rank keeps its own, and lam and the box
+of 'batch' come from the step's generator, seeded alike on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from cotnet_tpu_torch.parallel import mesh
+from cotnet_tpu_torch.parallel.collectives import partner_rows
 
 
 def one_hot_smooth(labels, num_classes: int, smoothing: float = 0.0,
@@ -105,15 +117,18 @@ class Mixup:
         return lam, use_cutmix, _rand_bbox(h, w, lam, cy, cx)
 
     def apply(self, images, labels, lam, use_cutmix,
-              box: Tuple[torch.Tensor, ...]):
-        """Mix ``images`` with the flipped batch given the drawn values."""
+              box: Tuple[torch.Tensor, ...], partner=None):
+        """Mix ``images`` with the flipped batch given the drawn values.
+        ``partner`` is ``(images, labels)`` of the rows the flip pairs
+        with, unflipped (another rank's; this batch itself when None)."""
         n, _, h, w = images.shape
         yl, yh, xl, xh = box
         if self.correct_lam:
             lam_cut = 1.0 - ((yh - yl) * (xh - xl)).float() / float(h * w)
         else:
             lam_cut = lam
-        flipped = images.flip(0)
+        partner_images, partner_labels = partner or (images, labels)
+        flipped = partner_images.flip(0)
         ys = torch.arange(h, device=images.device)[:, None]
         xs = torch.arange(w, device=images.device)[None, :]
         if lam.dim():      # per sample: [n] -> [n, 1, 1, 1]
@@ -129,7 +144,7 @@ class Mixup:
 
         lam_eff = torch.where(use_cutmix, lam_cut, lam)
         y1 = one_hot_smooth(labels, self.num_classes, self.label_smoothing)
-        y2 = one_hot_smooth(labels.flip(0), self.num_classes,
+        y2 = one_hot_smooth(partner_labels.flip(0), self.num_classes,
                             self.label_smoothing)
         lam_t = lam_eff[:, None] if lam.dim() else lam_eff
         return out, y1 * lam_t + y2 * (1.0 - lam_t)
@@ -137,5 +152,14 @@ class Mixup:
     def __call__(self, images, labels,
                  generator: Optional[torch.Generator] = None):
         n, _, h, w = images.shape
-        lam, use_cutmix, box = self.sample(n, h, w, images.device, generator)
-        return self.apply(images, labels, lam, use_cutmix, box)
+        world = mesh.world_size()
+        lam, use_cutmix, box = self.sample(n * world, h, w, images.device,
+                                           generator)
+        if world == 1:
+            return self.apply(images, labels, lam, use_cutmix, box)
+        rows = mesh.rank_rows(n * world)
+        if self.mode != "batch":
+            lam, use_cutmix = lam[rows], use_cutmix[rows]
+            box = tuple(t[rows] for t in box)
+        partner = (partner_rows(images), partner_rows(labels))
+        return self.apply(images, labels, lam, use_cutmix, box, partner)

@@ -330,6 +330,9 @@ class RandAugment:
     sign, applied if ``u1 <= U(min_prob, max_prob)``.
     """
 
+    # each draw's batch dimension (loader.draw_rows)
+    BATCH_DIMS = {"op": 1, "mag": 1, "sign": 1, "apply": 1, "xy": 1}
+
     def __init__(self, magnitude: float = 10, num_layers: int = 2,
                  magnitude_std: float = 0.0, min_prob: float = 0.2,
                  max_prob: float = 0.8, weight_idx: Optional[int] = None,

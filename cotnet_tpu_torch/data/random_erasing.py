@@ -22,6 +22,10 @@ import torch
 
 
 class RandomErasing:
+    # each draw's batch dimension (loader.draw_rows)
+    BATCH_DIMS = {"enabled": 1, "target": 1, "aspect": 1, "y0": 1, "x0": 1,
+                  "fill": 1}
+
     def __init__(self, probability: float = 0.5, min_area: float = 0.02,
                  max_area: float = 1 / 3, min_aspect: float = 0.3,
                  max_aspect=None, mode: str = "const", count: int = 1,

@@ -54,14 +54,16 @@ def _proc_fetch(args):
     Every random draw — geometric transform (global `random`) and policy
     augment (host_augment's per-sample rng) — is reseeded per SAMPLE from
     the chunk seed, so a run reproduces given the same loader seed/epoch
-    regardless of how chunks land on workers."""
-    idxs, seed = args
+    regardless of how chunks land on workers.  ``args`` is ``(idxs,
+    seed)`` or ``(idxs, seed, k0)``: a piece of a part whose first sample
+    sits at place ``k0`` of the part (a data-parallel rank's rows)."""
+    idxs, seed, *k0 = args  # k0: the chunk's first place in its part
     from cotnet_tpu_torch.data.host_augment import seed_sample_rng
 
     transform = getattr(_WORKER_DS, "transform", None)
     has_rng = getattr(transform, "rng", None) is not None
     imgs, targets = [], []
-    for k, i in enumerate(idxs):
+    for k, i in enumerate(idxs, start=k0[0] if k0 else 0):
         s = _sample_seed(seed, k)
         random.seed(s)
         seed_sample_rng(s)

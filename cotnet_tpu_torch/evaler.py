@@ -6,11 +6,14 @@ ReaL labels.
 The loader pads its last batch and marks the padding in ``valid``, so the
 counts are exact; the padded rows are dropped before ReaL scoring.  The
 EMA is evaluated through ``make_eval_step``'s ``tensors``: the live weights
-stay as they are.
+stay as they are.  Data parallel: the step's counts are global, and for
+ReaL scoring ``topk`` and ``valid`` are gathered from every rank in rank
+order, the global batch's rows.
 """
 
 from __future__ import annotations
 
+from cotnet_tpu_torch.parallel.collectives import all_gather_rows
 from cotnet_tpu_torch.train.step import make_eval_step
 from cotnet_tpu_torch.utils.meters import TestMeter
 
@@ -36,9 +39,10 @@ class Evaler:
             m = self.eval_step(batch, tensors)
             meter.update(m["top1_count"], m["top5_count"], m["n"])
             if self.real_labels is not None:
-                topk = m["topk"]
+                topk = all_gather_rows(m["topk"]).flatten(0, 1)
                 if "valid" in batch:  # drop the eval padding rows
-                    topk = topk[:int(batch["valid"].sum())]
+                    valid = all_gather_rows(batch["valid"]).flatten()
+                    topk = topk[:int(valid.sum())]
                 self.real_labels.add_result(topk.cpu().numpy())
         meter.log_stats(epoch, tag="(ema)" if self.use_ema else "")
         out = {"top1": meter.top1_pct, "top5": meter.top5_pct,

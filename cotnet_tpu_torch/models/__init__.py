@@ -1,5 +1,6 @@
 # importing the model modules registers their entrypoints
-from cotnet_tpu_torch.models import cotnet, cotnet_hybrid  # noqa: F401
+from cotnet_tpu_torch.models import (cotnet, cotnet_hybrid,  # noqa: F401
+                                     resnet)
 from cotnet_tpu_torch.models.factory import create_model
 from cotnet_tpu_torch.models.helpers import get_model_default_cfg
 from cotnet_tpu_torch.models.registry import (

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import copy
+import sys
 from typing import Callable, Dict
 
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
@@ -41,3 +42,23 @@ def build_model_with_cfg(model_cls: Callable, model_name: str,
     from ``create_model``'s seeded initialization or a state_dict."""
     _default_cfg_by_model[model_name] = copy.deepcopy(default_cfg)
     return model_cls(**kwargs)
+
+
+def register_variant_table(module_name: str, build: Callable,
+                           table: Dict[str, dict]) -> None:
+    """Register one entrypoint per row of ``table`` (the reference's
+    near-identical per-variant ``def`` blocks, e.g. resnet.py:614+): each
+    calls ``build(name, **row)`` with the caller's kwargs over the
+    row's."""
+    from cotnet_tpu_torch.models.registry import register_model
+
+    mod = sys.modules[module_name]
+    for name, row in table.items():
+        def fn(pretrained=False, *, _name=name, _row=row, **kwargs):
+            return build(_name, pretrained=pretrained,
+                         **dict(_row, **kwargs))
+        fn.__name__ = fn.__qualname__ = name
+        fn.__module__ = module_name
+        fn.__doc__ = f"{name} (an entrypoint of the variant table)"
+        setattr(mod, name, fn)
+        register_model(fn)

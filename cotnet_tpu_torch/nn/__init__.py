@@ -1,4 +1,8 @@
-from cotnet_tpu_torch.nn.activations import get_act_fn, relu, swish
+from cotnet_tpu_torch.nn.activations import (get_act_fn, list_act_fns, relu,
+                                             swish)
+from cotnet_tpu_torch.nn.attn import (CbamModule, EcaModule,
+                                      EffectiveSEModule, SEModule,
+                                      create_attn)
 from cotnet_tpu_torch.nn.blur_pool import BlurPool2d
 from cotnet_tpu_torch.nn.classifier import ClassifierHead
 from cotnet_tpu_torch.nn.conv import Conv2d, get_padding
@@ -16,9 +20,10 @@ from cotnet_tpu_torch.nn.pool import avg_pool2d, global_pool2d, max_pool2d
 from cotnet_tpu_torch.nn.split_attn import SplitAttnConv2d, radix_softmax
 
 __all__ = [
-    "BatchNorm2d", "BlurPool2d", "ClassifierHead", "Conv2d",
-    "DropBlock2d", "DropPath", "Dropout", "SplitAttnConv2d",
-    "SubChannelGroupNorm", "avg_pool2d", "drop_block_2d", "drop_path",
-    "dropout", "get_act_fn", "get_padding", "global_pool2d", "max_pool2d",
+    "BatchNorm2d", "BlurPool2d", "CbamModule", "ClassifierHead", "Conv2d",
+    "DropBlock2d", "DropPath", "Dropout", "EcaModule", "EffectiveSEModule",
+    "SEModule", "SplitAttnConv2d", "SubChannelGroupNorm", "avg_pool2d",
+    "create_attn", "drop_block_2d", "drop_path", "dropout", "get_act_fn",
+    "get_padding", "global_pool2d", "list_act_fns", "max_pool2d",
     "radix_softmax", "relu", "set_generator", "swish",
 ]

@@ -5,7 +5,9 @@ momentum 0.9), with the arithmetic of ``LeanBatchNorm``: the per-channel
 affine ``x*s + b`` is formed in f32 from the parameters and the statistics
 (the running ones in eval, the batch's in training), then applied in the
 compute dtype.  In training the running variance is updated with the
-*biased* batch variance, as flax does, not with torch's unbiased one.
+*biased* batch variance, as flax does, not with torch's unbiased one.  Under
+a process group of more than one rank the batch statistics are those of
+the global batch, as GSPMD makes the JAX package's.
 
 SubChannelGroupNorm: the CoT attention-embed GroupNorm, the reference's
 ``nn.GroupNorm(Cw, K^2*Cw)`` on its cw-major channel order (channel =
@@ -25,6 +27,8 @@ import torch
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from cotnet_tpu_torch.parallel.collectives import all_reduce_sum, group_size
+
 
 class BatchNorm2d(nn.Module):
     """Batch norm over NCHW with the state_dict of ``torch.nn.BatchNorm2d``
@@ -38,13 +42,24 @@ class BatchNorm2d(nn.Module):
     stats move by ``momentum`` under ``no_grad``.  The running variance
     takes the biased batch variance (what flax stores), where
     ``torch.nn.BatchNorm2d`` and ``F.batch_norm`` take the unbiased one: on
-    a batch of m values per channel the two differ by m/(m-1)."""
+    a batch of m values per channel the two differ by m/(m-1).
+
+    Data parallel: in training, where the default process group has more
+    than one rank, the f32 ``sum x``, ``sum x^2`` and the count are summed
+    across ranks in one all-reduce that carries the gradient
+    (``parallel.collectives.all_reduce_sum``), so mean and variance are the
+    global batch's, as the JAX layer's ``lax.pmean`` under ``axis_name``
+    (``cotnet_tpu/nn/norm.py:147-149``) and GSPMD make them.  ``group``
+    names another group (the counterpart of ``axis_name``, for tests and
+    subgroups); ``torch.nn.SyncBatchNorm`` is not used: it refuses CPU
+    tensors and keeps the unbiased running variance."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, zero_init: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, group=None):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.group = group
         self.zero_init = zero_init
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(num_features))
@@ -66,9 +81,16 @@ class BatchNorm2d(nn.Module):
     def forward(self, x):
         if self.training:
             red = (0,) + tuple(range(2, x.dim()))
-            count = x.numel() // x.shape[1]
-            mean = x.sum(red, dtype=torch.float32) / count
-            mean2 = x.square().sum(red, dtype=torch.float32) / count
+            c = x.shape[1]
+            count = x.numel() // c
+            s1 = x.sum(red, dtype=torch.float32)
+            s2 = x.square().sum(red, dtype=torch.float32)
+            if group_size(self.group) > 1:
+                sums = all_reduce_sum(torch.cat(
+                    [s1, s2, s1.new_full((1,), count)]), self.group)
+                s1, s2, count = sums[:c], sums[c:2 * c], sums[2 * c]
+            mean = s1 / count
+            mean2 = s2 / count
             var = (mean2 - mean.square()).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum

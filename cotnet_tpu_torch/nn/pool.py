@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 
@@ -22,11 +23,18 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False):
 
 
 def global_pool2d(x, pool_type: str = "avg"):
-    """Adaptive global average pooling over the spatial dims of NCHW ->
-    ``[N, C]``, the pool of every ported model.  The reference's other
-    pool types (max / avgmax / catavgmax) come with a model that uses
-    them."""
-    if pool_type != "avg":
-        raise NotImplementedError(f"pool_type {pool_type!r} is not ported "
-                                  "yet")
-    return x.mean((2, 3))
+    """Adaptive global pooling over the spatial dims of NCHW (reference
+    adaptive_avgmax_pool.py): ``avg``, ``max``, ``avgmax`` (their mean) and
+    ``catavgmax`` (both, ``[N, 2C]``) give ``[N, C]``; ``""`` / None /
+    ``identity`` return ``x`` as it is."""
+    if pool_type == "avg":
+        return x.mean((2, 3))
+    if pool_type == "max":
+        return x.amax((2, 3))
+    if pool_type == "avgmax":
+        return 0.5 * (x.mean((2, 3)) + x.amax((2, 3)))
+    if pool_type == "catavgmax":
+        return torch.cat([x.mean((2, 3)), x.amax((2, 3))], dim=1)
+    if pool_type in ("", None, "identity"):
+        return x
+    raise ValueError(f"unknown pool_type {pool_type!r}")

@@ -66,6 +66,7 @@ launches by their input shapes.  ``reset_counts()`` zeroes them all.
 from __future__ import annotations
 
 import ctypes
+import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -99,6 +100,9 @@ PLAIN_EMBED_GN_CALLS = 0
 MIX_LAUNCHES: Dict[str, int] = {"fwd": 0, "dx": 0, "dw": 0}
 MIX_LAUNCHES_BY_SHAPE: Dict[tuple, int] = {}
 PLAIN_MIX_CALLS = 0
+# the geometries that impl='auto' sent to a plain version on the card
+# because no kernel computes them, each warned about once
+PLAIN_FALLBACKS: set = set()
 
 _LIB_NAME = "local_agg_fwd"
 _BWD_LIB_NAME = "local_agg_bwd"
@@ -478,6 +482,18 @@ def reset_counts():
     EMBED_GN_LAUNCHES_BY_SHAPE.clear()
     MIX_LAUNCHES.update(fwd=0, dx=0, dw=0)
     MIX_LAUNCHES_BY_SHAPE.clear()
+    PLAIN_FALLBACKS.clear()
+
+
+def _warn_plain_fallback(op: str, why: str, key: tuple) -> None:
+    """Warn once per geometry that ``impl='auto'`` computes a CUDA call
+    with the plain version: no Hopper (or TPU) kernel covers it."""
+    if (op,) + key in PLAIN_FALLBACKS:
+        return
+    PLAIN_FALLBACKS.add((op,) + key)
+    warnings.warn(f"{op}: no kernel computes {why} ({key}); impl='auto' "
+                  "takes the plain version on the card", RuntimeWarning,
+                  stacklevel=3)
 
 
 def launch_key(x, w, affine, dilation, padding) -> tuple:
@@ -766,7 +782,10 @@ def local_aggregate(
       impl: ``'auto'`` (the kernel for CUDA tensors, the plain version for
         CPU tensors), ``'hopper'`` (the kernel; raises for a CPU tensor) or
         ``'torch'`` (the plain version).  The kernel computes stride 1 only:
-        a CUDA tensor at a stride above 1 raises unless ``impl='torch'``.
+        a strided call takes the plain version under ``'auto'`` (counted in
+        ``PLAIN_CALLS``; on the card with a ``RuntimeWarning`` once per
+        geometry, ``PLAIN_FALLBACKS``), as the JAX package's ``auto`` takes
+        XLA at any stride above 1, and raises under ``'hopper'``.
       w_scale / w_bias: optional ``[N, heads, Cw, K*K]`` float32 affine
         applied to ``w`` inside the op (``w*scale + bias``), the GroupNorm
         fold: the normalized weight is never materialized.  Differentiable
@@ -810,13 +829,16 @@ def local_aggregate(
     if impl == "hopper" and not on_cuda:
         raise ValueError("impl='hopper' launches the CUDA kernel: x must be "
                          "a CUDA tensor")
-    if impl != "torch" and on_cuda and stride != (1, 1):
+    if impl == "hopper" and stride != (1, 1):
         raise NotImplementedError(
-            "the Hopper kernel computes stride 1 only; pass impl='torch' for "
-            "the plain version of a strided call")
+            "the Hopper kernel computes stride 1 only; pass impl='auto' or "
+            "'torch' for the plain version of a strided call")
     use_kernel = impl != "torch" and on_cuda
     if stride != (1, 1):
         # the plain version alone; autograd differentiates its slices
+        if use_kernel:
+            _warn_plain_fallback("local_aggregate", f"stride {stride}", (
+                str(x.dtype), tuple(x.shape), tuple(w.shape), stride))
         xp = _pad_input(x, padding, pad_mode)
         return local_aggregate_plain(xp, w, kernel_size, stride, dilation,
                                      w_scale, w_bias)
@@ -970,8 +992,11 @@ def local_aggregate_embed_gn(
         from w_pre's g-th Cp channels.  The groups run as ``groups``
         consecutive images of a batch ``N*groups``, a view of the same
         memory, in one launch.
-      impl: ``'auto'`` (the kernels for CUDA tensors, the plain version for
-        CPU tensors), ``'hopper'`` or ``'torch'``.
+      impl: ``'auto'`` (the kernels for CUDA tensors at a K*K they are
+        compiled for, ``_EMBED_GN_TAPS``, else the plain version, counted
+        in ``PLAIN_EMBED_GN_CALLS`` and on the card warned about once per
+        geometry), ``'hopper'`` (the kernels; raises
+        for a CPU tensor or another K*K) or ``'torch'``.
 
     Eval only, as in the JAX package (its TPU kernel has no VJP): a call
     that would record a gradient raises.  w2 is cast to x's dtype and b2,
@@ -1017,9 +1042,16 @@ def local_aggregate_embed_gn(
     args = (x, w_pre, w2.to(x.dtype), b2.float(), gamma.float(), beta.float())
     geometry = dict(kernel_size=kernel_size, dilation=dilation,
                     padding=padding, eps=eps, groups=groups)
-    if impl != "torch" and on_cuda:
+    # the kernel holds the taps in registers for the K*K in _EMBED_GN_TAPS
+    # only: elsewhere 'auto' takes the plain version, as the JAX package's
+    # embed op falls back to plain jnp where its Pallas plan does not apply
+    compiled = k2 in _EMBED_GN_TAPS
+    if impl == "hopper" or (impl == "auto" and on_cuda and compiled):
         return local_aggregate_embed_gn_hopper(
             *(t.contiguous() for t in args), **geometry)
+    if impl == "auto" and on_cuda:
+        _warn_plain_fallback("local_aggregate_embed_gn", f"{k2} taps", (
+            str(x.dtype), tuple(x.shape), tuple(w_pre.shape), k2))
     return local_aggregate_embed_gn_plain(*args, **geometry)
 
 

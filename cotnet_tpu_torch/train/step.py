@@ -11,6 +11,10 @@ from torch.func import functional_call
 
 from cotnet_tpu_torch.models.cotnet import CotLayer
 from cotnet_tpu_torch.nn.drop import set_generator
+from cotnet_tpu_torch.parallel import mesh
+from cotnet_tpu_torch.parallel.collectives import (average_gradients,
+                                                    average_tensors,
+                                                    sum_tensor)
 from cotnet_tpu_torch.train.optim import global_norm
 from cotnet_tpu_torch.train.state import TrainState, ema_update, float_state
 
@@ -47,6 +51,21 @@ def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
     raises ``ValueError`` here.  An optimizer with ``schedule_offset`` (1
     for AdaHessian) takes the schedule's rate that many steps ahead, as the
     JAX package's does; the ``lr`` metric stays ``schedule_fn(step)``.
+
+    Data parallel (a default process group of W > 1 ranks, each with its
+    rows of the global batch): the BatchNorms take global statistics, mixup
+    mixes over the global batch (``data/mixup.py``), the loss is the rank's
+    own mean, and before the norm and the update the gradients are averaged
+    across ranks in one all-reduce of a flat f32 buffer
+    (``parallel.collectives.average_gradients``), so clipping, the update,
+    Lookahead and the EMA see the same gradients on every rank.  The
+    ``loss`` metric is the global mean.  The model is not wrapped in
+    ``DistributedDataParallel``, which would rename every state_dict key.
+    AdaHessian's ``hessian_diag`` is averaged the same way (its probes are
+    drawn alike on every rank).  Drop path and dropout draw per rank, from
+    a generator seeded by the step generator's seed, the step and the
+    rank: they are not the draws one process makes, as in any
+    data-parallel run.
     """
     if second_order and any(isinstance(m, CotLayer) for m in model.modules()):
         raise ValueError(
@@ -64,7 +83,13 @@ def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
         images, labels = batch["image"], batch["label"]
         if mixup_fn is not None:
             images, labels = mixup_fn(images, labels, generator)
-        set_generator(model, generator)
+        world = mesh.world_size()
+        drop_generator = generator
+        if world > 1 and generator is not None:
+            drop_generator = torch.Generator(generator.device).manual_seed(
+                (generator.initial_seed() * 1000003 + state.step * world
+                 + mesh.rank()) % (1 << 63))
+        set_generator(model, drop_generator)
 
         lr = float(schedule_fn(state.step)) * state.lr_scale
         step_lr = lr if not offset else (
@@ -76,9 +101,14 @@ def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
         if second_order:
             extra = {"hessian_diag": hessian_diagonal(
                 loss, params, rademacher_probes(params, generator))}
+            # the probes are the same on every rank: the global estimate
+            # is the mean of the ranks'
+            average_tensors(extra["hessian_diag"])
         else:
             loss.backward()
             extra = {}
+        # the identity on one rank: the loss stays the tensor it was
+        loss = average_gradients(params, extra={"loss": loss})["loss"]
         grads = [p.grad for p in params if p.grad is not None]
         grad_norm = global_norm(grads)
         optimizer.step(**extra)
@@ -126,7 +156,11 @@ def make_eval_step(model, tta_hflip: bool = False,
     flipped images.  ``tensors`` (state_dict name -> tensor, such as
     ``TrainState.ema``) stand in for the model's own for this call
     (``torch.func.functional_call``): the EMA is evaluated without touching
-    the live weights (the JAX step's ``use_ema``)."""
+    the live weights (the JAX step's ``use_ema``).
+
+    Data parallel: the counts are summed across ranks (one all-reduce), as
+    GSPMD gives the JAX step global counts; ``topk`` stays the rank's rows
+    (``Evaler`` gathers them)."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor],
@@ -154,7 +188,10 @@ def make_eval_step(model, tta_hflip: bool = False,
         correct5 = (topk == labels[:, None]).any(dim=1).float() * valid
         out = {"top1_count": correct1.sum(), "top5_count": correct5.sum(),
                "n": valid.float().sum()}
-        if return_topk:  # for ReaL-labels scoring
+        if mesh.world_size() > 1:
+            counts = sum_tensor(torch.stack(list(out.values())))
+            out = dict(zip(out, counts))
+        if return_topk:  # for ReaL-labels scoring, this rank's rows
             out["topk"] = topk
         return out
 

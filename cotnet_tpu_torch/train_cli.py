@@ -13,6 +13,19 @@ mode); ``--eval-only`` evaluates the resumed state, with ``--real-labels``
 ImageNet ReaL too.  One flag is the port's own: ``--device`` (``cuda`` by
 default, which raises without a card; ``cpu`` runs the plain versions).
 
+Data parallel, one process per card (or per CPU rank under gloo)::
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m cotnet_tpu_torch.train_cli --folder <exp> [--device cpu]
+
+``initialize_distributed()`` reads torchrun's environment (NCCL on the
+cards, gloo with ``--device cpu``); each rank runs on ``cuda:LOCAL_RANK``
+with its rows of the recipe's global batch, seeds numpy with ``seed +
+rank`` as the JAX CLI's ``setup_env`` does, and keeps the step generator's
+seed, the same on every rank.  Rank 0 alone writes the checkpoints and the
+recovery file, and every rank waits for the write; every rank reads on
+resume.
+
 ``model.kernel_impl``: ``auto`` takes the Hopper kernels on the card (the
 plain versions on the CPU), ``pallas`` the kernels always (it raises on the
 CPU), ``xla`` the plain versions (``block_args=dict(impl="torch")``).
@@ -161,9 +174,29 @@ def main(argv=None) -> dict:
     """Run the CLI; returns ``{"eval": the last eval's results, "best": the
     best metric (None with --eval-only), "state": the TrainState}``."""
     args = parse_args(argv)
+    from cotnet_tpu_torch.parallel import mesh
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train_cli --device cuda needs a CUDA device; "
+                           "pass --device cpu to run the plain versions")
+    # torchrun's group where its environment is set, else one process
+    joined = (not torch.distributed.is_initialized()
+              and mesh.initialize_distributed(device=device))
+    try:
+        if device.type == "cuda":
+            device = mesh.local_device()
+        return _run(args, device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, device) -> dict:
     from cotnet_tpu_torch.config import load_experiment
     from cotnet_tpu_torch.evaler import Evaler
     from cotnet_tpu_torch.ops.flops import get_model_complexity
+    from cotnet_tpu_torch.parallel import mesh
     from cotnet_tpu_torch.train.loss import label_smoothing_cross_entropy
     from cotnet_tpu_torch.train.optim import sync_lookahead
     from cotnet_tpu_torch.train.state import TrainState
@@ -172,10 +205,6 @@ def main(argv=None) -> dict:
     from cotnet_tpu_torch.utils.logger import logger_info, setup_default_logging
     from cotnet_tpu_torch.utils.meters import TrainMeter
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train_cli --device cuda needs a CUDA device; "
-                           "pass --device cpu to run the plain versions")
     cfg = load_experiment(args.folder)
     if args.model:
         cfg["model"]["name"] = args.model
@@ -186,7 +215,7 @@ def main(argv=None) -> dict:
         cfg["data_loader"]["vbatch_size"] = args.batch_size
     logger = setup_default_logging(args.folder)
     seed = int(cfg.seed)
-    np.random.seed(seed)
+    np.random.seed(seed + mesh.rank())
 
     model, data_cfg = build_model(cfg, device)
     if args.img_size:

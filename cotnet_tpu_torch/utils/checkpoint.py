@@ -19,6 +19,11 @@ does not keep) and ``metric``, plus ``step`` and ``lr_scale``.  Every file is
 written under a temporary name, flushed to disk and moved into place with
 ``os.replace``, so a save cut short leaves the previous file whole.  The
 ranking lives in ``index.json`` beside the files.
+
+Data parallel: every rank keeps the ranking in memory, rank 0 alone writes
+the files (the reference's rule, SURVEY.md:287), and each save ends at a
+barrier, so no rank reads a checkpoint before it is whole.  Every rank
+reads on restore.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from typing import Dict, Optional
 
 import torch
 
+from cotnet_tpu_torch.parallel.collectives import barrier
+from cotnet_tpu_torch.parallel.mesh import rank
 from cotnet_tpu_torch.utils.convert import load_torch_checkpoint
 
 
@@ -86,7 +93,9 @@ class CheckpointSaver:
         self.mode = metric_mode
         self.recovery_interval = recovery_interval
         self.arch = arch
-        os.makedirs(self.dir, exist_ok=True)
+        self.writes = rank() == 0
+        if self.writes:
+            os.makedirs(self.dir, exist_ok=True)
         self.index_path = os.path.join(self.dir, "index.json")
         self.index = []
         if os.path.exists(self.index_path):
@@ -106,7 +115,9 @@ class CheckpointSaver:
         """Save, rank by metric, prune beyond ``max_history``
         (checkpoint_saver.py:71-101), point ``last`` at it."""
         path = self._ckpt_path(epoch)
-        _save(checkpoint_dict(state, epoch, float(metric), self.arch), path)
+        if self.writes:
+            _save(checkpoint_dict(state, epoch, float(metric), self.arch),
+                  path)
         self.index = [e for e in self.index if e["epoch"] != epoch]
         self.index.append({"epoch": epoch, "metric": float(metric),
                            "path": path})
@@ -117,22 +128,28 @@ class CheckpointSaver:
             worst = next(e for e in self._worst_first()
                          if e["epoch"] != epoch)
             self.index.remove(worst)
-            if os.path.exists(worst["path"]):
+            if self.writes and os.path.exists(worst["path"]):
                 os.remove(worst["path"])
-        _save_json(self.index, self.index_path)
-        last = os.path.join(self.dir, "last.pth.tar")
-        tmp = last + ".tmp"
-        if os.path.lexists(tmp):
-            os.remove(tmp)
-        os.symlink(os.path.basename(path), tmp)
-        os.replace(tmp, last)
+        if self.writes:
+            _save_json(self.index, self.index_path)
+            last = os.path.join(self.dir, "last.pth.tar")
+            tmp = last + ".tmp"
+            if os.path.lexists(tmp):
+                os.remove(tmp)
+            os.symlink(os.path.basename(path), tmp)
+            os.replace(tmp, last)
+        barrier()
 
     def save_recovery(self, state, epoch: int) -> None:
-        if self.recovery_interval and epoch % self.recovery_interval == 0:
+        if not (self.recovery_interval
+                and epoch % self.recovery_interval == 0):
+            return
+        if self.writes:
             _save(checkpoint_dict(state, epoch, arch=self.arch),
                   os.path.join(self.dir, "recovery.pth.tar"))
             _save_json({"epoch": epoch},
                        os.path.join(self.dir, "recovery.json"))
+        barrier()
 
     def find_recovery(self) -> Optional[dict]:
         meta = os.path.join(self.dir, "recovery.json")

@@ -8,8 +8,10 @@ weights made by the JAX package load into the port, and the port's
 state_dict is the reference's torch layout:
 
 - conv kernels HWIO -> OIHW; the classifier Dense ``[I, O]`` -> Linear
-  ``[O, I]``; the CotLayer SE Dense layers -> 1x1 convs ``[O, I, 1, 1]``
-  (the reference's ``se.0``/``se.3``);
+  ``[O, I]``; the CotLayer SE Dense layers and those of a block's
+  attention module (``se/fc1``, ``se/fc2``, ``se/fc``) -> 1x1 convs
+  ``[O, I, 1, 1]`` (the reference's ``se.0``/``se.3``, ``se.fc1`` ...);
+  ECA's 1-D kernel ``[k, 1, 1]`` -> Conv1d ``[1, 1, k]``;
 - norm ``scale``/``bias`` -> ``weight``/``bias``; BN ``mean``/``var`` ->
   ``running_mean``/``running_var`` with ``num_batches_tracked`` = 0;
 - ``layer1_0`` -> ``layer1.0``, ``head/fc`` -> ``fc``,
@@ -115,7 +117,9 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
         if leaf == "kernel":
             if val.ndim == 4:
                 val = np.transpose(val, (3, 2, 0, 1))
-            elif owner in _SE_DENSE:
+            elif val.ndim == 3:  # ECA's Conv1d
+                val = np.transpose(val, (2, 1, 0))
+            elif owner in _SE_DENSE or parts[-2:-1] == ["se"]:
                 val = val.T[:, :, None, None]
             else:
                 val = val.T

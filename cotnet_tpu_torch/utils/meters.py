@@ -8,7 +8,9 @@ step does not synchronise with the card, so in the steady state it is the
 host's time to enqueue a step, as the JAX package's asynchronous dispatch
 gives it too; the loss read at each log interval waits for the card.
 TestMeter: top-1/top-5 accumulation of counts the eval step has already
-masked and summed.
+masked and summed, across ranks too under data parallelism (the
+reference's ``sum_tensor`` all-reduce, meters.py:160-167, is in
+``make_eval_step``).
 """
 
 from __future__ import annotations

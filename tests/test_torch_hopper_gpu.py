@@ -85,15 +85,66 @@ def test_hopper_grad_goes_through_the_kernels():
 
 @pytest.mark.parametrize("impl", ["auto", "hopper"])
 def test_cuda_strided_call_is_refused(impl):
-    """The kernel computes stride 1 only; a strided CUDA call raises rather
-    than run the plain version on the card."""
+    """The kernel computes stride 1 only.  Under 'hopper' a strided CUDA
+    call raises; under 'auto' it takes the plain version, as the JAX
+    package's auto takes XLA at any stride above 1, counts as a plain
+    call with no launch and warns once for the geometry."""
     _need_cuda()
     x, w, _, _, pad = make_inputs(0, stride=2)
     xt, wt = (t.cuda() for t in to_port(x, w)[:2])
-    plain = la.PLAIN_CALLS
-    with pytest.raises(NotImplementedError, match="stride 1"):
-        la.local_aggregate(xt, wt, stride=2, padding=pad, impl=impl)
-    assert la.PLAIN_CALLS == plain
+    la.reset_counts()
+    plain, launches = la.PLAIN_CALLS, la.LAUNCHES
+    if impl == "hopper":
+        with pytest.raises(NotImplementedError, match="stride 1"):
+            la.local_aggregate(xt, wt, stride=2, padding=pad, impl=impl)
+        assert la.PLAIN_CALLS == plain
+        return
+    with pytest.warns(RuntimeWarning, match="no kernel computes stride"):
+        got = la.local_aggregate(xt, wt, stride=2, padding=pad, impl=impl)
+    assert len(la.PLAIN_FALLBACKS) == 1
+    assert (la.PLAIN_CALLS, la.LAUNCHES) == (plain + 1, launches)
+    ref = la.local_aggregate(xt, wt, stride=2, padding=pad, impl="torch")
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("impl", ["auto", "hopper"])
+@pytest.mark.parametrize("taps", ["narrowed", "uncompiled"])
+def test_embed_gn_outside_the_compiled_taps(impl, taps, monkeypatch):
+    """The fused embed kernel is compiled for the K*K of ``_EMBED_GN_TAPS``.
+    Outside them (K = 7 with the tuple narrowed, or K = 9, 81 taps)
+    'hopper' raises and 'auto' takes the plain version, as the JAX
+    package's embed op falls back to plain jnp where its plan does not
+    apply, and warns once for the geometry."""
+    _need_cuda()
+    k = 7 if taps == "narrowed" else 9
+    if taps == "narrowed":
+        monkeypatch.setattr(la, "_EMBED_GN_TAPS", (9, 25))
+    assert k * k not in la._EMBED_GN_TAPS
+    gen = torch.Generator("cuda").manual_seed(2)
+    n, c, cp, h, w = 2, 16, 8, 9, 8
+    f = k * k * c // 8
+    x = torch.randn(n, c, h, w, device="cuda", generator=gen)
+    w_pre = torch.randn(n, cp, h, w, device="cuda", generator=gen)
+    w2 = 0.1 * torch.randn(f, cp, device="cuda", generator=gen)
+    vecs = [0.2 * torch.randn(f, device="cuda", generator=gen)
+            for _ in range(3)]
+    vecs[1] += 1.0
+    la.reset_counts()
+    with torch.no_grad():
+        if impl == "hopper":
+            with pytest.raises(NotImplementedError, match="compiled for"):
+                la.local_aggregate_embed_gn(x, w_pre, w2, *vecs,
+                                            kernel_size=k, impl=impl)
+            assert (la.EMBED_GN_LAUNCHES, la.PLAIN_EMBED_GN_CALLS) == (0, 0)
+            return
+        with pytest.warns(RuntimeWarning, match=f"{k * k} taps"):
+            got = la.local_aggregate_embed_gn(x, w_pre, w2, *vecs,
+                                              kernel_size=k, impl=impl)
+        assert (la.EMBED_GN_LAUNCHES, la.PLAIN_EMBED_GN_CALLS) == (0, 1)
+        assert len(la.PLAIN_FALLBACKS) == 1
+        ref = la.local_aggregate_embed_gn(x, w_pre, w2, *vecs, kernel_size=k,
+                                          impl="torch")
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
