@@ -148,14 +148,18 @@ printing the last line:
    card.  The forward at the four aggregation geometries of cotnet50
    (N=128 and 80, the CLI's train batch), the four per-group ones of cotnext50_2x48d (N=256) and those
    of se_cotnetd_152 (N=128 and 64), bf16, with and without the GroupNorm
-   affine, general f32 cases (heads=2, K=5 and 7, dilation 2, odd H != W),
+   affine; san19's five (K = 3 on 112x112 with Cw = 2, K = 7 at 56, 28,
+   14 and 7) and lrnet50's three pre-pool ones (C = 128, 256, 512 at 56,
+   28, 14), N=128, bf16, without the affine (no path of theirs runs it);
+   general f32 cases (heads=2, K=5 and 7, dilation 2, odd H != W),
    a reflect-padded case, the edges of the halo tiles in bf16 (a 3x3 map,
    57x57, 13x11 with Cw=6, N=1 at 56x56) and the geometries beyond them
    (K=5 on 3x513 and K=3 on 2x2049 in bf16, K=9 in bf16, K=7 at dilation
    8 on 16x256 in f32), each forward, dx, dw and affine dw entry naming
    the route its launcher took (``variant``: ``k3``, ``general`` or
    ``pointwise``; the geometries beyond the tiles must take ``pointwise``,
-   every main path ``k3``); the backward kernels (dx, dw, and with the
+   every main path ``k3`` but san19's K = 7 launches, which must take
+   ``general``, ``GEOMETRY_ROUTE``); the backward kernels (dx, dw, and with the
    affine dx and dw+ds+db) at the same geometries, the reflect case
    through autograd as well, each affine dw launched twice and its dw, ds
    and db bit-identical; the fused embed kernels at the eight
@@ -185,6 +189,29 @@ printing the last line:
    (data-sheet rates) and the byte bound at the device copy rate measured
    first; each case's launches in the main paths' runs (0 for a shape no
    main path launches).
+
+13. The CoT paper's comparison families (run before phase 12, whose cases
+   account for their launches): san19, lrnet50, BoTNetS1_59 (256),
+   lambdanet50 and resnet50_dw in f32 at bs4 with TF32 off, seeded
+   weights and BN statistics calibrated on the images: logits on the card
+   against the port on the CPU at 1e-3 of the largest logit; for san19
+   and lrnet50 also through the kernels against the plain path on the
+   card (19 and 16 forward launches and no plain call a forward) and
+   every dx and dw launch of one backward against the plain backward on
+   the model's own tensors (1e-5 of the largest); five steps that lower
+   each loss.  The bf16 main paths of san19 and lrnet50 at 224 bs128: the
+   eval step (the plain forward once an aggregation) and the train step
+   under the CoTNet-50 recipe's solver, mixup and EMA (forward, dx, dw
+   once an aggregation), with images/s, peak memory, launches by shape
+   and a profile; BoTNetS1_59's, lambdanet50's and resnet50_dw's bf16
+   eval steps at bs128 (images/s, device kernels and busy ms, peak
+   memory, no launch of the op).  cotnet50's bf16 recipe train step at
+   bs128 with ``remat`` beside without it (images/s, peak memory; with it
+   the forward launches twice a layer), and in f32 at bs16 two steps with
+   drop path and dropout: the same losses, parameter and BN bits and
+   generator state.  ``features_only`` cotnet50's five maps against its
+   ``FeatureInfo``; ``output_stride=16`` cotnet50's bf16 eval at bs128,
+   every launch on ``k3`` with stage 4 at 14x14.  The phase's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -220,6 +247,15 @@ COTNET50_GEOMETRIES = ((64, 56, 3), (128, 28, 4), (256, 14, 6), (512, 7, 3))
 # BlurPool, at 32x32) and all of stage 4 (the first at 16x16)
 SE_COTNETD_152_GEOMETRIES = ((256, 32, 1), (256, 16, 17), (512, 16, 1),
                              (512, 8, 2))
+# phase 13: SAN19's aggregations (C = mid planes, Cw = C/8, one a block):
+# K = 3 on stage 0's 112x112 map, K = 7 on stages 1-4; a fourth element is
+# the K where it is not 3
+SAN19_GEOMETRIES = ((16, 112, 3), (64, 56, 3, 7), (128, 28, 4, 7),
+                    (256, 14, 6, 7), (512, 7, 3, 7))
+# LR-Net50's (C = width, Cw = C/8 heads): a stage's first block aggregates
+# at the map before its stride, which its avg-pool applies after
+LRNET50_GEOMETRIES = ((64, 56, 3), (128, 56, 1), (128, 28, 3), (256, 28, 1),
+                      (256, 14, 5), (512, 14, 1), (512, 7, 2))
 # model -> (channel groups of its CoT layers, geometries per group, image
 # size): the groups of a CoXtLayer run as images of a batch BATCH * groups
 MODELS = {
@@ -227,7 +263,22 @@ MODELS = {
     "cotnext50_2x48d": (2, ((48, 56, 3), (96, 28, 4), (192, 14, 6),
                             (384, 7, 3)), 224),
     "se_cotnetd_152": (1, SE_COTNETD_152_GEOMETRIES, 256),
+    "san19": (1, SAN19_GEOMETRIES, 224),
+    "lrnet50": (1, LRNET50_GEOMETRIES, 224),
 }
+# the models whose aggregation runs without the GroupNorm affine: their
+# eval path launches the plain forward, and no affine kernel is on any of
+# their paths
+UNFOLDED_MODELS = ("san19", "lrnet50")
+# the route every main-path launch of the forward, dx and dw takes at a
+# geometry (C, map, K) where it is not k3: SAN19's K = 7 aggregations, on
+# the general route's halo tiles
+GEOMETRY_ROUTE = {(c, hw, 7): "general" for c, hw, _, *k in SAN19_GEOMETRIES
+                  if k == [7]}
+# phase 13, the other comparison families: image size, and no op on their
+# path
+FAMILY_EVAL_MODELS = {"BoTNetS1_59": 256, "lambdanet50": 224,
+                      "resnet50_dw": 224}
 # the models whose main paths include path B (the fused-embed eval)
 FUSED_MODELS = ("cotnet50", "cotnext50_2x48d")
 TRAIN_BATCH = {"se_cotnetd_152": 64}
@@ -263,13 +314,18 @@ RECIPES = {
     "se_cotnetd_152": dict(
         RECIPE, model=dict(drop_rate=0.25, drop_path_rate=0.15),
         solver=dict(RECIPE["solver"], lr=0.2)),
+    # the CoTNet-50 recipe's solver, mixup and EMA; SAN's chassis has no
+    # dropout or stochastic depth
+    "san19": dict(RECIPE, model={}),
+    "lrnet50": RECIPE,
 }
 REPLACES_MIX = {
     "fwd": "cotnet_tpu/ops/local_agg_pallas.py:2217 _mix_fwd_kernel",
     "dx": "cotnet_tpu/ops/local_agg_pallas.py:2233 _mix_dx_kernel",
     "dw": "cotnet_tpu/ops/local_agg_pallas.py:2248 _mix_dw_kernel",
 }
-# the route of every main-path launch of a kernel; "k3" where not named
+# the route of every main-path launch of a kernel; "k3" where neither this
+# nor GEOMETRY_ROUTE names another
 MAIN_ROUTE = {"local_agg_mix_fwd": "tiles", "local_agg_mix_dx": "tiles",
               "local_agg_mix_dw": "tiles"}
 REPLACES_AFFINE_BWD = {
@@ -462,11 +518,17 @@ def kernel_cases() -> list:
     for name, (groups, geometries, _) in MODELS.items():
         for batch in sorted({BATCH, TRAIN_BATCH.get(name, BATCH),
                              *CLI_BATCHES.get(name, ())}, reverse=True):
-            for c, hw, _ in geometries:
+            for c, hw, _, *k in geometries:
+                k = k[0] if k else 3
                 case = dict(n=batch * groups, c=c, h=hw, w=hw, heads=1,
-                            cw=c // 8, k=3, dil=1, pad_mode="zeros",
+                            cw=c // 8, k=k, dil=1, pad_mode="zeros",
                             dtype=torch.bfloat16)
-                if case not in cases:
+                if (c, hw, k) in GEOMETRY_ROUTE:
+                    case["main_route"] = GEOMETRY_ROUTE[(c, hw, k)]
+                if name in UNFOLDED_MODELS:
+                    # no main path of these models runs the affine
+                    case["affine"] = False
+                if not any(_same_case(case, other) for other in cases):
                     cases.append(case)
     for k in (5, 7):
         cases.append(dict(n=4, c=32, h=13, w=11, heads=2, cw=8, k=k, dil=2,
@@ -496,6 +558,13 @@ def kernel_cases() -> list:
     return cases
 
 
+def _same_case(a: dict, b: dict) -> bool:
+    """Whether two cases launch the same shapes (an affine case covers the
+    same case without it)."""
+    keys = set(a) | set(b)
+    return all(a.get(k) == b.get(k) for k in keys - {"affine"})
+
+
 def route(la, kernel: str, cs, x, w, pad: int) -> str:
     """The route (``k3``, ``general`` or ``pointwise``) that the launcher of
     ``kernel`` (fwd, dx, dw or dw_affine) takes for x and w with the
@@ -508,6 +577,12 @@ def route(la, kernel: str, cs, x, w, pad: int) -> str:
         raise AssertionError(f"{kernel} at {describe(cs, pad)} took the "
                              f"{got} route, not {cs['route']}")
     return got
+
+
+def main_route(cs) -> dict:
+    """The entry's ``main_route`` key: the route its launches on a main path
+    must take where it is not k3 (``GEOMETRY_ROUTE``)."""
+    return {"main_route": cs["main_route"]} if "main_route" in cs else {}
 
 
 def describe(cs, pad, affine=False) -> str:
@@ -585,6 +660,15 @@ class PathCounts:
                     for label, (c, n) in by_path.items()}}
 
 
+def path_kernels_of(model_name: str, kind: str) -> tuple:
+    """The kernels a main path of ``kind`` launches once per aggregation a
+    step: ``PATH_KERNELS``, but the plain forward where a model's eval
+    folds no GroupNorm."""
+    if kind == "eval" and model_name in UNFOLDED_MODELS:
+        return ("fwd",)
+    return PATH_KERNELS[kind]
+
+
 def check_path_launches(snapshot: dict, kind: str, model_name: str,
                         steps: int, batch: int = BATCH):
     """Raise unless a main path's run launched exactly the kernels of its
@@ -592,14 +676,15 @@ def check_path_launches(snapshot: dict, kind: str, model_name: str,
     at ``batch``, no other kernel of the op (the mix kernels included), and
     called no plain version."""
     groups, geometries, _ = MODELS[model_name]
-    want = {(c, hw): per_step * steps for c, hw, per_step in geometries}
+    want = {(c, hw): per_step * steps for c, hw, per_step, *_ in geometries}
+    path_kernels = path_kernels_of(model_name, kind)
     kernels = {kernel for kernel, _ in snapshot["by_key"]}
-    for kernel in kernels | set(PATH_KERNELS[kind]):
+    for kernel in kernels | set(path_kernels):
         got = {}
         for (kern, key), count in snapshot["by_key"].items():
             if kern != kernel:
                 continue
-            if kernel not in PATH_KERNELS[kind]:
+            if kernel not in path_kernels:
                 raise AssertionError(f"{model_name} {kind}: {kernel} "
                                      f"launched {count} times at {key}")
             if kernel == "embed_gn":
@@ -611,7 +696,7 @@ def check_path_launches(snapshot: dict, kind: str, model_name: str,
                 raise AssertionError(f"{model_name} {kind}: {kernel} "
                                      f"launched at {key}")
             got[(c, h)] = got.get((c, h), 0) + count
-        if got != (want if kernel in PATH_KERNELS[kind] else {}):
+        if got != (want if kernel in path_kernels else {}):
             raise AssertionError(f"{model_name} {kind}: {kernel} launches by "
                                  f"(C, map) {got} in {steps} steps")
     if snapshot["plain"]:
@@ -632,7 +717,8 @@ def kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
     entries = []
     for cs in kernel_cases():
         for affine in ((True,) if cs["pad_mode"] == "reflect"
-                       else (False, True)):
+                       else (False, True) if cs.get("affine", True)
+                       else (False,)):
             n, c, h, w, heads, cw, k = (cs[key] for key in (
                 "n", "c", "h", "w", "heads", "cw", "k"))
             dt, dil = cs["dtype"], cs["dil"]
@@ -678,7 +764,7 @@ def kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_fwd.cu",
                 "replaces": REPLACES, "geometry": geometry,
                 "variant": route(la, "fwd", cs, xk, wt, kpad),
-                **launches,
+                **main_route(cs), **launches,
                 "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
@@ -782,7 +868,8 @@ def bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_bwd.cu",
                 "replaces": REPLACES_BWD[kernel], "geometry": geometry,
                 "variant": route(la, kernel, cs, x, wt, kpad),
-                **launches, "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
+                **main_route(cs), **launches, "max_abs_err": max_err,
+                "tol": {"rtol": rtol, "atol": atol},
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
                 "bound_ms_at_copy_rate": nbytes / hbm_rate * 1e3,
@@ -819,6 +906,8 @@ def affine_bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
 
     entries = []
     for cs in kernel_cases():
+        if not cs.get("affine", True):
+            continue
         n, c, h, w, heads, cw, k = (cs[key] for key in (
             "n", "c", "h", "w", "heads", "cw", "k"))
         dt, dil = cs["dtype"], cs["dil"]
@@ -1914,10 +2003,13 @@ def run_main_path(la, paths: PathCounts, model_name: str, kind: str,
     n = TRAIN_BATCH.get(model_name, BATCH) if training else BATCH
     batch = make_batch(n, size)
     torch.cuda.reset_peak_memory_stats()
-    model = create_model(
-        model_name, device="cuda", dtype=torch.bfloat16, seed=0,
-        gn_fold_train=kind == "train_fold", mega_fuse=kind == "eval_fused",
-        **(recipe["model"] if training else {}))
+    # the CoT switches, where the kind turns one on
+    switches = {key: True for key, on in (
+        ("gn_fold_train", kind == "train_fold"),
+        ("mega_fuse", kind == "eval_fused")) if on}
+    model = create_model(model_name, device="cuda", dtype=torch.bfloat16,
+                         seed=0, **switches,
+                         **(recipe["model"] if training else {}))
     if training:
         step, state = recipe_train_step(model, recipe, n)
         gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1962,12 +2054,12 @@ def run_main_path(la, paths: PathCounts, model_name: str, kind: str,
         result = (f"top1 {top1:.0f} top5 {top5:.0f} of {valid:.0f}, peak "
                   f"memory {peak / 2 ** 30:.2f} GiB")
     median = statistics.median(times)
-    layers = sum(per_step for _, _, per_step in MODELS[model_name][1])
+    layers = sum(per_step for _, _, per_step, *_ in MODELS[model_name][1])
     log(f"bf16 {label} {size}x{size} bs{n}: {n / median:.1f} img/s "
         f"(median of {timed} steps, {median * 1e3:.1f} ms a step) on "
         f"{nvidia_smi()}; {result}; per step {layers} launches each of "
-        f"{', '.join(PATH_KERNELS[kind])}, no other kernel of the op, 0 "
-        f"plain calls")
+        f"{', '.join(path_kernels_of(model_name, kind))}, no other kernel "
+        f"of the op, 0 plain calls")
     profile_step(run, f"bf16 {label} step")
     torch.cuda.empty_cache()
 
@@ -1997,7 +2089,7 @@ def hybrid_phase(la, paths: PathCounts):
 
     name = "se_cotnetd_152"
     _, geometries, size = MODELS[name]
-    layers = sum(per_step for _, _, per_step in geometries)
+    layers = sum(per_step for _, _, per_step, *_ in geometries)
     x = images_f32(4, size)
     model = create_model(name, device="cuda", seed=0)
     calibrate_bn(model, x, seed=1)
@@ -3398,6 +3490,296 @@ def chassis_phase(la):
     log(f"chassis phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 13: the CoT paper's comparison families --------------------------
+
+def family_f32_checks(la, name: str):
+    """f32 at bs4 with TF32 off, seeded weights with BN statistics
+    calibrated on the images: the logits on the card against the port on
+    the CPU at 1e-3 of the largest logit; for the models with the op, the
+    logits through the kernels against the plain path on the card, each
+    aggregation one forward launch and no plain call, and every dx and dw
+    launch of one backward held against the plain backward on the model's
+    own tensors (1e-5 of the largest); five steps that lower the loss."""
+    from cotnet_tpu_torch.models import create_model
+
+    size = MODELS[name][2] if name in MODELS else FAMILY_EVAL_MODELS[name]
+    layers = (sum(per_step for _, _, per_step, *_ in MODELS[name][1])
+              if name in UNFOLDED_MODELS else 0)
+    cpu = create_model(name, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(4, 3, size, size, generator=gen) \
+        * torch.linspace(0.5, 2.0, 4)[:, None, None, None]
+    calibrate_bn(cpu, x, seed=1)
+    card = create_model(name, device="cuda", seed=0)
+    card.load_state_dict(cpu.state_dict())
+    xc = x.cuda()
+    with torch.no_grad(), tf32_off():
+        ref = cpu(x)
+        la.reset_counts()
+        got = card(xc)
+        torch.cuda.synchronize()
+        counts = (la.LAUNCHES, la.PLAIN_CALLS)
+        got = got.cpu()
+    del cpu
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if not (torch.isfinite(got).all() and got.shape == (4, 1000)
+            and err <= 1e-3 * scale):
+        raise AssertionError(f"{name} f32 logits {tuple(got.shape)}, card "
+                             f"against CPU: max|err| {err}, max|logit| "
+                             f"{scale}")
+    if counts != (layers, 0):
+        raise AssertionError(f"{name} f32 forward: (launches, plain calls) "
+                             f"{counts}, want ({layers}, 0)")
+    note = ""
+    if layers:
+        plain = create_model(name, device="cuda",
+                             block_args=dict(impl="torch"))
+        plain.load_state_dict(card.state_dict())
+        with torch.no_grad(), tf32_off():
+            ref_card = plain(xc).cpu()
+        del plain
+        err_plain = float((got - ref_card).abs().max())
+        if not err_plain <= 1e-3 * scale:
+            raise AssertionError(f"{name} f32 logits, kernels against the "
+                                 f"plain path: max|err| {err_plain}")
+        labels = torch.randint(0, 1000, (4,), device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(4))
+        strict = backward_launches_match_plain(la, card, xc, labels, layers)
+        note = (f"; kernels against the plain path on the card max|diff| "
+                f"{err_plain:.3g}, {layers} launches and no plain call a "
+                f"forward; each of the {layers} dx and {layers} dw launches "
+                f"of a backward against the plain backward on the model's "
+                f"own tensors: worst max|err|/max|ref| {strict:.3g} (limit "
+                f"1e-5)")
+    log(f"{name} f32 bs4 {size}x{size}: logits on the card against the CPU "
+        f"max|err| {err:.3g} of max|logit| {scale:.3g} (limit 1e-3){note}")
+    loss_falls(la, card, xc)
+    del card
+    torch.cuda.empty_cache()
+
+
+def family_eval_without_op(la, name: str, size: int, timed: int = 4):
+    """The bf16 eval step of a family without the op at bs128: images/s,
+    device kernels and busy ms a step, peak memory; no launch of the op
+    and no plain call."""
+    from cotnet_tpu_torch.models import create_model
+    from cotnet_tpu_torch.train.step import make_eval_step
+
+    batch = make_batch(BATCH, size)
+    torch.cuda.reset_peak_memory_stats()
+    model = create_model(name, device="cuda", dtype=torch.bfloat16, seed=0)
+    eval_step = make_eval_step(model)
+    la.reset_counts()
+    times = []
+    for i in range(2 + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eval_step(batch)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    top1, top5, n = (float(out[k]) for k in ("top1_count", "top5_count",
+                                              "n"))
+    if not 0 <= top1 <= top5 <= n == BATCH - 8:
+        raise AssertionError(f"{name} eval: {top1} {top5} {n}")
+    snapshot = launch_snapshot(la)
+    if snapshot["by_key"] or snapshot["plain"]:
+        raise AssertionError(f"{name} reached the op: {snapshot}")
+    kernels, busy = device_kernels(lambda: eval_step(batch))
+    median = statistics.median(times)
+    log(f"bf16 {name} eval {size}x{size} bs{BATCH}: {BATCH / median:.1f} "
+        f"img/s ({median * 1e3:.2f} ms a step, median of {timed}), {kernels} "
+        f"device kernels busy {busy:.2f} ms a step, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
+        f"{nvidia_smi()}; no launch of the op, 0 plain calls")
+    del model, eval_step
+    torch.cuda.empty_cache()
+
+
+def remat_card(la, paths: PathCounts, timed: int = 4):
+    """``remat`` on the card: cotnet50's bf16 recipe train step at bs128
+    with it and without it (images/s, peak memory; with it the forward
+    kernel launches again in the recompute, dx and dw once a layer, no
+    plain call), then in f32 at bs16 (TF32 off, cuDNN deterministic) two
+    steps with drop path and dropout on: the same losses and parameter and
+    BN bits with and without it."""
+    from cotnet_tpu_torch.models import create_model
+    from cotnet_tpu_torch.train.loss import create_loss_fn
+    from cotnet_tpu_torch.train.optim import create_optimizer
+    from cotnet_tpu_torch.train.state import TrainState, float_state
+    from cotnet_tpu_torch.train.step import make_train_step
+
+    batch = make_batch()
+    images = {"image": batch["image"], "label": batch["label"]}
+    line = []
+    for remat in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        model = create_model("cotnet50", device="cuda", dtype=torch.bfloat16,
+                             seed=0, remat=remat, **RECIPE["model"])
+        step, state = recipe_train_step(model)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        steps = 2 + timed
+        la.reset_counts()
+        times = []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, images, gen)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        fwd, bwd = la.LAUNCHES, dict(la.BWD_LAUNCHES)
+        if remat:
+            snapshot = paths.record(la, "cotnet50 train (remat)", steps)
+            if not (bwd == {"dx": 16 * steps, "dw": 16 * steps}
+                    and 16 * steps < fwd <= 32 * steps
+                    and not snapshot["plain"]
+                    and {k for k, _ in snapshot["by_key"]}
+                    == {"fwd", "dx", "dw"}):
+                raise AssertionError(f"remat train: fwd {fwd}, bwd {bwd}, "
+                                     f"{snapshot}")
+        if not float(m["loss"]) == float(m["loss"]):
+            raise AssertionError(f"remat={remat} train loss {m['loss']}")
+        median = statistics.median(times)
+        line.append(f"remat={remat}: {BATCH / median:.1f} img/s "
+                    f"({median * 1e3:.1f} ms a step), peak memory "
+                    f"{peak / 2 ** 30:.2f} GiB, launches a step fwd "
+                    f"{fwd / steps:.0f} dx {bwd['dx'] / steps:.0f} dw "
+                    f"{bwd['dw'] / steps:.0f}")
+        del model, step, state
+        torch.cuda.empty_cache()
+    log(f"bf16 cotnet50 train {IMAGE}x{IMAGE} bs{BATCH} under the recipe on "
+        f"{nvidia_smi()}: " + "; ".join(line))
+
+    x = images_f32()
+    batch16 = {"image": x, "label": torch.randint(
+        0, 1000, (x.shape[0],), device="cuda",
+        generator=torch.Generator("cuda").manual_seed(5))}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    runs = {}
+    try:
+        with tf32_off():
+            for remat in (False, True):
+                model = create_model("cotnet50", device="cuda", seed=0,
+                                     remat=remat, drop_rate=0.25,
+                                     drop_path_rate=0.1)
+                optimizer = create_optimizer(RECIPE["solver"],
+                                             model.parameters())
+                loss_fn, _ = create_loss_fn(RECIPE["loss"], False)
+                step = make_train_step(model, optimizer, lambda s: 0.01,
+                                       loss_fn)
+                state = TrainState.create(model, optimizer)
+                gen = torch.Generator("cuda").manual_seed(11)
+                losses = []
+                for _ in range(2):
+                    state, m = step(state, batch16, gen)
+                    losses.append(torch.as_tensor(m["loss"]).clone())
+                runs[remat] = (losses, {k: v.detach().clone() for k, v in
+                                        float_state(model).items()},
+                               gen.get_state())
+                del model, optimizer, step, state
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags
+    (l0, p0, g0), (l1, p1, g1) = runs[False], runs[True]
+    differ = [k for k in p0 if not torch.equal(p0[k], p1[k])]
+    if not (all(torch.equal(a, b) for a, b in zip(l0, l1)) and not differ
+            and torch.equal(g0, g1)):
+        raise AssertionError(f"f32 remat: losses {l0} against {l1}, "
+                             f"{len(differ)} tensors differ ({differ[:5]})")
+    log(f"f32 cotnet50 bs{x.shape[0]}, two steps with drop path 0.1 and "
+        f"dropout 0.25 (TF32 off, cuDNN deterministic): remat gives the "
+        f"same losses ({', '.join(f'{float(v):.6f}' for v in l1)}), the "
+        f"same bits in all {len(p0)} parameters and BN statistics, and the "
+        f"same generator state")
+    torch.cuda.empty_cache()
+
+
+def feature_and_dilation_smoke(la, timed: int = 4):
+    """cotnet50 with ``features_only``: its five maps' channels and
+    reductions at 224 equal ``FeatureInfo``'s; cotnet50 at output stride
+    16: the bf16 eval step at bs128, whose stage-4 CoT layers run at 14x14
+    and still launch the forward on k3, with no plain call."""
+    from cotnet_tpu_torch.models import create_model
+    from cotnet_tpu_torch.models.features import FeatureListNet
+    from cotnet_tpu_torch.train.step import make_eval_step
+
+    model = create_model("cotnet50", device="cuda", seed=0,
+                         features_only=True, out_indices=(0, 1, 2, 3, 4))
+    info = FeatureListNet(model).feature_info
+    with torch.no_grad():
+        feats = model(images_f32(4))
+    chans = [f.shape[1] for f in feats]
+    reductions = [IMAGE // f.shape[-1] for f in feats]
+    if (chans, reductions) != (info.channels(), info.reduction()):
+        raise AssertionError(f"features_only cotnet50: channels {chans}, "
+                             f"reductions {reductions}; FeatureInfo "
+                             f"{info.channels()} {info.reduction()}")
+    del model, feats
+
+    model = create_model("cotnet50", device="cuda", dtype=torch.bfloat16,
+                         seed=0, output_stride=16)
+    eval_step = make_eval_step(model)
+    batch = make_batch()
+    la.reset_counts()
+    times = []
+    for i in range(2 + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_step(batch)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    snapshot = launch_snapshot(la)
+    routes = {}
+    for (kernel, key), count in snapshot["by_key"].items():
+        _, affine, xs, ws, dil, pad = key
+        meta = dict(device="meta", dtype=torch.bfloat16)
+        routes[(kernel, xs)] = la.kernel_route(
+            "fwd", torch.empty(xs, **meta), torch.empty(ws, **meta),
+            kernel_size=(3, 3), dilation=dil, padding=pad)
+    if (snapshot["plain"] or {k for k, _ in routes} != {"fwd_affine"}
+            or set(routes.values()) != {"k3"}
+            or (("fwd_affine", (BATCH, 512, 14, 14)) not in routes)):
+        raise AssertionError(f"output_stride=16 eval: routes {routes}, "
+                             f"{snapshot['plain']} plain calls")
+    median = statistics.median(times)
+    log(f"features_only cotnet50 at {IMAGE}: channels {chans}, reductions "
+        f"{reductions}, as FeatureInfo; bf16 eval cotnet50 output_stride=16 "
+        f"bs{BATCH}: {BATCH / median:.1f} img/s ({median * 1e3:.1f} ms a "
+        f"step), {la.LAUNCHES // (2 + timed)} affine forward launches a "
+        f"step, all on k3, stage 4 at 14x14, 0 plain calls")
+    del model, eval_step
+    torch.cuda.empty_cache()
+
+
+def family_phase(la, paths: PathCounts):
+    """Phase 13: the comparison families (f32 checks, bf16 main paths of
+    san19 and lrnet50, the eval steps of the other three), ``remat``, and
+    the feature and dilation smoke."""
+    t_phase = time.perf_counter()
+    for name in (*UNFOLDED_MODELS, *FAMILY_EVAL_MODELS):
+        family_f32_checks(la, name)
+    for name in UNFOLDED_MODELS:
+        run_main_path(la, paths, name, "eval", timed=4)
+        run_main_path(la, paths, name, "train", timed=3)
+    for name, size in FAMILY_EVAL_MODELS.items():
+        family_eval_without_op(la, name, size)
+    remat_card(la, paths)
+    feature_and_dilation_smoke(la)
+    log(f"families phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def expected_route(e) -> str:
+    """The route a main-path launch of entry ``e`` must take."""
+    return e.get("main_route", MAIN_ROUTE.get(e["name"], "k3"))
+
+
 def profile_step(fn, label: str, top: int = 12):
     """One step under torch.profiler: the device time by kernel name and the
     device's busy share of the step's wall time (the profiler's own cost is
@@ -3568,6 +3950,8 @@ def main() -> int:
     chassis_phase(la)
     log(f"data-parallel and chassis phases done at "
         f"{time.perf_counter() - t0:.1f} s")
+    family_phase(la, paths)
+    log(f"families phase done at {time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()
     log(f"device copy rate: {hbm_rate / 1e12:.3f} TB/s (data sheet "
@@ -3583,15 +3967,16 @@ def main() -> int:
         raise AssertionError(
             f"the main paths made {launched} launches, the kernel phase "
             f"accounts for {sum(e['launches'] for e in entries)}")
-    # every main path runs the K = 3 route of the forward, dx and dw, the
-    # mix path the tiles route of the mix's dx and dw
-    off_route = sorted({f"{e['name']} ({e['variant']}) {e['geometry']}"
+    # every main path runs the K = 3 route of the forward, dx and dw but at
+    # the geometries GEOMETRY_ROUTE names (SAN19's K = 7 on general), the
+    # mix path the tiles route of the mix's forward, dx and dw
+    off_route = sorted({f"{e['name']} ({e['variant']}, want "
+                        f"{expected_route(e)}) {e['geometry']}"
                         for e in entries
-                        if e["launches"] and e.get("variant", MAIN_ROUTE.get(
-                            e["name"], "k3")) != MAIN_ROUTE.get(e["name"],
-                                                                "k3")})
+                        if e["launches"] and e.get("variant", expected_route(
+                            e)) != expected_route(e)})
     if off_route:
-        raise AssertionError(f"main-path launches off the k3 route: "
+        raise AssertionError(f"main-path launches off their route: "
                              f"{off_route}")
     path_labels = []
     for by_path in paths.by_key.values():

@@ -1,6 +1,7 @@
 # importing the model modules registers their entrypoints
-from cotnet_tpu_torch.models import (cotnet, cotnet_hybrid,  # noqa: F401
-                                     resnet)
+from cotnet_tpu_torch.models import (botnet, cotnet,  # noqa: F401
+                                     cotnet_hybrid, lambda_net, lr_net,
+                                     resnet, resnet_dw, san)
 from cotnet_tpu_torch.models.factory import create_model
 from cotnet_tpu_torch.models.helpers import get_model_default_cfg
 from cotnet_tpu_torch.models.registry import (

@@ -5,7 +5,9 @@ from __future__ import annotations
 
 import copy
 import sys
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Tuple
+
+import torch
 
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
@@ -62,3 +64,49 @@ def register_variant_table(module_name: str, build: Callable,
         fn.__doc__ = f"{name} (an entrypoint of the variant table)"
         setattr(mod, name, fn)
         register_model(fn)
+
+
+class _Features(torch.nn.Module):
+    """``model.forward_features`` as a module's forward, for
+    ``functional_call``."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x):
+        return self.inner.forward_features(x)
+
+
+def feature_shapes(model, input_size: int = 224) -> List[Tuple[int, int, int]]:
+    """``(channels, height, width)`` of each of ``model.forward_features``'s
+    outputs for one ``input_size`` image, traced on the meta device in eval
+    mode: the parameters and buffers are replaced by meta tensors for the
+    call, so nothing is computed or allocated and the model is left as it
+    is."""
+    from torch.func import functional_call
+
+    meta = {f"inner.{k}": torch.empty_like(v, device="meta")
+            for k, v in list(model.named_parameters())
+            + list(model.named_buffers())}
+    x = torch.empty(1, 3, input_size, input_size, device="meta")
+    training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            outs = functional_call(_Features(model), meta, (x,))
+    finally:
+        model.train(training)
+    return [tuple(int(d) for d in o.shape[1:]) for o in outs]
+
+
+def get_feature_info(model, input_size: int = 224) -> List[dict]:
+    """Per-stage feature metadata (reference models/features.py
+    FeatureInfo): ``[{'num_chs', 'reduction'}]`` of the features at the
+    model's ``out_indices``, as the JAX package's ``get_feature_info``
+    derives them from its ``features_only`` outputs; from a meta-device
+    shape trace (``feature_shapes``)."""
+    shapes = feature_shapes(model, input_size)
+    return [{"num_chs": shapes[i][0],
+             "reduction": int(round(input_size / shapes[i][1]))}
+            for i in model.out_indices]

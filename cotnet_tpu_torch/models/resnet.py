@@ -22,11 +22,23 @@ Ported so far, at output stride 32:
   dropout, the per-block stochastic-depth ramp, DropBlock in stages 3
   and 4).
 
-Blocks that declare ``aa``, ``block_idx`` or ``reduce_first`` get them.
+Blocks that declare ``aa``, ``block_idx``, ``reduce_first``,
+``dilation`` or ``first_dilation`` get them.
 Submodule names are the reference's (``conv1``, ``bn1``, ``layerX.Y``,
 ``downsample.0/1`` or ``downsample.1/2``, ``fc``, a block's ``se``), so its
-state_dicts load as they are.  Not ported yet: ``output_stride`` 8 and 16,
-``features_only``, ``remat`` and the ``aa_layer``s other than ``blur``.
+state_dicts load as they are.  Besides:
+
+- ``output_stride`` 8 or 16: once the net's stride reaches it, a stage's
+  stride turns into dilation of its 3x3 convs and shortcuts;
+- ``features_only``: the forward returns the features at ``out_indices``
+  (0 the stem's, after its activation and before the pool; 1-4 the
+  stages'), and the stages beyond the largest index and the classifier are
+  not built (``models/features.py`` wraps a model for its pyramid);
+- ``remat``: in training each block's activations are recomputed in the
+  backward (``nn.remat.remat_call``), with the same bits.
+
+``aa_layer`` is None or ``"blur"``, as in the JAX chassis; any other name
+raises.
 """
 
 from __future__ import annotations
@@ -52,30 +64,37 @@ from cotnet_tpu_torch.nn import (
     get_padding,
     max_pool2d,
 )
+from cotnet_tpu_torch.nn.remat import remat_call
 
 default_cfgs = {}  # filled beside the variant table below
 
 
 class Downsample(nn.Sequential):
     """Identity-path projection: strided conv + BN as ``downsample.0/1``
-    (reference resnet.py:365-378), the conv 1x1, or ``kernel_size`` where
-    it strides; or with ``avg`` the ResNet-D form, a 2x2 avg-pool
-    (``ceil_mode=True, count_include_pad=False``; the identity at stride 1)
-    then a 1x1 conv and BN as ``downsample.1/2`` (reference
-    resnet.py:380-395)."""
+    (reference resnet.py:365-378), the conv 1x1, or ``kernel_size`` at
+    dilation ``first_dilation or dilation`` where it strides or the stage
+    is dilated; or with ``avg`` the ResNet-D form, a 2x2 avg-pool
+    (``ceil_mode=True, count_include_pad=False``; the identity at stride 1
+    and dilation 1, stride 1 in a dilated stage) then a 1x1 conv and BN as
+    ``downsample.1/2`` (reference resnet.py:380-395; the JAX chassis'
+    ``Downsample``, ``cotnet_tpu/models/resnet.py:37-63``)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  avg: bool = False, kernel_size: int = 1,
+                 dilation: int = 1, first_dilation: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
-        ks = 1 if avg or stride == 1 else kernel_size
+        plain = stride == 1 and dilation == 1
+        ks = 1 if avg or plain else kernel_size
+        fd = (first_dilation or dilation) if ks > 1 else 1
         conv_bn = (Conv2d(in_channels, out_channels, ks, 1 if avg else stride,
-                          get_padding(ks, stride), dtype=dtype),
+                          get_padding(ks, stride, fd), fd, dtype=dtype),
                    BatchNorm2d(out_channels, dtype=dtype))
         if not avg:
             super().__init__(*conv_bn)
             return
-        pool = (nn.Identity() if stride == 1 else
-                nn.AvgPool2d(2, stride, ceil_mode=True, count_include_pad=False))
+        pool = (nn.Identity() if plain else
+                nn.AvgPool2d(2, stride if dilation == 1 else 1,
+                             ceil_mode=True, count_include_pad=False))
         super().__init__(pool, *conv_bn)
 
 
@@ -108,18 +127,21 @@ def deep_stem(in_chans: int, stem_type: str, stem_width: int, act: str,
 
 
 class BasicBlock(nn.Module):
-    """Two 3x3 convs (reference resnet.py:219-283).  ``attn_layer`` (a
-    ``create_attn`` key) follows bn2 as ``se``; with ``aa`` a stride-2
-    block convolves at stride 1 and blurs (``aa``) after the first
-    activation; ``drop_block`` ``(rate, block_size, gamma_scale)`` follows
-    each BN and ``drop_path_rate`` drops the residual branch per sample."""
+    """Two 3x3 convs (reference resnet.py:219-283), the first at dilation
+    ``first_dilation or dilation``, the second at ``dilation``.
+    ``attn_layer`` (a ``create_attn`` key) follows bn2 as ``se``; with
+    ``aa`` a stride-2 block convolves at stride 1 and blurs (``aa``) after
+    the first activation; ``drop_block`` ``(rate, block_size,
+    gamma_scale)`` follows each BN and ``drop_path_rate`` drops the
+    residual branch per sample."""
 
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: Optional[nn.Module] = None,
                  cardinality: int = 1, base_width: int = 64,
-                 reduce_first: int = 1, act: str = "relu",
+                 reduce_first: int = 1, dilation: int = 1,
+                 first_dilation: Optional[int] = None, act: str = "relu",
                  attn_layer=None, aa: bool = False,
                  drop_block: Optional[tuple] = None,
                  drop_path_rate: float = 0.0,
@@ -131,13 +153,15 @@ class BasicBlock(nn.Module):
                              "64 only")
         first_planes = planes // reduce_first
         outplanes = planes * self.expansion
+        fd = first_dilation or dilation
         use_aa = aa and stride == 2
         self.act = get_act_fn(act)
         self.conv1 = Conv2d(inplanes, first_planes, 3,
-                            1 if use_aa else stride, 1, dtype=dtype)
+                            1 if use_aa else stride, fd, fd, dtype=dtype)
         self.bn1 = BatchNorm2d(first_planes, dtype=dtype)
         self.aa = BlurPool2d(stride=stride) if use_aa else None
-        self.conv2 = Conv2d(first_planes, outplanes, 3, 1, 1, dtype=dtype)
+        self.conv2 = Conv2d(first_planes, outplanes, 3, 1, dilation, dilation,
+                            dtype=dtype)
         self.bn2 = BatchNorm2d(outplanes, zero_init=zero_init_last_bn,
                                dtype=dtype)
         self.se = create_attn(attn_layer, outplanes, dtype=dtype)
@@ -158,8 +182,9 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 (grouped by ``cardinality``) -> 1x1 (reference
-    resnet.py:286-362), width ``planes * base_width / 64 * cardinality``;
+    """1x1 -> 3x3 (grouped by ``cardinality``, at dilation ``first_dilation
+    or dilation``) -> 1x1 (reference resnet.py:286-362), width ``planes *
+    base_width / 64 * cardinality``;
     ``attn_layer`` (with ``attn_kwargs``) follows bn3 as ``se``; ``aa``,
     ``drop_block`` and ``drop_path_rate`` as in ``BasicBlock``."""
 
@@ -168,7 +193,8 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: Optional[nn.Module] = None,
                  cardinality: int = 1, base_width: int = 64,
-                 reduce_first: int = 1, act: str = "relu",
+                 reduce_first: int = 1, dilation: int = 1,
+                 first_dilation: Optional[int] = None, act: str = "relu",
                  attn_layer=None, attn_kwargs: Optional[dict] = None,
                  aa: bool = False, drop_block: Optional[tuple] = None,
                  drop_path_rate: float = 0.0,
@@ -178,12 +204,13 @@ class Bottleneck(nn.Module):
         width = int(planes * (base_width / 64)) * cardinality
         first_planes = width // reduce_first
         outplanes = planes * self.expansion
+        fd = first_dilation or dilation
         use_aa = aa and stride == 2
         self.act = get_act_fn(act)
         self.conv1 = Conv2d(inplanes, first_planes, 1, dtype=dtype)
         self.bn1 = BatchNorm2d(first_planes, dtype=dtype)
         self.conv2 = Conv2d(first_planes, width, 3, 1 if use_aa else stride,
-                            1, groups=cardinality, dtype=dtype)
+                            fd, fd, groups=cardinality, dtype=dtype)
         self.bn2 = BatchNorm2d(width, dtype=dtype)
         self.aa = BlurPool2d(stride=stride) if use_aa else None
         self.conv3 = Conv2d(width, outplanes, 1, dtype=dtype)
@@ -225,13 +252,16 @@ class ResNet(nn.Module):
     first), ``drop_block_rate`` the DropBlock rate of stages 3 and 4.
     ``stem_type``, ``stem_width``, ``stem_act`` (default ``act``),
     ``replace_stem_pool``, ``avg_down``, ``down_kernel_size``,
-    ``block_reduce_first`` and ``aa_layer`` (None or ``"blur"``) are the
-    stem, shortcut and block options of the module docstring."""
+    ``block_reduce_first``, ``aa_layer`` (None or ``"blur"``),
+    ``output_stride`` (8, 16 or 32), ``features_only`` with
+    ``out_indices``, and ``remat`` are the options of the module
+    docstring."""
 
     def __init__(self, block, layers: Sequence[int], num_classes: int = 1000,
                  in_chans: int = 3, cardinality: int = 1,
                  base_width: int = 64, stem_width: int = 64,
                  stem_type: str = "", replace_stem_pool: bool = False,
+                 output_stride: int = 32,
                  avg_down: bool = False, down_kernel_size: int = 1,
                  block_reduce_first: int = 1, act: str = "relu",
                  stem_act: Optional[str] = None,
@@ -240,6 +270,9 @@ class ResNet(nn.Module):
                  drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  drop_block_rate: float = 0.0,
                  block_args: Optional[dict] = None,
+                 features_only: bool = False,
+                 out_indices: Sequence[int] = (1, 2, 3, 4),
+                 remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         accepted = inspect.signature(block).parameters
@@ -247,13 +280,18 @@ class ResNet(nn.Module):
         def takes(kwargs):
             return {k: v for k, v in kwargs.items() if k in accepted}
 
+        if output_stride not in (8, 16, 32):
+            raise ValueError(f"output_stride {output_stride}: 8, 16 or 32")
+        if aa_layer not in (None, "blur"):
+            raise NotImplementedError(f"aa_layer {aa_layer!r} is not ported")
         block_args = takes(block_args or {})
         net_num_blocks = sum(layers)
         net_block_idx = 0
-        if aa_layer not in (None, "blur"):
-            raise NotImplementedError(f"aa_layer {aa_layer!r} is not ported")
         self.stem_act = get_act_fn(stem_act or act)
         self.replace_stem_pool = replace_stem_pool
+        self.features_only = features_only
+        self.out_indices = tuple(out_indices)
+        self.remat = remat
 
         if "deep" in stem_type:
             inplanes = 2 * stem_width
@@ -265,11 +303,24 @@ class ResNet(nn.Module):
         self.bn1 = BatchNorm2d(inplanes, dtype=dtype)
         self.stem_aa = (BlurPool2d(stride=2) if aa_layer and
                         not replace_stem_pool else None)
+        # the stem pool halves the map, or every stage does without it
+        net_stride = 2 if replace_stem_pool else 4
+        dilation = prev_dilation = 1
+        stages = len(layers)
+        if features_only:
+            # the stages beyond the last index the caller asks for are not
+            # built (the JAX chassis stops tracing there)
+            stages = min(stages, max(max(self.out_indices), 1))
+        self.num_stages = stages
         for stage_idx, (planes, num_blocks, drop_block) in enumerate(
-                zip((64, 128, 256, 512), layers,
+                zip((64, 128, 256, 512)[:stages], layers,
                     drop_block_cfgs(drop_block_rate))):
-            # without the stem's pool every stage halves the map
             stride = 1 if stage_idx == 0 and not replace_stem_pool else 2
+            if net_stride >= output_stride:
+                dilation *= stride
+                stride = 1
+            else:
+                net_stride *= stride
             outplanes = planes * block.expansion
             blocks = []
             for block_idx in range(num_blocks):
@@ -279,6 +330,8 @@ class ResNet(nn.Module):
                     downsample = Downsample(inplanes, outplanes, b_stride,
                                             avg=avg_down,
                                             kernel_size=down_kernel_size,
+                                            dilation=dilation,
+                                            first_dilation=prev_dilation,
                                             dtype=dtype)
                 drop_path_rate_b = drop_path_rate * net_block_idx / max(
                     net_num_blocks - 1, 1)
@@ -290,22 +343,44 @@ class ResNet(nn.Module):
                                  drop_path_rate=drop_path_rate_b,
                                  aa=aa_layer is not None,
                                  block_idx=block_idx,
-                                 reduce_first=block_reduce_first)),
+                                 reduce_first=block_reduce_first,
+                                 dilation=dilation,
+                                 first_dilation=prev_dilation)),
                     **block_args))
                 inplanes = outplanes
+                prev_dilation = dilation
                 net_block_idx += 1
             self.add_module(f"layer{stage_idx + 1}", nn.Sequential(*blocks))
         self.num_features = inplanes
-        self.fc = ClassifierHead(inplanes, num_classes, global_pool,
-                                 drop_rate=drop_rate, dtype=dtype)
+        self.fc = None if features_only else ClassifierHead(
+            inplanes, num_classes, global_pool, drop_rate=drop_rate,
+            dtype=dtype)
 
-    def forward(self, x):
+    def _features(self, x):
+        """Yields the stem's feature (after its activation, before the
+        pool), then each built stage's output."""
         x = self.stem_act(self.bn1(self.conv1(x)))
+        yield x
         if self.stem_aa is not None:
             x = self.stem_aa(max_pool2d(x, 3, 1, 1))
         elif not self.replace_stem_pool:
             x = max_pool2d(x, 3, 2, 1)
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        for i in range(1, self.num_stages + 1):
+            for block in getattr(self, f"layer{i}"):
+                x = remat_call(block, x) if remat else block(x)
+            yield x
+
+    def forward_features(self, x):
+        """The stem's feature and each built stage's output, in order."""
+        return list(self._features(x))
+
+    def forward(self, x):
+        if self.features_only:
+            features = self.forward_features(x)
+            return [features[i] for i in self.out_indices]
+        for x in self._features(x):
+            pass  # only the last is kept: an eval frees each as it goes
         return self.fc(x)
 
 

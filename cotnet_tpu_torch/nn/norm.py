@@ -27,7 +27,29 @@ import torch
 from torch import nn
 from torch.autograd.function import once_differentiable
 
-from cotnet_tpu_torch.parallel.collectives import all_reduce_sum, group_size
+from cotnet_tpu_torch.parallel.collectives import (all_reduce_sum,
+                                                   group_size,
+                                                   replayed_all_reduce_sum)
+
+
+class BatchStatsReplay:
+    """What a block's train-mode BNs computed in its first pass, for its
+    recompute under ``remat`` (``nn.remat.remat_call``): the global batch
+    sums of each BN in the order they ran.  While one is ``active()`` and
+    ``replaying``, a BN takes its sums from here (no collective; the
+    gradient is still summed across ranks) and leaves its running
+    statistics as they are: the recompute must not move them twice."""
+
+    stack: list = []
+
+    def __init__(self):
+        self.sums = []
+        self.replaying = False
+        self.pos = 0
+
+    @classmethod
+    def active(cls) -> Optional["BatchStatsReplay"]:
+        return cls.stack[-1] if cls.stack else None
 
 
 class BatchNorm2d(nn.Module):
@@ -52,7 +74,9 @@ class BatchNorm2d(nn.Module):
     (``cotnet_tpu/nn/norm.py:147-149``) and GSPMD make them.  ``group``
     names another group (the counterpart of ``axis_name``, for tests and
     subgroups); ``torch.nn.SyncBatchNorm`` is not used: it refuses CPU
-    tensors and keeps the unbiased running variance."""
+    tensors and keeps the unbiased running variance.  In a block recomputed
+    under ``remat`` the BN neither all-reduces again nor moves its running
+    statistics (``BatchStatsReplay``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, zero_init: bool = False,
@@ -85,18 +109,28 @@ class BatchNorm2d(nn.Module):
             count = x.numel() // c
             s1 = x.sum(red, dtype=torch.float32)
             s2 = x.square().sum(red, dtype=torch.float32)
+            replay = BatchStatsReplay.active()
+            replaying = replay is not None and replay.replaying
             if group_size(self.group) > 1:
-                sums = all_reduce_sum(torch.cat(
-                    [s1, s2, s1.new_full((1,), count)]), self.group)
+                local = torch.cat([s1, s2, s1.new_full((1,), count)])
+                if replaying:
+                    sums = replayed_all_reduce_sum(
+                        local, replay.sums[replay.pos], self.group)
+                    replay.pos += 1
+                else:
+                    sums = all_reduce_sum(local, self.group)
+                    if replay is not None:
+                        replay.sums.append(sums.detach())
                 s1, s2, count = sums[:c], sums[c:2 * c], sums[2 * c]
             mean = s1 / count
             mean2 = s2 / count
             var = (mean2 - mean.square()).clamp_min(0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1 - m).add_(var, alpha=m)
-                self.num_batches_tracked += 1
+            if not replaying:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                    self.running_var.mul_(1 - m).add_(var, alpha=m)
+                    self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight

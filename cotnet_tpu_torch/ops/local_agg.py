@@ -126,15 +126,34 @@ def out_size(in_size: int, k: int, stride: int, pad: int, dil: int) -> int:
     return (in_size + 2 * pad - (dil * (k - 1) + 1)) // stride + 1
 
 
+def reflect_indices(size: int, pad: int, device=None) -> torch.Tensor:
+    """The source index of each of the ``size + 2*pad`` positions of a
+    reflect pad along one axis, numpy's ``mode="reflect"`` for any pad:
+    reflected about the edges with period 2*(size-1), the one element
+    repeated where size is 1."""
+    i = torch.arange(-pad, size + pad, device=device)
+    if size == 1:
+        return torch.zeros_like(i)
+    period = 2 * (size - 1)
+    i = i.remainder(period)
+    return torch.where(i >= size, period - i, i)
+
+
 def _pad_input(x, padding, pad_mode):
     ph, pw = padding
     if ph == 0 and pw == 0:
         return x
     if pad_mode == "zeros":
         return F.pad(x, (pw, pw, ph, ph))
-    if pad_mode == "reflect":
+    if pad_mode != "reflect":
+        raise ValueError(f"unknown pad_mode {pad_mode!r}")
+    h, w = x.shape[-2:]
+    if ph < h and pw < w:
         return F.pad(x, (pw, pw, ph, ph), mode="reflect")
-    raise ValueError(f"unknown pad_mode {pad_mode!r}")
+    # a pad no smaller than the map reflects again and again, as jnp.pad
+    # does; the gradient of index_select sums onto the source pixels
+    x = x.index_select(-2, reflect_indices(h, ph, x.device))
+    return x.index_select(-1, reflect_indices(w, pw, x.device))
 
 
 def extract_patches(x, kernel_size=3, stride=1, padding=None, dilation=1,

@@ -119,6 +119,31 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     return _AllReduceSum.apply(t, group)
 
 
+class _ReplayedSum(torch.autograd.Function):
+    """``all_reduce_sum`` whose forward result is known already: returns it
+    without a collective; the backward is ``_AllReduceSum``'s."""
+
+    @staticmethod
+    def forward(ctx, x, result, group):
+        ctx.group = group
+        return result.clone()
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _AllReduceSum.backward(ctx, dy) + (None,)
+
+
+def replayed_all_reduce_sum(t: torch.Tensor, result: torch.Tensor,
+                            group=None) -> torch.Tensor:
+    """``all_reduce_sum(t, group)`` recomputed: ``result`` is what the first
+    call returned, and it is returned again with no collective, while the
+    gradient is summed across the ranks as ``all_reduce_sum``'s is (a block
+    recomputed under ``remat`` makes no collective of its own)."""
+    if group_size(group) == 1:
+        return t
+    return _ReplayedSum.apply(t, result, group)
+
+
 @torch.no_grad()
 def sum_tensor(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum across ranks (reference sum_tensor :44-49), a new tensor."""

@@ -10,6 +10,8 @@ import torch
 from torch.func import functional_call
 
 from cotnet_tpu_torch.models.cotnet import CotLayer
+from cotnet_tpu_torch.models.lr_net import SelfAttLayer
+from cotnet_tpu_torch.models.san import SAM, SAMLowRank
 from cotnet_tpu_torch.nn.drop import set_generator
 from cotnet_tpu_torch.parallel import mesh
 from cotnet_tpu_torch.parallel.collectives import (average_gradients,
@@ -17,6 +19,9 @@ from cotnet_tpu_torch.parallel.collectives import (average_gradients,
                                                     sum_tensor)
 from cotnet_tpu_torch.train.optim import global_norm
 from cotnet_tpu_torch.train.state import TrainState, ema_update, float_state
+
+# the modules that call local_aggregate
+_AGGREGATING = (CotLayer, SAM, SAMLowRank, SelfAttLayer)
 
 
 def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
@@ -47,8 +52,9 @@ def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
     gradients, and ``hessian_diag = z * Hz`` passed to ``optimizer.step``.
     It needs a twice-differentiable model: the CoT aggregation's backward
     is not (nor is the JAX package's, whose ``jax.jvp`` of ``jax.grad``
-    raises through ``local_aggregate``), so a model holding a ``CotLayer``
-    raises ``ValueError`` here.  An optimizer with ``schedule_offset`` (1
+    raises through ``local_aggregate``), so a model holding the op (a
+    ``CotLayer``, SAN's ``SAM`` or ``SAMLowRank``, LR-Net's
+    ``SelfAttLayer``) raises ``ValueError`` here.  An optimizer with ``schedule_offset`` (1
     for AdaHessian) takes the schedule's rate that many steps ahead, as the
     JAX package's does; the ``lr`` metric stays ``schedule_fn(step)``.
 
@@ -67,12 +73,13 @@ def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
     rank: they are not the draws one process makes, as in any
     data-parallel run.
     """
-    if second_order and any(isinstance(m, CotLayer) for m in model.modules()):
+    if second_order and any(isinstance(m, _AGGREGATING)
+                            for m in model.modules()):
         raise ValueError(
             "make_train_step(second_order=True): the model holds the CoT "
-            "aggregation op (local_aggregate, in CotLayer), whose backward "
-            "is not twice differentiable; the JAX package cannot take this "
-            "step either")
+            "aggregation op (local_aggregate, in CotLayer, SAM or "
+            "SelfAttLayer), whose backward is not twice differentiable; the "
+            "JAX package cannot take this step either")
     params = [p for g in optimizer.param_groups for p in g["params"]]
     live = list(float_state(model).items())
     offset = getattr(optimizer, "schedule_offset", 0)

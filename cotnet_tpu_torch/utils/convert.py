@@ -23,7 +23,19 @@ state_dict is the reference's torch layout:
 - the attention-embed producer (``embed_conv2`` and ``embed_gn``) has its
   output channels permuted from the JAX package's k-major order
   (k*Cw + cw) back to the reference's cw-major order (cw*K^2 + k), within
-  each of the layer's ``dw_group`` channel groups (2 for CoTNeXt).
+  each of the layer's ``dw_group`` channel groups (2 for CoTNeXt);
+- the comparison families (``family``, from ``model_family``), the inverse
+  of the JAX converter's ``FAMILY_ADAPTERS``
+  (``cotnet_tpu/utils/convert.py:231-259``): SAN's ``conv_w_*`` and
+  ``key_embed_*`` to their Sequential indices, ``sam/conv`` to
+  ``sam.conv.0``, and SAM's K^2 weight producer ``conv_w_conv2`` back to
+  cw-major; BoTNet's ``mhsa`` and ``conv2`` to ``conv2.0``, ``bn2`` to
+  ``conv2.1``, the projections to ``q_proj.w`` ...; LambdaNet's
+  ``to_q``/``bn_q`` and ``to_v``/``bn_v`` to ``to_q.{0,1}`` and
+  ``to_v.{0,1}``, its ``embeddings`` ``[dim_k, r, r]`` to the conv3d
+  kernel ``[dim_k, 1, 1, r, r]``; ResNet-DW's ``conv2_{pw,bn,dw}`` to
+  ``conv2.{0,1,3}``.  Other raw parameters (LR-Net's ``pos_h`` and
+  ``pos_w``, BoTNet's ``rel_emb_h``/``rel_emb_w``) are copied as they are.
 
 The port's state_dict keys are the reference's, so a reference
 ``.pth.tar`` needs no key conversion: ``load_checkpoint_into`` reads it
@@ -56,6 +68,27 @@ _DEEP_STEM = {"conv1_0": "conv1.0", "bn1_0": "conv1.1",
               "conv1_1": "conv1.3", "bn1_1": "conv1.4",
               "conv1_2": "conv1.6"}
 _EMBED_PRODUCER = ("embed_conv2", "embed_gn")
+# the comparison families' renames of a module name on the JAX side
+# (FAMILY_ADAPTERS' name_map and pair_map), and of a raw parameter's name
+_FAMILY_NAMES = {
+    "san": {"conv_w_bn1": "conv_w.0", "conv_w_conv1": "conv_w.2",
+            "conv_w_bn2": "conv_w.3", "conv_w_conv2": "conv_w.5",
+            "key_embed_bn": "key_embed.0", "key_embed_conv": "key_embed.2",
+            "conv_w_bn": "conv_w.0", "conv_w_conv": "conv_w.2"},
+    "botnet": {"mhsa": "conv2.0", "conv2": "conv2.0", "bn2": "conv2.1"},
+    "lambdanet": {"to_q": "to_q.0", "bn_q": "to_q.1", "to_v": "to_v.0",
+                  "bn_v": "to_v.1"},
+    "resnet_dw": {"conv2_pw": "conv2.0", "conv2_bn": "conv2.1",
+                  "conv2_dw": "conv2.3"},
+}
+_FAMILY_PAIRS = {"san": {("sam", "conv"): "sam.conv.0"}}
+_FAMILY_LEAVES = {"botnet": {"q_proj": "q_proj.w", "k_proj": "k_proj.w",
+                             "v_proj": "v_proj.w"}}
+# SAN19's weight channels Cw by stage (the JAX converter's _san_wperm)
+_SAN_CW = (2, 8, 16, 32, 64)
+# the registry modules of the families (the JAX converter's model_adapter)
+_FAMILY_MODULES = (("san", "san"), ("botnet", "botnet"),
+                   ("lambda_net", "lambdanet"), ("resnet_dw", "resnet_dw"))
 
 
 def _kmajor_perm(n: int, k2: int, groups: int = 1) -> np.ndarray:
@@ -68,13 +101,32 @@ def _kmajor_perm(n: int, k2: int, groups: int = 1) -> np.ndarray:
                        for k in range(k2) for c in range(cw_g)])
 
 
-def _module_path(parts, avg_down: bool = False) -> str:
+def model_family(model_name: str):
+    """The family whose names ``jax_to_torch_state_dict`` maps for
+    ``model_name`` (``"san"``, ``"botnet"``, ``"lambdanet"``,
+    ``"resnet_dw"``), or None for the chassis' default mapping."""
+    from cotnet_tpu_torch.models.registry import is_model_in_modules
+
+    for module, family in _FAMILY_MODULES:
+        if model_name and is_model_in_modules(model_name, [module]):
+            return family
+    return None
+
+
+def _module_path(parts, avg_down: bool = False, family=None) -> str:
     out = []
     i = 0
     down = {"conv": "1", "bn": "2"} if avg_down else {"conv": "0", "bn": "1"}
+    names = _FAMILY_NAMES.get(family, {})
+    pairs = _FAMILY_PAIRS.get(family, {})
     while i < len(parts):
         p = parts[i]
-        if i == 0 and p in _DEEP_STEM:
+        if tuple(parts[i:i + 2]) in pairs:
+            out.append(pairs[tuple(parts[i:i + 2])])
+            i += 1
+        elif p in names:
+            out.append(names[p])
+        elif i == 0 and p in _DEEP_STEM:
             out.append(_DEEP_STEM[p])
         elif i == 0 and p.startswith("layer") and "_" in p:
             stage, blk = p.split("_", 1)
@@ -94,19 +146,20 @@ def _module_path(parts, avg_down: bool = False) -> str:
 
 def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
                             kernel_size: int = 3, dw_group: int = 1,
-                            avg_down: bool = False
+                            avg_down: bool = False, family=None
                             ) -> Dict[str, torch.Tensor]:
     """``{"params/.../kernel": array, "batch_stats/.../mean": array, ...}``
     (the JAX ``{params, batch_stats}`` flattened to '/'-joined keys) -> the
     port's state_dict of float32 tensors.  ``dw_group`` is 2 for the
     CoTNeXt models (CoXtLayer), else 1; ``avg_down`` is True for the
-    SE-CoTNetD models (the ResNet-D shortcut)."""
+    SE-CoTNetD models (the ResNet-D shortcut); ``family`` is
+    ``model_family(name)`` for the comparison families."""
     k2 = kernel_size * kernel_size
     sd = {}
     for key, val in flat.items():
         collection, *parts, leaf = key.split("/")
         val = np.asarray(val, dtype=np.float32)
-        mod = _module_path(parts, avg_down)
+        mod = _module_path(parts, avg_down, family)
         owner = parts[-1]
         if collection == "batch_stats":
             sd[f"{mod}.running_{leaf}"] = val
@@ -129,9 +182,17 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
         elif leaf == "bias":
             name = "bias"
         else:
-            raise KeyError(f"unknown leaf in {key!r}")
+            # a raw parameter: copied as it is, but for LambdaNet's conv3d
+            # kernel
+            name = _FAMILY_LEAVES.get(family, {}).get(leaf, leaf)
+            if family == "lambdanet" and leaf == "embeddings":
+                val = val.reshape(val.shape[0], 1, 1, *val.shape[1:])
         if owner in _EMBED_PRODUCER:
             val = val[np.argsort(_kmajor_perm(val.shape[0], k2, dw_group))]
+        if family == "san" and owner == "conv_w_conv2":
+            cw = _SAN_CW[int(re.match(r"layer(\d)_", parts[0]).group(1))]
+            val = val[np.argsort(_kmajor_perm(val.shape[0],
+                                              val.shape[0] // cw))]
         sd[f"{mod}.{name}"] = val
     # own, writable memory: arrays that come from JAX are read-only
     return {k: torch.from_numpy(np.require(v, requirements="CW"))

@@ -1393,3 +1393,62 @@ def test_ema_evaler_on_card():
     twin.load_state_dict({**live, **state.ema})
     assert got == Evaler(twin, batches)(0, state)
     assert got["samples"] == 6.0
+
+
+# SAN19's aggregation in stage 1: K = 7 at 56x56, 64 channels in 8 groups
+# of Cw = 8 weight channels, zero pad 3
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_san_k7_general_route_matches_plain_on_card(dtype):
+    """The forward, dx and dw at SAN19's stage-1 geometry take the
+    ``general`` route (halo tiles for K up to 7) and match the plain
+    version: f32 at 1e-5, bf16 within one ulp of the reference's
+    largest."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(17)
+    n, c, cw, k, hw = 4, 64, 8, 7, 56
+    x = torch.randn(n, c, hw, hw, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(n, 1, cw, k * k, hw, hw, device="cuda",
+                    generator=gen).to(dtype)
+    dy = torch.randn(n, c, hw, hw, device="cuda", generator=gen).to(dtype)
+    geo = dict(kernel_size=(k, k), dilation=(1, 1), padding=(3, 3))
+    for kernel in ("fwd", "dx", "dw"):
+        assert la.kernel_route(kernel, x, w, **geo) == "general", kernel
+    la.reset_counts()
+    got = la.local_aggregate(x, w, kernel_size=k, padding=3, impl="hopper")
+    dx, dw = la.local_aggregate_bwd_hopper(x, w, dy, **geo)
+    assert (la.LAUNCHES, la.BWD_LAUNCHES) == (1, {"dx": 1, "dw": 1})
+    ref = la.local_aggregate(x, w, kernel_size=k, padding=3, impl="torch")
+    xp = torch.nn.functional.pad(x, (3, 3, 3, 3))
+    rdx, rdw = la.local_aggregate_bwd_plain(xp, w, dy, (k, k), (1, 1))
+    rdx = rdx[..., 3:3 + hw, 3:3 + hw]
+    for name, g, r in (("fwd", got, ref), ("dx", dx, rdx), ("dw", dw, rdw)):
+        scale = float(r.float().abs().max())
+        tol = 1e-5 if dtype == torch.float32 else 8e-3
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
+def test_reflect_pad_beyond_the_map_on_card():
+    """The reflect pad of 3 on a 2x2 map (SAN19's stage 4 below 128 px),
+    through ``extract_patches`` and ``local_aggregate(pad_mode="reflect")``
+    on the card, forward and gradient, against the same calls on the
+    CPU, at 1e-5 of each tensor's largest value."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 16, 2, 2, generator=gen)
+    w = torch.randn(2, 1, 8, 49, 2, 2, generator=gen)
+    out = {}
+    for device in ("cpu", "cuda"):
+        xt = x.detach().to(device).requires_grad_()
+        wt = w.detach().to(device).requires_grad_()
+        p = la.extract_patches(xt, 7, padding=3, pad_mode="reflect")
+        y = la.local_aggregate(xt, wt, kernel_size=7, padding=3,
+                               pad_mode="reflect")
+        (p.square().sum() + y.square().sum()).backward()
+        out[device] = [t.detach().cpu() for t in (p, y, xt.grad, wt.grad)]
+    # f32 sums in another order (the reflected pixels' gradients gather
+    # up to 25 taps each): within 1e-5 of each tensor's largest
+    for name, got, ref in zip(("patches", "out", "dx", "dw"), out["cuda"],
+                              out["cpu"]):
+        err = float((got - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (name, err)

@@ -436,3 +436,46 @@ def test_reset_counts_zeroes_the_backward_counts():
     assert (la.PLAIN_BWD_CALLS, la.BWD_LAUNCHES,
             la.BWD_LAUNCHES_BY_SHAPE) == (0, {"dx": 0, "dw": 0}, {})
     assert la.AFFINE_BWD_LAUNCHES == {"dx": 0, "dw": 0}
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (2, 2), (2, 5), (3, 3)])
+def test_reflect_pad_beyond_the_map_matches_jax(hw):
+    """A reflect pad of 3 (K = 7, SAN's key patches) on maps no larger than
+    it reflects again and again, as ``jnp.pad(mode="reflect")`` does:
+    ``extract_patches`` and ``local_aggregate(pad_mode="reflect")``, forward
+    and the gradient of a seeded scalar loss, against the JAX package's
+    (XLA form) in f32 at 1e-6 of the largest value of each."""
+    from cotnet_tpu.ops.local_agg import extract_patches as jax_patches
+
+    hi, wi = hw
+    x, w, _, _, _ = make_inputs(41, n=2, c=8, cw=4, hi=hi, wi=wi, k=7)
+    kwargs = dict(kernel_size=7, padding=3, pad_mode="reflect")
+    rng = np.random.RandomState(42)
+    rp = rng.randn(2, hi, wi, 49, 8).astype(np.float32)
+    r = rng.randn(2, hi, wi, 8).astype(np.float32)
+
+    def jax_loss(x_, w_):
+        p = jax_patches(x_, **kwargs)
+        out = jax_aggregate(x_, w_, impl="xla", **kwargs)
+        return jnp.vdot(p, jnp.asarray(rp)) + jnp.vdot(out, jnp.asarray(r)), (
+            p, out)
+
+    (_, (p_ref, out_ref)), g_ref = jax.jit(jax.value_and_grad(
+        jax_loss, (0, 1), has_aux=True))(jnp.asarray(x), jnp.asarray(w))
+    xt, wt, _, _ = to_port(x, w)
+    xt.requires_grad_()
+    wt.requires_grad_()
+    p = la.extract_patches(xt, **kwargs)          # [N, C, K2, H, W]
+    out = la.local_aggregate(xt, wt, impl="torch", **kwargs)
+    loss = (p * torch.from_numpy(rp.transpose(0, 4, 3, 1, 2))).sum() + (
+        out * torch.from_numpy(r.transpose(0, 3, 1, 2))).sum()
+    loss.backward()
+    for name, got, want in (
+            ("patches", p.detach().numpy().transpose(0, 3, 4, 2, 1), p_ref),
+            ("out", to_nhwc(out), out_ref),
+            ("dx", to_nhwc(xt.grad), g_ref[0]),
+            ("dw", wt.grad.numpy().transpose(0, 4, 5, 1, 3, 2), g_ref[1])):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-6 * float(np.abs(want).max()),
+                                   err_msg=name)
