@@ -212,6 +212,22 @@ printing the last line:
    generator state.  ``features_only`` cotnet50's five maps against its
    ``FeatureInfo``; ``output_stride=16`` cotnet50's bf16 eval at bs128,
    every launch on ``k3`` with stage 4 at 14x14.  The phase's seconds.
+14. The transformer core (after phase 13; no op on its paths):
+   vit_base_patch16_224, deit_base_distilled_patch16_224,
+   resnetv2_50x1_bitm (at 224), resnetv2_50d, vit_base_r50_s16_224 and
+   vit_small_resnet26d_224 in f32 at bs4 with TF32 off, seeded weights and
+   BN statistics calibrated on the images: logits on the card against the
+   port on the CPU at 1e-3 of the largest logit; five f32 steps of
+   vit_tiny_patch16_224 on one batch lower the loss.  The bf16 main paths:
+   vit_base_patch16_224's eval and train at 224 bs128 (the train step
+   under DeiT-B's solver, ``DEIT_RECIPE``), resnetv2_50x1_bitm's eval at
+   its 448 bs64 and train at 224 bs128 under the CoTNet-50 recipe's
+   solver, mixup and EMA, vit_base_r50_s16_384's eval at 384 bs64: 2
+   warm-up and 4 timed steps each, images/s, peak memory, and one
+   profiled step (device kernels, busy share); no launch of the op and no
+   plain call.  The fused embed op's plain gradient (``impl="torch"``) on
+   the card in f32 against the CPU's (1e-5 of the largest), and ``auto``
+   at a compiled K*K refusing a gradient.  The phase's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -405,6 +421,35 @@ DP_RECIPE = dict(RECIPE, solver=dict(RECIPE["solver"], warmup_epochs=0))
 # train steps
 CHASSIS_MODELS = ("seresnet50", "resnet18", "ecaresnet50d")
 CHASSIS_TRAIN_STEPS = 3
+# phase 14, the transformer core: the models of the f32 checks (at 224),
+# and the bf16 main paths (model, kind, image size, batch)
+TRANSFORMER_F32_MODELS = ("vit_base_patch16_224",
+                          "deit_base_distilled_patch16_224",
+                          "resnetv2_50x1_bitm", "resnetv2_50d",
+                          "vit_base_r50_s16_224", "vit_small_resnet26d_224")
+TRANSFORMER_PATHS = (("vit_base_patch16_224", "eval", 224, 128),
+                     ("vit_base_patch16_224", "train", 224, 128),
+                     ("resnetv2_50x1_bitm", "eval", 448, 64),
+                     ("resnetv2_50x1_bitm", "train", 224, 128),
+                     ("vit_base_r50_s16_384", "eval", 384, 64))
+# DeiT-B's published solver (Touvron et al. 2021, "Training data-efficient
+# image transformers", Table 9): AdamW at 5e-4 per 512 images, weight decay
+# 0.05, cosine with 5 warm-up epochs over 300, drop path 0.1, mixup 0.8
+# with cutmix 1.0, label smoothing 0.1, EMA 0.99996
+DEIT_RECIPE = {
+    "model": dict(drop_path_rate=0.1),
+    "mixup": dict(RECIPE["mixup"]),
+    "loss": dict(smoothing=0.1),
+    "solver": dict(opt="adamw", weight_decay=0.05, sched="cosine",
+                   lr=5e-4 * BATCH / 512, warmup_lr=1e-6, min_lr=1e-5,
+                   epochs=300, warmup_epochs=5, decay_rate=0.1),
+    "ema_decay": 0.99996,
+}
+# ResNetV2 takes no drop path: the CoTNet-50 recipe's dropout, solver,
+# mixup and EMA
+TRANSFORMER_RECIPES = {"vit_base_patch16_224": DEIT_RECIPE,
+                       "resnetv2_50x1_bitm": dict(
+                           RECIPE, model=dict(drop_rate=0.25))}
 
 
 def log(*args):
@@ -3505,11 +3550,14 @@ def family_f32_checks(la, name: str):
     size = MODELS[name][2] if name in MODELS else FAMILY_EVAL_MODELS[name]
     layers = (sum(per_step for _, _, per_step, *_ in MODELS[name][1])
               if name in UNFOLDED_MODELS else 0)
+    from cotnet_tpu_torch.nn import BatchNorm2d
+
     cpu = create_model(name, device="cpu", seed=0)
     gen = torch.Generator().manual_seed(9)
     x = torch.randn(4, 3, size, size, generator=gen) \
         * torch.linspace(0.5, 2.0, 4)[:, None, None, None]
-    calibrate_bn(cpu, x, seed=1)
+    if any(isinstance(m, BatchNorm2d) for m in cpu.modules()):
+        calibrate_bn(cpu, x, seed=1)
     card = create_model(name, device="cuda", seed=0)
     card.load_state_dict(cpu.state_dict())
     xc = x.cuda()
@@ -3775,6 +3823,176 @@ def family_phase(la, paths: PathCounts):
     log(f"families phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 14: the transformer core ----------------------------------------
+
+def no_op(la, what: str):
+    """Raise if the op launched or a plain version ran since the counts
+    were last reset."""
+    snapshot = launch_snapshot(la)
+    if snapshot["by_key"] or snapshot["plain"]:
+        raise AssertionError(f"{what} reached the op: {snapshot}")
+
+
+def transformer_f32_check(name: str, size: int = IMAGE):
+    """f32 logits of ``name`` at bs4 (seeded weights, BN statistics
+    calibrated on the images) on the card against the port on the CPU,
+    TF32 off, at 1e-3 of the largest logit."""
+    from cotnet_tpu_torch.models import create_model
+
+    from cotnet_tpu_torch.nn import BatchNorm2d
+
+    cpu = create_model(name, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(4, 3, size, size, generator=gen) \
+        * torch.linspace(0.5, 2.0, 4)[:, None, None, None]
+    if any(isinstance(m, BatchNorm2d) for m in cpu.modules()):
+        calibrate_bn(cpu, x, seed=1)
+    card = create_model(name, device="cuda", seed=0)
+    card.load_state_dict(cpu.state_dict())
+    with torch.no_grad(), tf32_off():
+        ref = cpu(x)
+        got = card(x.cuda()).cpu()
+    del cpu, card
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if not (torch.isfinite(got).all() and got.shape == (4, 1000)
+            and err <= 1e-3 * scale):
+        raise AssertionError(f"{name} f32 logits {tuple(got.shape)}, card "
+                             f"against CPU: max|err| {err}, max|logit| "
+                             f"{scale}")
+    return err / scale
+
+
+def transformer_path(la, name: str, kind: str, size: int, n: int,
+                     timed: int = 4):
+    """One bf16 main path of the transformer core: the eval step, or the
+    train step under ``TRANSFORMER_RECIPES[name]``; 2 warm-up and
+    ``timed`` timed steps, images/s, peak memory and one profiled step; no
+    launch of the op and no plain call."""
+    from cotnet_tpu_torch.models import create_model
+    from cotnet_tpu_torch.train.step import make_eval_step
+
+    training = kind == "train"
+    recipe = TRANSFORMER_RECIPES.get(name)
+    batch = make_batch(n, size)
+    torch.cuda.reset_peak_memory_stats()
+    extra = dict(img_size=size) if "vit" in name else {}
+    model = create_model(name, device="cuda", dtype=torch.bfloat16, seed=0,
+                         **extra, **(recipe["model"] if training else {}))
+    if training:
+        step, state = recipe_train_step(model, recipe, n)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        images = {"image": batch["image"], "label": batch["label"]}
+
+        def run():
+            return step(state, images, gen)[1]
+    else:
+        eval_step = make_eval_step(model)
+
+        def run():
+            return eval_step(batch)
+
+    la.reset_counts()
+    times, outs = [], []
+    for i in range(2 + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(run())
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    no_op(la, f"{name} {kind}")
+    if training:
+        values = [float(m[key]) for m in outs for key in ("loss", "grad_norm")]
+        if not (all(v == v and abs(v) < float("inf") for v in values)
+                and state.step == 2 + timed):
+            raise AssertionError(f"{name} train: step {state.step}, losses "
+                                 f"and grad norms {values}")
+        result = f"loss {values[0]:.4f} -> {values[-2]:.4f}"
+    else:
+        top1, top5, valid = (float(outs[-1][key]) for key in
+                             ("top1_count", "top5_count", "n"))
+        if not 0 <= top1 <= top5 <= valid == n - 8:
+            raise AssertionError(f"{name} eval: {top1} {top5} {valid}")
+        result = f"top1 {top1:.0f} top5 {top5:.0f} of {valid:.0f}"
+    median = statistics.median(times)
+    label = f"bf16 {name} {kind} {size}x{size} bs{n}"
+    log(f"{label}: {n / median:.1f} img/s (median of {timed} steps, "
+        f"{median * 1e3:.2f} ms a step) on {nvidia_smi()}; {result}; peak "
+        f"memory {peak / 2 ** 30:.2f} GiB; no launch of the op, 0 plain "
+        f"calls")
+    profile_step(run, f"{label} step", top=6)
+    del model, run, outs
+    torch.cuda.empty_cache()
+
+
+def embed_gn_gradient_card(la):
+    """The fused embed op's plain version differentiated on the card
+    (``impl="torch"``, f32, TF32 off) against the same on the CPU, all six
+    gradients within 1e-5 of each one's largest, at cotnet50's 14x14
+    stage-3 geometry at N = 2 (C 256, Cp 128, K 3); ``impl="auto"`` at
+    that K*K, one the kernels are compiled for, refuses a gradient."""
+    gen = torch.Generator().manual_seed(12)
+    n, c, cp, hw, k = 2, 256, 128, 14, 3
+    f = k * k * c // 8
+    base = [torch.randn(n, c, hw, hw, generator=gen),
+            torch.randn(n, cp, hw, hw, generator=gen).clamp_min(0),
+            0.1 * torch.randn(f, cp, generator=gen),
+            0.1 * torch.randn(f, generator=gen),
+            1 + 0.2 * torch.randn(f, generator=gen),
+            0.2 * torch.randn(f, generator=gen)]
+    r = torch.randn(n, c, hw, hw, generator=gen)
+    grads = {}
+    with tf32_off():
+        for device in ("cpu", "cuda"):
+            leaves = [t.to(device, copy=True).requires_grad_()
+                      for t in base]
+            out = la.local_aggregate_embed_gn(*leaves, kernel_size=k,
+                                              impl="torch")
+            (out * r.to(device)).sum().backward()
+            grads[device] = [t.grad.cpu() for t in leaves]
+    worst = max(float((g - ref).abs().max() / ref.abs().max())
+                for g, ref in zip(grads["cuda"], grads["cpu"]))
+    if not worst <= 1e-5:
+        raise AssertionError(f"embed op plain gradient, card against CPU: "
+                             f"{worst} of the largest")
+    leaves = [t.cuda().requires_grad_() for t in base]
+    try:
+        la.local_aggregate_embed_gn(*leaves, kernel_size=k)
+    except NotImplementedError as err:
+        refusal = str(err)
+    else:
+        raise AssertionError("impl='auto' at a compiled K*K gave a gradient")
+    log(f"embed op, impl='torch' on the card: all six f32 gradients within "
+        f"{worst:.3g} of the CPU's largest (limit 1e-5); impl='auto' at "
+        f"K=3 with a gradient raises: {refusal[:60]}...")
+
+
+def transformer_phase(la):
+    """Phase 14: the f32 checks of the six models, vit_tiny's five steps,
+    the five bf16 main paths, and the embed op's gradient."""
+    from cotnet_tpu_torch.models import create_model
+
+    t_phase = time.perf_counter()
+    la.reset_counts()
+    errs = {name: transformer_f32_check(name)
+            for name in TRANSFORMER_F32_MODELS}
+    no_op(la, "the f32 checks")
+    log("transformer core f32 bs4 224x224, logits on the card against the "
+        "CPU, max|err| / max|logit| (limit 1e-3): "
+        + ", ".join(f"{name} {e:.3g}" for name, e in errs.items()))
+    model = create_model("vit_tiny_patch16_224", device="cuda", seed=0)
+    with tf32_off():
+        loss_falls(la, model, images_f32(16))
+    del model
+    no_op(la, "vit_tiny's f32 steps")
+    for name, kind, size, n in TRANSFORMER_PATHS:
+        transformer_path(la, name, kind, size, n)
+    embed_gn_gradient_card(la)
+    log(f"transformer core phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def expected_route(e) -> str:
     """The route a main-path launch of entry ``e`` must take."""
     return e.get("main_route", MAIN_ROUTE.get(e["name"], "k3"))
@@ -3952,6 +4170,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     family_phase(la, paths)
     log(f"families phase done at {time.perf_counter() - t0:.1f} s")
+    transformer_phase(la)
+    log(f"transformer core phase done at {time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()
     log(f"device copy rate: {hbm_rate / 1e12:.3f} TB/s (data sheet "

@@ -1,7 +1,9 @@
 # importing the model modules registers their entrypoints
 from cotnet_tpu_torch.models import (botnet, cotnet,  # noqa: F401
                                      cotnet_hybrid, lambda_net, lr_net,
-                                     resnet, resnet_dw, san)
+                                     resnet, resnet_dw, resnetv2, san,
+                                     vision_transformer,
+                                     vision_transformer_hybrid)
 from cotnet_tpu_torch.models.factory import create_model
 from cotnet_tpu_torch.models.helpers import get_model_default_cfg
 from cotnet_tpu_torch.models.registry import (

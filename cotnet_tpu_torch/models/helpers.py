@@ -78,26 +78,31 @@ class _Features(torch.nn.Module):
         return self.inner.forward_features(x)
 
 
-def feature_shapes(model, input_size: int = 224) -> List[Tuple[int, int, int]]:
-    """``(channels, height, width)`` of each of ``model.forward_features``'s
-    outputs for one ``input_size`` image, traced on the meta device in eval
-    mode: the parameters and buffers are replaced by meta tensors for the
-    call, so nothing is computed or allocated and the model is left as it
-    is."""
+def meta_call(module, x):
+    """``module(x)`` traced on the meta device in eval mode: the parameters
+    and buffers are replaced by meta tensors for the call, so nothing is
+    computed or allocated and the module is left as it is.  ``x`` is a
+    meta tensor."""
     from torch.func import functional_call
 
-    meta = {f"inner.{k}": torch.empty_like(v, device="meta")
-            for k, v in list(model.named_parameters())
-            + list(model.named_buffers())}
-    x = torch.empty(1, 3, input_size, input_size, device="meta")
-    training = model.training
-    model.eval()
+    meta = {k: torch.empty_like(v, device="meta")
+            for k, v in list(module.named_parameters())
+            + list(module.named_buffers())}
+    training = module.training
+    module.eval()
     try:
         with torch.no_grad():
-            outs = functional_call(_Features(model), meta, (x,))
+            return functional_call(module, meta, (x,))
     finally:
-        model.train(training)
-    return [tuple(int(d) for d in o.shape[1:]) for o in outs]
+        module.train(training)
+
+
+def feature_shapes(model, input_size: int = 224) -> List[Tuple[int, int, int]]:
+    """``(channels, height, width)`` of each of ``model.forward_features``'s
+    outputs for one ``input_size`` image (``meta_call``)."""
+    x = torch.empty(1, 3, input_size, input_size, device="meta")
+    return [tuple(int(d) for d in o.shape[1:])
+            for o in meta_call(_Features(model), x)]
 
 
 def get_feature_info(model, input_size: int = 224) -> List[dict]:

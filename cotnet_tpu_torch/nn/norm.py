@@ -17,6 +17,10 @@ are one-pass (E[x^2] - E[x]^2) in f32 per (n, cw) over (K^2, H, W).
 aggregation instead of the normalized tensor (differentiable in the input
 and the parameters by plain autograd), ``raw()`` the parameters alone for
 the fused eval op, which takes its own statistics.
+
+GroupNorm: flax's ``GroupNorm`` as the ResNetV2 family builds it (32
+groups, eps 1e-5), one-pass f32 statistics.  LayerNorm: the transformers'
+norm over the last dim, two-pass.  Both by plain autograd.
 """
 
 from __future__ import annotations
@@ -232,3 +236,72 @@ class SubChannelGroupNorm(nn.Module):
     def raw(self):
         """``(weight, bias)`` alone, for ``local_aggregate_embed_gn``."""
         return self.weight, self.bias
+
+
+class GroupNorm(nn.Module):
+    """``flax.linen.GroupNorm(num_groups=32, epsilon=1e-5)`` on NCHW, the
+    norm of the ResNetV2 family (``cotnet_tpu/models/resnetv2.py:66, 93,
+    260``), with its arithmetic: per (image, group) over (C/groups, H, W)
+    the f32 statistics in one pass, ``var = max(E[x^2] - E[x]^2, 0)``
+    (flax's ``use_fast_variance=True`` default), then ``(x - mean) *
+    (rsqrt(var + eps) * weight) + bias`` in f32 and one rounding to the
+    compute dtype.  The one-pass variance cancels where |mean| >> std, in
+    both packages; ``torch.nn.GroupNorm`` takes the two-pass form.
+    Parameters ``weight``/``bias`` ``[C]``."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32,
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_channels} channels do not split into "
+                             f"{num_groups} groups")
+        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
+        self.weight = nn.Parameter(torch.empty(num_channels))
+        self.bias = nn.Parameter(torch.empty(num_channels))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        n, c = x.shape[:2]
+        xf = x.float().reshape(n, self.num_groups, -1)
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf.square().mean(-1, keepdim=True)
+               - mean.square()).clamp_min(0.0)
+        shape = (1, self.num_groups, c // self.num_groups, 1)
+        mul = torch.rsqrt(var + self.eps)[..., None] * self.weight.view(shape)
+        y = ((xf - mean).view(n, *shape[1:3], -1) * mul
+             + self.bias.view(shape))
+        return y.view(x.shape).to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim, ``cotnet_tpu/nn/norm.py:260-271``:
+    f32 statistics with the two-pass variance ``E[(x - mean)^2]`` (tokens
+    after a residual add have |mean| >> std, where the one-pass form
+    cancels), ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in f32,
+    one rounding to the compute dtype.  ViT takes eps 1e-6."""
+
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        centred = xf - mean
+        var = centred.square().mean(-1, keepdim=True)
+        y = centred * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype)

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from cotnet_tpu_torch.nn.conv import pad_same
+
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                count_include_pad=True):
@@ -20,6 +22,16 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False):
     """torch.nn.MaxPool2d."""
     return F.max_pool2d(x, kernel_size, stride, padding, ceil_mode=ceil_mode)
+
+
+def max_pool2d_same(x, kernel_size, stride):
+    """TF-SAME max-pool (reference pool2d_same.py, ``cotnet_tpu/nn/pool.py:
+    139-144``): ``pad_same`` with the most negative finite value of x's
+    type, then a VALID pool.  The JAX package pads with float32's, which
+    rounds to -inf in bf16; no SAME window is all pad, so the pool is the
+    same."""
+    x = pad_same(x, kernel_size, stride, value=torch.finfo(x.dtype).min)
+    return F.max_pool2d(x, kernel_size, stride)
 
 
 def global_pool2d(x, pool_type: str = "avg"):

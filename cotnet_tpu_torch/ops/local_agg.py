@@ -1017,20 +1017,25 @@ def local_aggregate_embed_gn(
         geometry), ``'hopper'`` (the kernels; raises
         for a CPU tensor or another K*K) or ``'torch'``.
 
-    Eval only, as in the JAX package (its TPU kernel has no VJP): a call
-    that would record a gradient raises.  w2 is cast to x's dtype and b2,
-    gamma, beta to float32, as the TPU wrapper does.
+    The plain version is differentiated by autograd in all six inputs, as
+    the JAX op's XLA form is by ``jax.grad``.  The kernels have no backward,
+    as the TPU kernel has no VJP: a call that would record a gradient
+    through them (``impl='hopper'``, or ``'auto'`` on the card at a K*K in
+    ``_EMBED_GN_TAPS``) raises.  w2 is cast to x's dtype and b2, gamma, beta
+    to float32, as the TPU wrapper does.
     """
     kernel_size, dilation = _pair(kernel_size), _pair(dilation)
     padding = _default_padding(padding, kernel_size, dilation)
     if impl not in ("auto", "hopper", "torch"):
         raise ValueError(f"unknown impl {impl!r}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w_pre, w2, b2, gamma, beta)):
-        raise NotImplementedError(
-            "local_aggregate_embed_gn is the eval fusion and has no "
-            "backward: run it under torch.no_grad(), or train through the "
-            "embed conv, the GroupNorm and local_aggregate")
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, w_pre, w2, b2, gamma, beta))
+    refusal = ("the fused embed kernels are the eval fusion and have no "
+               "backward: run them under torch.no_grad(), pass impl='torch' "
+               "for the plain version's gradient, or train through the embed "
+               "conv, the GroupNorm and local_aggregate")
+    if impl == "hopper" and needs_grad:
+        raise NotImplementedError(refusal)
     if w2.dim() == 4 and tuple(w2.shape[2:]) == (1, 1):
         w2 = w2.reshape(w2.shape[0], w2.shape[1])
     if x.dim() != 4 or w_pre.dim() != 4 or w2.dim() != 2:
@@ -1066,6 +1071,8 @@ def local_aggregate_embed_gn(
     # embed op falls back to plain jnp where its Pallas plan does not apply
     compiled = k2 in _EMBED_GN_TAPS
     if impl == "hopper" or (impl == "auto" and on_cuda and compiled):
+        if needs_grad:
+            raise NotImplementedError(refusal)
         return local_aggregate_embed_gn_hopper(
             *(t.contiguous() for t in args), **geometry)
     if impl == "auto" and on_cuda:

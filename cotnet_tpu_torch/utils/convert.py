@@ -35,7 +35,20 @@ state_dict is the reference's torch layout:
   ``to_v.{0,1}``, its ``embeddings`` ``[dim_k, r, r]`` to the conv3d
   kernel ``[dim_k, 1, 1, r, r]``; ResNet-DW's ``conv2_{pw,bn,dw}`` to
   ``conv2.{0,1,3}``.  Other raw parameters (LR-Net's ``pos_h`` and
-  ``pos_w``, BoTNet's ``rel_emb_h``/``rel_emb_w``) are copied as they are.
+  ``pos_w``, BoTNet's ``rel_emb_h``/``rel_emb_w``) are copied as they are;
+- the transformer core, the inverse of the JAX converter's ``vit``,
+  ``resnetv2`` and ``vit_hybrid`` adapters (``cotnet_tpu/utils/convert.py:
+  84, 201, 280-311``): ViT's ``patch_embed`` to ``patch_embed.proj`` and
+  ``blocks_{i}`` to ``blocks.{i}``, its Dense kernels transposed and its
+  token parameters (``cls_token``, ``dist_token``, ``pos_embed``) copied as
+  they are; ResNetV2's ``stage{S}_block{B}`` to ``stages.{S-1}.blocks.{B-1}``,
+  a block's ``c1/conv`` ... to ``conv1``/``norm1`` ..., ``downsample`` to
+  ``downsample.conv``/``.norm``, the stems to ``stem.conv``/``stem.norm``
+  (``stem.conv1``/``norm1`` ... in the deep ones) and ``fc`` to
+  ``head.fc``; the hybrids' ``backbone`` to ``patch_embed.backbone``, with
+  the R+Ti stem's ``conv``/``norm`` right under it and the ResNet-D
+  backbones under the chassis' names (``conv1.0``, ``layer1.0``,
+  ``downsample.1/2``).
 
 The port's state_dict keys are the reference's, so a reference
 ``.pth.tar`` needs no key conversion: ``load_checkpoint_into`` reads it
@@ -88,7 +101,10 @@ _FAMILY_LEAVES = {"botnet": {"q_proj": "q_proj.w", "k_proj": "k_proj.w",
 _SAN_CW = (2, 8, 16, 32, 64)
 # the registry modules of the families (the JAX converter's model_adapter)
 _FAMILY_MODULES = (("san", "san"), ("botnet", "botnet"),
-                   ("lambda_net", "lambdanet"), ("resnet_dw", "resnet_dw"))
+                   ("lambda_net", "lambdanet"), ("resnet_dw", "resnet_dw"),
+                   ("vision_transformer", "vit"), ("resnetv2", "resnetv2"),
+                   ("vision_transformer_hybrid", "vit_hybrid"))
+_TRANSFORMER_FAMILIES = ("vit", "resnetv2", "vit_hybrid")
 
 
 def _kmajor_perm(n: int, k2: int, groups: int = 1) -> np.ndarray:
@@ -104,7 +120,8 @@ def _kmajor_perm(n: int, k2: int, groups: int = 1) -> np.ndarray:
 def model_family(model_name: str):
     """The family whose names ``jax_to_torch_state_dict`` maps for
     ``model_name`` (``"san"``, ``"botnet"``, ``"lambdanet"``,
-    ``"resnet_dw"``), or None for the chassis' default mapping."""
+    ``"resnet_dw"``, ``"vit"``, ``"resnetv2"``, ``"vit_hybrid"``), or None
+    for the chassis' default mapping."""
     from cotnet_tpu_torch.models.registry import is_model_in_modules
 
     for module, family in _FAMILY_MODULES:
@@ -144,6 +161,58 @@ def _module_path(parts, avg_down: bool = False, family=None) -> str:
     return ".".join(out)
 
 
+def _resnetv2_path(parts, stem_only: bool = False) -> str:
+    """A ResNetV2 module path, JAX names -> timm's; ``stem_only`` for the
+    hybrids' stem-only backbone, whose conv and norm have no ``stem.``."""
+    out = []
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        m = re.match(r"stage(\d+)_block(\d+)$", p)
+        if m:
+            out.append(f"stages.{int(m.group(1)) - 1}.blocks."
+                       f"{int(m.group(2)) - 1}")
+        elif p in ("stem_conv", "stem_conv3"):
+            out.append("stem." + p[len("stem_"):])
+        elif re.match(r"stem_c\d?$", p):
+            child = parts[i + 1] + p[len("stem_c"):]
+            out.append(child if stem_only else f"stem.{child}")
+            i += 1
+        elif p in ("c1", "c2", "c3"):
+            out.append(parts[i + 1] + p[1])
+            i += 1
+        elif p == "downsample":
+            out.append("downsample." + (parts[i + 1] if i + 1 < len(parts)
+                                        else "conv"))
+            i += 1
+        elif p == "fc":
+            out.append("head.fc")
+        else:
+            out.append(p)
+        i += 1
+    return ".".join(out)
+
+
+def _transformer_path(parts, family: str, stem_only: bool) -> str:
+    """The module path of the transformer core's families (``vit``,
+    ``resnetv2``, ``vit_hybrid``); "" for a top-level raw parameter."""
+    if family == "resnetv2":
+        return _resnetv2_path(parts)
+    if parts and parts[0] == "backbone":
+        rest = parts[1:]
+        if rest and re.match(r"(conv1_\d|bn1|layer\d)", rest[0]):
+            inner = _module_path(rest, avg_down=True)
+        else:
+            inner = _resnetv2_path(rest, stem_only)
+        return "patch_embed.backbone." + inner
+    out = []
+    for p in parts:
+        m = re.match(r"blocks_(\d+)$", p)
+        out.append("patch_embed.proj" if p == "patch_embed" else
+                   f"blocks.{m.group(1)}" if m else p)
+    return ".".join(out)
+
+
 def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
                             kernel_size: int = 3, dw_group: int = 1,
                             avg_down: bool = False, family=None
@@ -155,12 +224,16 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
     SE-CoTNetD models (the ResNet-D shortcut); ``family`` is
     ``model_family(name)`` for the comparison families."""
     k2 = kernel_size * kernel_size
+    # the hybrids' R+Ti backbone is the stem alone, without timm's 'stem.'
+    stem_only = not any("/backbone/stage" in k for k in flat)
     sd = {}
     for key, val in flat.items():
         collection, *parts, leaf = key.split("/")
         val = np.asarray(val, dtype=np.float32)
-        mod = _module_path(parts, avg_down, family)
-        owner = parts[-1]
+        mod = (_transformer_path(parts, family, stem_only)
+               if family in _TRANSFORMER_FAMILIES else
+               _module_path(parts, avg_down, family))
+        owner = parts[-1] if parts else leaf
         if collection == "batch_stats":
             sd[f"{mod}.running_{leaf}"] = val
             sd[f"{mod}.num_batches_tracked"] = np.zeros((), np.int64)
@@ -193,7 +266,7 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
             cw = _SAN_CW[int(re.match(r"layer(\d)_", parts[0]).group(1))]
             val = val[np.argsort(_kmajor_perm(val.shape[0],
                                               val.shape[0] // cw))]
-        sd[f"{mod}.{name}"] = val
+        sd[f"{mod}.{name}" if mod else name] = val
     # own, writable memory: arrays that come from JAX are read-only
     return {k: torch.from_numpy(np.require(v, requirements="CW"))
             for k, v in sd.items()}

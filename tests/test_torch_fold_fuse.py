@@ -508,26 +508,76 @@ def test_embed_gn_rounds_w_raw_to_the_model_dtype():
     assert not torch.equal(got, unrounded.to(low))
 
 
+# the geometry of each gradient case: (seed, K, dilation, map)
+EMBED_GRAD_CASES = {"x": (6, 3, 1, (5, 5)), "w_pre": (7, 3, 1, (6, 4)),
+                    "w2": (8, 5, 2, (7, 6)), "gamma": (9, 7, 1, (5, 6))}
+EMBED_WRT = ("x", "w_pre", "w2", "b2", "gamma", "beta")
+
+
 @pytest.mark.parametrize("which", ["x", "w_pre", "w2", "gamma"])
 def test_embed_gn_with_grad_is_refused(which):
-    """The fused op is the eval path and has no backward, as the TPU kernel
-    has no VJP: a call that would record a gradient raises by name."""
-    x, w_pre, w2, b2, gamma, beta = _embed_inputs(6, n=1, h=5, w=5, c=16,
-                                                  cp=8)
-    tensors = dict(
-        x=torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))),
-        w_pre=torch.from_numpy(np.ascontiguousarray(
-            w_pre.transpose(0, 3, 1, 2))),
-        w2=torch.from_numpy(np.ascontiguousarray(w2.T)),
-        b2=torch.from_numpy(b2), gamma=torch.from_numpy(gamma),
-        beta=torch.from_numpy(beta))
+    """The kernels have no backward, as the TPU kernel has no VJP:
+    ``impl='hopper'`` refuses by name a call that would record a gradient
+    (``which`` requires one).  The plain version gives one: for ``auto`` on
+    the CPU and for ``torch``, the gradients of ``sum(out * r)`` in all six
+    inputs against ``jax.grad`` of the JAX op's XLA form, f32, at the
+    case's geometry (K = 3, 5 with dilation 2, 7).  Limit 1e-5 of each
+    gradient's largest (6e-7 the worst seen): f32 on both sides, the same
+    products summed in another order, and the XLA form normalizes as
+    ``w*s + b``, which cancels where the plain version subtracts the mean
+    first."""
+    seed, k, dil, (h, w) = EMBED_GRAD_CASES[which]
+    pad = (dil * (k - 1) + 1) // 2
+    x, w_pre, w2, b2, gamma, beta = _embed_inputs(seed, n=2, h=h, w=w,
+                                                  c=16, cp=8, k=k)
+    k2, cw = k * k, x.shape[-1] // 8
+    r = _cotangent((2, h, w, 16), seed=seed)
+
+    def loss(*a):
+        out = jax_embed_gn(*a, kernel_size=k, padding=pad, dilation=dil,
+                           impl="xla")
+        return jnp.vdot(out, jnp.asarray(r))
+
+    want = jax.jit(jax.grad(loss, argnums=tuple(range(6))))(
+        *(jnp.asarray(a) for a in (x, w_pre, w2, b2, gamma, beta)))
+    # the JAX gradients in the port's layouts: NCHW, [F, Cp], cw-major F
+    want = dict(zip(EMBED_WRT, [
+        np.asarray(want[0]).transpose(0, 3, 1, 2),
+        np.asarray(want[1]).transpose(0, 3, 1, 2),
+        _cw_major(np.asarray(want[2]), k2, cw).T,
+        *(_cw_major(np.asarray(g), k2, cw) for g in want[3:])]))
+
+    def port_tensors():
+        return dict(
+            x=torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))),
+            w_pre=torch.from_numpy(np.ascontiguousarray(
+                w_pre.transpose(0, 3, 1, 2))),
+            w2=torch.from_numpy(np.ascontiguousarray(
+                _cw_major(w2, k2, cw).T)),
+            **{name: torch.from_numpy(_cw_major(v, k2, cw))
+               for name, v in (("b2", b2), ("gamma", gamma),
+                               ("beta", beta))})
+
+    geometry = dict(kernel_size=k, padding=pad, dilation=dil)
+    tensors = port_tensors()
     tensors[which].requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        la.local_aggregate_embed_gn(*tensors.values(), impl="hopper",
+                                    **geometry)
+    rt = torch.from_numpy(np.ascontiguousarray(r.transpose(0, 3, 1, 2)))
     for impl in ("auto", "torch"):
-        with pytest.raises(NotImplementedError, match="no backward"):
-            la.local_aggregate_embed_gn(*tensors.values(), impl=impl)
-    with torch.no_grad():
-        assert la.local_aggregate_embed_gn(*tensors.values()).shape == (
-            1, 16, 5, 5)
+        leaves = {name: t.requires_grad_()
+                  for name, t in port_tensors().items()}
+        plain = la.PLAIN_EMBED_GN_CALLS
+        out = la.local_aggregate_embed_gn(*leaves.values(), impl=impl,
+                                          **geometry)
+        assert la.PLAIN_EMBED_GN_CALLS == plain + 1
+        (out * rt).sum().backward()
+        for name in EMBED_WRT:
+            got, ref = leaves[name].grad.numpy(), want[name]
+            np.testing.assert_allclose(
+                got, ref, rtol=0, atol=1e-5 * float(np.abs(ref).max()),
+                err_msg=f"{impl} d{name}")
 
 
 def test_embed_gn_rejects_what_it_cannot_take():

@@ -1452,3 +1452,95 @@ def test_reflect_pad_beyond_the_map_on_card():
                               out["cpu"]):
         err = float((got - ref).abs().max())
         assert err <= 1e-5 * float(ref.abs().max()), (name, err)
+
+
+# ---- the transformer core: ViT, DeiT, ResNetV2 and the hybrid ViTs ----------
+
+TRANSFORMER_KEYS = ("vit_tiny_patch16_224", "deit_tiny_distilled_patch16_224",
+                    "resnetv2_50x1_bitm", "resnetv2_50d",
+                    "vit_tiny_r_s16_p8_224", "vit_small_resnet26d_224")
+
+
+@pytest.mark.parametrize("name", TRANSFORMER_KEYS)
+def test_transformer_core_logits_card_against_cpu(name):
+    """f32 logits at bs2 and 224 px, seeded weights, TF32 off: the card against the CPU at 1e-3 of the largest
+    logit (cuBLAS and cuDNN sum in other orders; a ViT's 12 blocks and a
+    ResNetV2's GN statistics carry that from layer to layer).  No op of
+    the port runs: no launch and no plain call."""
+    _need_cuda()
+    from cotnet_tpu_torch.models import create_model
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 3, 224, 224, generator=gen)
+    cpu = create_model(name, device="cpu", seed=0)
+    card = create_model(name, device="cuda", seed=0)
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    la.reset_counts()
+    try:
+        with torch.no_grad():
+            ref = cpu(x)
+            got = card(x.cuda()).cpu()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    assert got.shape == (2, 1000) and torch.isfinite(got).all()
+    err = float((got - ref).abs().max())
+    assert err <= 1e-3 * float(ref.abs().max()), err
+    assert la.LAUNCHES == la.PLAIN_CALLS == la.EMBED_GN_LAUNCHES == 0
+
+
+def _embed_case(device, k=3):
+    gen = torch.Generator().manual_seed(4)
+    n, c, cp, h, w = 2, 16, 8, 9, 8
+    f = k * k * c // 8
+    tensors = [torch.randn(n, c, h, w, generator=gen),
+               torch.randn(n, cp, h, w, generator=gen).clamp_min(0),
+               0.1 * torch.randn(f, cp, generator=gen),
+               0.1 * torch.randn(f, generator=gen),
+               1 + 0.2 * torch.randn(f, generator=gen),
+               0.2 * torch.randn(f, generator=gen)]
+    return [t.to(device).requires_grad_() for t in tensors]
+
+
+def test_embed_gn_auto_refuses_a_gradient_at_compiled_taps_on_card():
+    """'auto' on CUDA at a K*K the kernels are compiled for takes the
+    kernels, which have no backward: a call that would record a gradient
+    raises by name, as the JAX package's TPU kernel has no VJP; under
+    no_grad it launches."""
+    _need_cuda()
+    assert 9 in la._EMBED_GN_TAPS
+    leaves = _embed_case("cuda")
+    la.reset_counts()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        la.local_aggregate_embed_gn(*leaves, kernel_size=3)
+    assert la.EMBED_GN_LAUNCHES == 0
+    with torch.no_grad():
+        la.local_aggregate_embed_gn(*leaves, kernel_size=3)
+    assert la.EMBED_GN_LAUNCHES == 1
+
+
+def test_embed_gn_plain_gradient_card_against_cpu():
+    """``impl='torch'`` differentiated on the card in f32 (TF32 off) gives
+    the CPU's gradients in all six inputs within 1e-5 of each one's
+    largest."""
+    _need_cuda()
+    grads = {}
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cpu", "cuda"):
+            leaves = _embed_case(device)
+            out = la.local_aggregate_embed_gn(*leaves, kernel_size=3,
+                                              impl="torch")
+            gen = torch.Generator().manual_seed(5)
+            r = torch.randn(out.shape, generator=gen).to(device)
+            (out * r).sum().backward()
+            grads[device] = [t.grad.cpu() for t in leaves]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
+        err = float((got - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), err

@@ -94,9 +94,11 @@ def jax_train_grads(module, flat, xs, r):
 
     def loss(params, x_):
         out, mutated = module.apply(
-            {"params": params, "batch_stats": variables["batch_stats"]}, x_,
+            {"params": params,
+             "batch_stats": variables.get("batch_stats", {})}, x_,
             training=True, mutable=["batch_stats"])
-        return jnp.vdot(out, jnp.asarray(r)), (out, mutated["batch_stats"])
+        return jnp.vdot(out, jnp.asarray(r)), (
+            out, mutated.get("batch_stats", {}))
 
     fn = jax.jit(jax.value_and_grad(loss, (0, 1), has_aux=True))
     results = []
