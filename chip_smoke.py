@@ -228,6 +228,22 @@ printing the last line:
    plain call.  The fused embed op's plain gradient (``impl="torch"``) on
    the card in f32 against the CPU's (1e-5 of the largest), and ``auto``
    at a compiled K*K refusing a gradient.  The phase's seconds.
+15. The ViT-built transformers (after phase 14; no op on their paths):
+   swin_tiny_patch4_window7_224, swin_base_patch4_window12_384 (at 384,
+   bs2: window 12, no shift in stage 4), xcit_nano_12_p8_224 (patch 8,
+   tokens_norm off), xcit_tiny_24_p16_224 (depth 24, eta 1e-5),
+   cait_xxs24_224 and pit_ti_distilled_224 in f32 at bs4 with TF32 off,
+   seeded weights and XCiT's BN statistics calibrated on the images:
+   logits on the card against the port on the CPU at 1e-3 of the largest
+   logit; five f32 steps of xcit_nano_12_p16_224 on one batch lower the
+   loss.  The bf16 main paths: swin_tiny_patch4_window7_224's eval and
+   train at 224 bs128 (the train step under Swin-T's solver,
+   ``SWIN_RECIPE``), xcit_small_12_p16_224's eval and train at 224 bs128
+   (DeiT-B's solver with drop path 0.05), cait_s24_224's and pit_b_224's
+   eval at 224 bs128, swin_base_patch4_window12_384's eval at 384 bs64: 2
+   warm-up and 4 timed steps each, images/s, peak memory, and one
+   profiled step (device kernels, busy share); no launch of the op and no
+   plain call.  The phase's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -445,11 +461,46 @@ DEIT_RECIPE = {
                    epochs=300, warmup_epochs=5, decay_rate=0.1),
     "ema_decay": 0.99996,
 }
+# Swin-T's published ImageNet-1k solver (Liu et al. 2021, "Swin
+# Transformer", section 4.1): AdamW at 1e-3 per 1024 images (the warm-up
+# and least LRs scaled alike), weight decay 0.05, cosine over 300 epochs
+# with 20 of warm-up, drop path 0.2, mixup 0.8 with cutmix 1.0, label
+# smoothing 0.1, no EMA
+SWIN_RECIPE = {
+    "model": dict(drop_path_rate=0.2),
+    "mixup": dict(RECIPE["mixup"]),
+    "loss": dict(smoothing=0.1),
+    "solver": dict(opt="adamw", weight_decay=0.05, sched="cosine",
+                   lr=1e-3 * BATCH / 1024, warmup_lr=1e-6 * BATCH / 1024,
+                   min_lr=1e-5 * BATCH / 1024, epochs=300, warmup_epochs=20,
+                   decay_rate=0.1),
+    "ema_decay": 0.0,
+}
 # ResNetV2 takes no drop path: the CoTNet-50 recipe's dropout, solver,
-# mixup and EMA
+# mixup and EMA; XCiT trains on DeiT's solver, with drop path 0.05 at S12
 TRANSFORMER_RECIPES = {"vit_base_patch16_224": DEIT_RECIPE,
                        "resnetv2_50x1_bitm": dict(
-                           RECIPE, model=dict(drop_rate=0.25))}
+                           RECIPE, model=dict(drop_rate=0.25)),
+                       "swin_tiny_patch4_window7_224": SWIN_RECIPE,
+                       "xcit_small_12_p16_224": dict(
+                           DEIT_RECIPE, model=dict(drop_path_rate=0.05))}
+# phase 15, the ViT-built transformers: the f32 checks (model, image size,
+# batch), the model of the five f32 steps, and the bf16 main paths (model,
+# kind, image size, batch)
+VIT_ZOO_F32 = (("swin_tiny_patch4_window7_224", 224, 4),
+               ("swin_base_patch4_window12_384", 384, 2),
+               ("xcit_nano_12_p8_224", 224, 4),
+               ("xcit_tiny_24_p16_224", 224, 4),
+               ("cait_xxs24_224", 224, 4),
+               ("pit_ti_distilled_224", 224, 4))
+VIT_ZOO_STEPS_MODEL = "xcit_nano_12_p16_224"
+VIT_ZOO_PATHS = (("swin_tiny_patch4_window7_224", "eval", 224, 128),
+                 ("swin_tiny_patch4_window7_224", "train", 224, 128),
+                 ("xcit_small_12_p16_224", "eval", 224, 128),
+                 ("xcit_small_12_p16_224", "train", 224, 128),
+                 ("cait_s24_224", "eval", 224, 128),
+                 ("pit_b_224", "eval", 224, 128),
+                 ("swin_base_patch4_window12_384", "eval", 384, 64))
 
 
 def log(*args):
@@ -3833,8 +3884,8 @@ def no_op(la, what: str):
         raise AssertionError(f"{what} reached the op: {snapshot}")
 
 
-def transformer_f32_check(name: str, size: int = IMAGE):
-    """f32 logits of ``name`` at bs4 (seeded weights, BN statistics
+def transformer_f32_check(name: str, size: int = IMAGE, n: int = 4):
+    """f32 logits of ``name`` at bs ``n`` (seeded weights, BN statistics
     calibrated on the images) on the card against the port on the CPU,
     TF32 off, at 1e-3 of the largest logit."""
     from cotnet_tpu_torch.models import create_model
@@ -3843,8 +3894,8 @@ def transformer_f32_check(name: str, size: int = IMAGE):
 
     cpu = create_model(name, device="cpu", seed=0)
     gen = torch.Generator().manual_seed(9)
-    x = torch.randn(4, 3, size, size, generator=gen) \
-        * torch.linspace(0.5, 2.0, 4)[:, None, None, None]
+    x = torch.randn(n, 3, size, size, generator=gen) \
+        * torch.linspace(0.5, 2.0, n)[:, None, None, None]
     if any(isinstance(m, BatchNorm2d) for m in cpu.modules()):
         calibrate_bn(cpu, x, seed=1)
     card = create_model(name, device="cuda", seed=0)
@@ -3855,7 +3906,7 @@ def transformer_f32_check(name: str, size: int = IMAGE):
     del cpu, card
     scale = float(ref.abs().max())
     err = float((got - ref).abs().max())
-    if not (torch.isfinite(got).all() and got.shape == (4, 1000)
+    if not (torch.isfinite(got).all() and got.shape == (n, 1000)
             and err <= 1e-3 * scale):
         raise AssertionError(f"{name} f32 logits {tuple(got.shape)}, card "
                              f"against CPU: max|err| {err}, max|logit| "
@@ -3991,6 +4042,33 @@ def transformer_phase(la):
         transformer_path(la, name, kind, size, n)
     embed_gn_gradient_card(la)
     log(f"transformer core phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---- phase 15: the ViT-built transformers ----------------------------------
+
+def vit_zoo_phase(la):
+    """Phase 15: the f32 checks of the six models, xcit_nano_12_p16's five
+    steps and the seven bf16 main paths."""
+    from cotnet_tpu_torch.models import create_model
+
+    t_phase = time.perf_counter()
+    la.reset_counts()
+    errs = {name: transformer_f32_check(name, size, n)
+            for name, size, n in VIT_ZOO_F32}
+    no_op(la, "the f32 checks")
+    log("ViT-built transformers f32, logits on the card against the CPU, "
+        "max|err| / max|logit| (limit 1e-3): "
+        + ", ".join(f"{name} ({size}, bs{n}) {errs[name]:.3g}"
+                    for name, size, n in VIT_ZOO_F32))
+    model = create_model(VIT_ZOO_STEPS_MODEL, device="cuda", seed=0)
+    with tf32_off():
+        loss_falls(la, model, images_f32(16))
+    del model
+    no_op(la, f"{VIT_ZOO_STEPS_MODEL}'s f32 steps")
+    for name, kind, size, n in VIT_ZOO_PATHS:
+        transformer_path(la, name, kind, size, n)
+    log(f"ViT-built transformers phase: {time.perf_counter() - t_phase:.1f} "
+        "s")
 
 
 def expected_route(e) -> str:
@@ -4172,6 +4250,9 @@ def main() -> int:
     log(f"families phase done at {time.perf_counter() - t0:.1f} s")
     transformer_phase(la)
     log(f"transformer core phase done at {time.perf_counter() - t0:.1f} s")
+    vit_zoo_phase(la)
+    log(f"ViT-built transformers phase done at "
+        f"{time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()
     log(f"device copy rate: {hbm_rate / 1e12:.3f} TB/s (data sheet "

@@ -1,9 +1,10 @@
 # importing the model modules registers their entrypoints
-from cotnet_tpu_torch.models import (botnet, cotnet,  # noqa: F401
-                                     cotnet_hybrid, lambda_net, lr_net,
-                                     resnet, resnet_dw, resnetv2, san,
+from cotnet_tpu_torch.models import (botnet, cait,  # noqa: F401
+                                     cotnet, cotnet_hybrid, lambda_net,
+                                     lr_net, pit, resnet, resnet_dw,
+                                     resnetv2, san, swin_transformer,
                                      vision_transformer,
-                                     vision_transformer_hybrid)
+                                     vision_transformer_hybrid, xcit)
 from cotnet_tpu_torch.models.factory import create_model
 from cotnet_tpu_torch.models.helpers import get_model_default_cfg
 from cotnet_tpu_torch.models.registry import (

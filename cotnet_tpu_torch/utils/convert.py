@@ -48,7 +48,16 @@ state_dict is the reference's torch layout:
   ``head.fc``; the hybrids' ``backbone`` to ``patch_embed.backbone``, with
   the R+Ti stem's ``conv``/``norm`` right under it and the ResNet-D
   backbones under the chassis' names (``conv1.0``, ``layer1.0``,
-  ``downsample.1/2``).
+  ``downsample.1/2``);
+- the ViT-built families, the inverse of the ``swin``, ``xcit``, ``cait``
+  and ``pit`` adapters (``cotnet_tpu/utils/convert.py:202-216,
+  352-383``), by ``_FAMILY_RULES``: CaiT's ``blocks_token_only_{i}``,
+  XCiT's ``patch_conv{i}``/``patch_bn{i}`` to ``patch_embed.proj.{2i}.{0,1}``,
+  its class-attention modules and top-level gammas to
+  ``cls_attn_blocks.{i}``, Swin's ``layers_{s}_{b}`` and ``merge_*{s}`` to
+  ``layers.{s-1}.downsample`` with the merge's channel groups 1 and 2
+  swapped back, PiT's ``pool{s}_*`` to ``transformers.{s-1}.pool`` and its
+  NHWC ``pos_embed`` to timm's NCHW.
 
 The port's state_dict keys are the reference's, so a reference
 ``.pth.tar`` needs no key conversion: ``load_checkpoint_into`` reads it
@@ -103,8 +112,41 @@ _SAN_CW = (2, 8, 16, 32, 64)
 _FAMILY_MODULES = (("san", "san"), ("botnet", "botnet"),
                    ("lambda_net", "lambdanet"), ("resnet_dw", "resnet_dw"),
                    ("vision_transformer", "vit"), ("resnetv2", "resnetv2"),
-                   ("vision_transformer_hybrid", "vit_hybrid"))
-_TRANSFORMER_FAMILIES = ("vit", "resnetv2", "vit_hybrid")
+                   ("vision_transformer_hybrid", "vit_hybrid"),
+                   ("cait", "cait"), ("xcit", "xcit"),
+                   ("swin_transformer", "swin"), ("pit", "pit"))
+# the ViT-built families: each JAX module name (and each top-level raw
+# parameter name) renamed by the first rule that matches it whole, the
+# inverse of the JAX converter's FAMILY_ADAPTERS entries
+_FAMILY_RULES = {
+    "cait": ((r"patch_embed", "patch_embed.proj"),
+             (r"blocks_token_only_(\d+)", r"blocks_token_only.\1"),
+             (r"blocks_(\d+)", r"blocks.\1")),
+    "xcit": ((r"patch_conv(\d)",
+              lambda m: f"patch_embed.proj.{2 * int(m[1])}.0"),
+             (r"patch_bn(\d)", lambda m: f"patch_embed.proj.{2 * int(m[1])}.1"),
+             (r"pos_proj", "pos_embed.token_projection"),
+             (r"blocks_(\d+)", r"blocks.\1"),
+             (r"cls_attn_(\d+)", r"cls_attn_blocks.\1.attn"),
+             (r"ca_norm(\d+)", r"cls_attn_blocks.\1.norm1"),
+             (r"ca_norm_mlp(\d+)", r"cls_attn_blocks.\1.norm2"),
+             (r"ca_mlp(\d+)", r"cls_attn_blocks.\1.mlp"),
+             (r"ca_gamma([12])_(\d+)", r"cls_attn_blocks.\2.gamma\1")),
+    # the JAX model's merge_*{s} opens stage s, timm's PatchMerging closes
+    # stage s-1
+    "swin": ((r"patch_embed", "patch_embed.proj"),
+             (r"patch_norm", "patch_embed.norm"),
+             (r"layers_(\d+)_(\d+)", r"layers.\1.blocks.\2"),
+             (r"merge_(norm|reduction)(\d)",
+              lambda m: f"layers.{int(m[2]) - 1}.downsample.{m[1]}")),
+    # likewise PiT's pool{s} and timm's ConvHeadPooling
+    "pit": ((r"patch_embed", "patch_embed.conv"),
+            (r"transformers_(\d+)_blocks_(\d+)",
+             r"transformers.\1.blocks.\2"),
+            (r"pool(\d)_(conv|fc)",
+             lambda m: f"transformers.{int(m[1]) - 1}.pool.{m[2]}")),
+}
+_TRANSFORMER_FAMILIES = ("vit", "resnetv2", "vit_hybrid", *_FAMILY_RULES)
 
 
 def _kmajor_perm(n: int, k2: int, groups: int = 1) -> np.ndarray:
@@ -120,8 +162,9 @@ def _kmajor_perm(n: int, k2: int, groups: int = 1) -> np.ndarray:
 def model_family(model_name: str):
     """The family whose names ``jax_to_torch_state_dict`` maps for
     ``model_name`` (``"san"``, ``"botnet"``, ``"lambdanet"``,
-    ``"resnet_dw"``, ``"vit"``, ``"resnetv2"``, ``"vit_hybrid"``), or None
-    for the chassis' default mapping."""
+    ``"resnet_dw"``, ``"vit"``, ``"resnetv2"``, ``"vit_hybrid"``,
+    ``"cait"``, ``"xcit"``, ``"swin"``, ``"pit"``), or None for the
+    chassis' default mapping."""
     from cotnet_tpu_torch.models.registry import is_model_in_modules
 
     for module, family in _FAMILY_MODULES:
@@ -193,9 +236,31 @@ def _resnetv2_path(parts, stem_only: bool = False) -> str:
     return ".".join(out)
 
 
+def _rename(name: str, family: str) -> str:
+    """``name`` by the first of the family's ``_FAMILY_RULES`` that matches
+    it whole, else as it is."""
+    for pattern, repl in _FAMILY_RULES.get(family, ()):
+        new, hits = re.subn(f"^{pattern}$", repl, name)
+        if hits:
+            return new
+    return name
+
+
+def _swin_merge_perm(val: np.ndarray) -> np.ndarray:
+    """Channel groups 1 and 2 of a patch merge's 4C axis (axis 0) swapped:
+    the JAX model concatenates the 2x2 neighbours in raster order, timm in
+    ``(x0, x1, x2, x3)`` order (the JAX converter's ``_swin_merge_perm``,
+    its own inverse)."""
+    c = val.shape[0] // 4
+    return val[np.concatenate([np.arange(c) + g * c for g in (0, 2, 1, 3)])]
+
+
 def _transformer_path(parts, family: str, stem_only: bool) -> str:
-    """The module path of the transformer core's families (``vit``,
-    ``resnetv2``, ``vit_hybrid``); "" for a top-level raw parameter."""
+    """The module path of the transformer families (``vit``, ``resnetv2``,
+    ``vit_hybrid`` and those of ``_FAMILY_RULES``); "" for a top-level raw
+    parameter."""
+    if family in _FAMILY_RULES:
+        return ".".join(_rename(p, family) for p in parts)
     if family == "resnetv2":
         return _resnetv2_path(parts)
     if parts and parts[0] == "backbone":
@@ -234,6 +299,8 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
                if family in _TRANSFORMER_FAMILIES else
                _module_path(parts, avg_down, family))
         owner = parts[-1] if parts else leaf
+        if family == "swin" and owner.startswith("merge_"):
+            val = _swin_merge_perm(val)
         if collection == "batch_stats":
             sd[f"{mod}.running_{leaf}"] = val
             sd[f"{mod}.num_batches_tracked"] = np.zeros((), np.int64)
@@ -258,8 +325,12 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
             # a raw parameter: copied as it is, but for LambdaNet's conv3d
             # kernel
             name = _FAMILY_LEAVES.get(family, {}).get(leaf, leaf)
+            if not parts:   # top level: XCiT's class-attention gammas
+                name = _rename(name, family)
             if family == "lambdanet" and leaf == "embeddings":
                 val = val.reshape(val.shape[0], 1, 1, *val.shape[1:])
+            if family == "pit" and leaf == "pos_embed":
+                val = np.transpose(val, (0, 3, 1, 2))   # NHWC -> timm's NCHW
         if owner in _EMBED_PRODUCER:
             val = val[np.argsort(_kmajor_perm(val.shape[0], k2, dw_group))]
         if family == "san" and owner == "conv_w_conv2":

@@ -1544,3 +1544,62 @@ def test_embed_gn_plain_gradient_card_against_cpu():
     for got, ref in zip(grads["cuda"], grads["cpu"]):
         err = float((got - ref).abs().max())
         assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+# ---- the ViT-built transformers: CaiT, XCiT, Swin, PiT ---------------------
+
+# reduced nets (module, class, constructor arguments, image size): CaiT
+# with its token-only blocks, XCiT at patch 8 without tokens_norm (the nano
+# rows' form) and its BNs, Swin with a shifted block, the merge and an
+# unshifted stage, PiT distilled with its pooling
+VIT_FAMILY_NETS = {
+    "cait": ("cait", "Cait", dict(img_size=32, patch_size=8, embed_dim=64,
+                                  depth=2, num_heads=4)),
+    "xcit": ("xcit", "XCiT", dict(patch_size=8, embed_dim=64, depth=2,
+                                  num_heads=4, tokens_norm=False)),
+    "swin": ("swin_transformer", "SwinTransformer",
+             dict(patch_size=4, embed_dim=32, depths=(2, 2),
+                  num_heads=(2, 4), window_size=4)),
+    "pit": ("pit", "PoolingTransformer",
+            dict(img_size=32, patch_size=8, stride=4, base_dims=(16, 16),
+                 depths=(1, 2), heads=(2, 4), distilled=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VIT_FAMILY_NETS))
+def test_vit_family_logits_card_against_cpu(name):
+    """f32 logits of a reduced net at bs2 (32 px; 64 px for XCiT), weights
+    from a seeded generator, TF32 off: the card against the CPU at 1e-4 of
+    the largest logit (cuBLAS and cuDNN sum in other orders over two to
+    four blocks).  No op of the port runs: no launch and no plain call."""
+    _need_cuda()
+    import importlib
+
+    module, cls, kw = VIT_FAMILY_NETS[name]
+    build = getattr(importlib.import_module(
+        f"cotnet_tpu_torch.models.{module}"), cls)
+    cpu = build(num_classes=10, **kw).eval()
+    gen = torch.Generator().manual_seed(0)
+    for m in cpu.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    card = build(num_classes=10, **kw).cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    size = 64 if name == "xcit" else 32
+    x = torch.randn(2, 3, size, size, generator=gen)
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    la.reset_counts()
+    try:
+        with torch.no_grad():
+            ref = cpu(x)
+            got = card(x.cuda()).cpu()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    assert got.shape == (2, 10) and torch.isfinite(got).all()
+    err = float((got - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+    assert la.LAUNCHES == la.PLAIN_CALLS == la.EMBED_GN_LAUNCHES == 0

@@ -37,14 +37,15 @@ def to_nhwc(t):
     return t.detach().numpy().transpose(0, 2, 3, 1)
 
 
-def random_variables(module, x_nhwc, seed):
+def random_variables(module, x_nhwc, seed, *args):
     """``module``'s variables from a numpy seed, flattened to '/'-joined
     ``{params, batch_stats}`` keys: fan-in scaled kernels, norm scales in
     [0.5, 1], small biases, random BN running stats, and the raw parameters
     (position and relative embeddings, projections) at unit scale over the
-    square root of their last dim."""
+    square root of their last dim.  ``args`` follow the input in the
+    module's call."""
     shapes = jax.eval_shape(
-        lambda r, x: module.init({"params": r}, x, training=False),
+        lambda r, x: module.init({"params": r}, x, *args, training=False),
         jax.random.PRNGKey(0), x_nhwc)
     rng = np.random.RandomState(seed)
     flat = {}
@@ -221,3 +222,103 @@ def _jax_kw(family, avg_down=False, **_):
 
     return dict(avg_down=avg_down,
                 adapter=FAMILY_ADAPTERS[family] if family else None)
+
+
+def _flat_out(out, lib):
+    """A module's output as one array: a list (``features_only``) is
+    flattened and concatenated."""
+    if isinstance(out, (list, tuple)):
+        return lib.concatenate([o.reshape(-1) for o in out])
+    return out
+
+
+def check_parity(port, module, x, seed, family, rel=1e-5, *, image=False,
+                 args=(), training=False):
+    """Forward and gradients of one module or net on both sides in f32:
+    the same seeded variables (``random_variables``, carried into the port
+    by ``jax_to_torch_state_dict(family=...)``), the output, and the
+    gradients of ``sum(out * r)`` in the input and in every parameter,
+    against ``jax.value_and_grad`` of the JAX module, jitted once.  ``x``
+    is NHWC images where ``image`` (the port takes NCHW, and its maps come
+    back NCHW), else tokens; ``args`` follow the input in both calls (a
+    numpy array goes to the port as a tensor);
+    ``training`` runs both in training mode, with the BNs' batch
+    statistics, and compares the updated running statistics too (rtol
+    1e-5).  Each tensor is held at ``rel * max|ref|``, or where the JAX
+    gradient itself moves by more under a 1e-7 relative perturbation of
+    the input (a train-mode BN's cancelling sums), at 3 times that move;
+    a gradient below 1e-6 of the largest parameter gradient is held
+    against that largest.  Returns the worst ratio of error to scale
+    (above ``rel`` only where a perturbation's move allowed it)."""
+    flat = random_variables(module, x, seed, *args)
+    variables = unflatten(flat)
+    stats_in = variables.get("batch_stats", {})
+
+    def apply(params, x_):
+        v = {"params": params, "batch_stats": stats_in}
+        if training:
+            out, mutated = module.apply(v, x_, *args, training=True,
+                                        mutable=["batch_stats"])
+            return _flat_out(out, jnp), mutated.get("batch_stats", {})
+        return _flat_out(module.apply(v, x_, *args, training=False),
+                         jnp), {}
+
+    shape = jax.eval_shape(lambda p, x_: apply(p, x_)[0],
+                           variables["params"], jnp.asarray(x)).shape
+    r = np.random.RandomState(seed + 1).randn(*shape).astype(np.float32)
+
+    def loss(params, x_):
+        out, stats = apply(params, x_)
+        return jnp.vdot(out, jnp.asarray(r)), (out, stats)
+
+    fn = jax.jit(jax.value_and_grad(loss, (0, 1), has_aux=True))
+    noise = 1e-7 * np.random.RandomState(99).randn(*x.shape)
+    results = []
+    for xi in (x, (x * (1 + noise)).astype(np.float32)):
+        (_, (out, stats)), (gp, gx) = fn(variables["params"],
+                                         jnp.asarray(xi))
+        results.append((np.asarray(out), flat_np(stats, "batch_stats"),
+                        np.asarray(gx), flat_np(gp, "params")))
+    (out, stats, gx, gp), (_, _, gx2, gp2) = results
+
+    load_port(port, flat, family).train(training)
+    xt = (nchw(x) if image else torch.from_numpy(x)).requires_grad_()
+    got = port(xt, *(torch.from_numpy(a) if isinstance(a, np.ndarray)
+                     else a for a in args))
+    if isinstance(got, (list, tuple)) and image:
+        got = [g.permute(0, 2, 3, 1) for g in got]
+    got = _flat_out(got, torch)
+    (got * torch.from_numpy(r)).sum().backward()
+    worst = []
+
+    def close(what, g, want, moved=0.0, scale=None):
+        scale = float(np.abs(want).max()) if scale is None else scale
+        err = float(np.abs(g - want).max())
+        if scale == 0:   # a parameter the output does not reach
+            assert err == 0, what
+            return
+        worst.append(err / scale)
+        assert err <= max(rel * scale, 3 * moved), (what, err, scale, moved)
+
+    close("out", got.detach().numpy(), out)
+    dx = xt.grad.numpy()
+    close("dx", dx.transpose(0, 2, 3, 1) if image else dx, gx,
+          float(np.abs(gx2 - gx).max()))
+    want = jax_to_torch_state_dict(gp, family=family)
+    want2 = jax_to_torch_state_dict(gp2, family=family)
+    top = max(float(v.abs().max()) for v in want.values())
+    grads = dict(port.named_parameters())
+    assert sorted(want) == sorted(grads)
+    for name, g in want.items():
+        scale = float(g.abs().max())
+        got_g = grads[name].grad
+        close(name, np.zeros(g.shape, np.float32) if got_g is None
+              else got_g.numpy(), g.numpy(),
+              float((want2[name] - g).abs().max()),
+              scale if scale > 1e-6 * top else top)
+    sd = port.state_dict()
+    for k, v in jax_to_torch_state_dict(stats, family=family).items():
+        if "running_" in k:
+            np.testing.assert_allclose(sd[k].numpy(), v.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+    return max(worst)
