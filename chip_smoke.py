@@ -244,6 +244,20 @@ printing the last line:
    warm-up and 4 timed steps each, images/s, peak memory, and one
    profiled step (device kernels, busy share); no launch of the op and no
    plain call.  The phase's seconds.
+16. The last ViT-built transformers (after phase 15; no op on their
+   paths): convit_tiny, tnt_s_patch16_224, twins_pcpvt_small,
+   visformer_tiny, levit_128s and coat_lite_tiny in f32 at bs4 with TF32
+   off, seeded weights and the BN statistics of Visformer and LeViT (its
+   BNs over tokens too) calibrated on the images: logits on the card
+   against the port on the CPU at 1e-3 of the largest logit; five f32
+   steps of levit_128s on one batch lower the loss (the BN over tokens in
+   training).  The bf16 main paths at 224 bs128: the eval steps of
+   twins_svt_small, visformer_small, coat_tiny (its parallel blocks),
+   levit_256, convit_small and tnt_s_patch16_224, and the train steps of
+   twins_svt_small and visformer_small under DeiT-B's solver with drop
+   path 0.1: 2 warm-up and 4 timed steps each, images/s, peak memory, and
+   one profiled step (device kernels, busy share); no launch of the op and
+   no plain call.  The phase's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -477,13 +491,18 @@ SWIN_RECIPE = {
     "ema_decay": 0.0,
 }
 # ResNetV2 takes no drop path: the CoTNet-50 recipe's dropout, solver,
-# mixup and EMA; XCiT trains on DeiT's solver, with drop path 0.05 at S12
+# mixup and EMA; XCiT trains on DeiT's solver, with drop path 0.05 at S12;
+# Twins-SVT-S and Visformer-S on DeiT's solver with its drop path 0.1, a
+# choice made here for one solver across the phase's two train paths, not
+# either paper's own recipe
 TRANSFORMER_RECIPES = {"vit_base_patch16_224": DEIT_RECIPE,
                        "resnetv2_50x1_bitm": dict(
                            RECIPE, model=dict(drop_rate=0.25)),
                        "swin_tiny_patch4_window7_224": SWIN_RECIPE,
                        "xcit_small_12_p16_224": dict(
-                           DEIT_RECIPE, model=dict(drop_path_rate=0.05))}
+                           DEIT_RECIPE, model=dict(drop_path_rate=0.05)),
+                       "twins_svt_small": DEIT_RECIPE,
+                       "visformer_small": DEIT_RECIPE}
 # phase 15, the ViT-built transformers: the f32 checks (model, image size,
 # batch), the model of the five f32 steps, and the bf16 main paths (model,
 # kind, image size, batch)
@@ -501,6 +520,21 @@ VIT_ZOO_PATHS = (("swin_tiny_patch4_window7_224", "eval", 224, 128),
                  ("cait_s24_224", "eval", 224, 128),
                  ("pit_b_224", "eval", 224, 128),
                  ("swin_base_patch4_window12_384", "eval", 384, 64))
+# phase 16, the last ViT-built transformers: the f32 checks (model, image
+# size, batch), the model of the five f32 steps, and the bf16 main paths
+# (model, kind, image size, batch)
+VIT_TAIL_F32 = (("convit_tiny", 224, 4), ("tnt_s_patch16_224", 224, 4),
+                ("twins_pcpvt_small", 224, 4), ("visformer_tiny", 224, 4),
+                ("levit_128s", 224, 4), ("coat_lite_tiny", 224, 4))
+VIT_TAIL_STEPS_MODEL = "levit_128s"
+VIT_TAIL_PATHS = (("twins_svt_small", "eval", 224, 128),
+                  ("twins_svt_small", "train", 224, 128),
+                  ("visformer_small", "eval", 224, 128),
+                  ("visformer_small", "train", 224, 128),
+                  ("coat_tiny", "eval", 224, 128),
+                  ("levit_256", "eval", 224, 128),
+                  ("convit_small", "eval", 224, 128),
+                  ("tnt_s_patch16_224", "eval", 224, 128))
 
 
 def log(*args):
@@ -1381,10 +1415,13 @@ def fmt_ms(ms) -> str:
 
 def calibrate_bn(model, x, seed: int):
     """Seeded BN running stats drawn from each BN's real input on ``x``, and
-    a non-zero bn3 scale.  Random stats unrelated to the input let the
-    activations grow block after block; with the default zero-init bn3
-    every residual branch is multiplied by zero and the logits never see
-    the aggregation."""
+    a small non-zero scale in the last BN of each residual branch (bn3;
+    LeViT's ``m.proj.1.bn`` and ``m.2.bn``, which timm starts at zero).
+    Random stats unrelated to the input let the activations grow block
+    after block; with the default zero-init bn3 every residual branch is
+    multiplied by zero and the logits never see the aggregation; with
+    LeViT's branches at unit scale its 22 residual blocks amplify f32
+    rounding to 2.5e-3 of the largest logit (the CPU against f64, bs4)."""
     from cotnet_tpu_torch.nn import BatchNorm2d
 
     gen = torch.Generator(device=x.device).manual_seed(seed)
@@ -1395,10 +1432,15 @@ def calibrate_bn(model, x, seed: int):
     def set_stats(m, args):
         # a random part of the mean, and the second moment about it: the
         # BN then scales each channel to about unit size without the
-        # cancellation of centring a channel whose mean dwarfs its spread
+        # cancellation of centring a channel whose mean dwarfs its spread;
+        # the channels on axis 1 (NCHW), or last (LeViT's tokens)
         xin = args[0].float()
-        mean = xin.mean((0, 2, 3)) * 0.5 * rand(m.running_mean)
-        msq = (xin - mean[:, None, None]).square().mean((0, 2, 3))
+        axis = m.channel_axis % xin.dim()
+        red = tuple(d for d in range(xin.dim()) if d != axis)
+        shape = [1] * xin.dim()
+        shape[axis] = -1
+        mean = xin.mean(red) * 0.5 * rand(m.running_mean)
+        msq = (xin - mean.view(shape)).square().mean(red)
         m.running_mean.copy_(mean)
         m.running_var.copy_(msq * (0.5 + rand(msq)))
 
@@ -1408,7 +1450,7 @@ def calibrate_bn(model, x, seed: int):
     try:
         with torch.no_grad():
             for name, m in bns:
-                if name.endswith("bn3"):
+                if name.endswith(("bn3", ".m.proj.1.bn", ".m.2.bn")):
                     m.weight.copy_(0.1 + 0.2 * rand(m.weight))
             model(x)
     finally:
@@ -4049,26 +4091,43 @@ def transformer_phase(la):
 def vit_zoo_phase(la):
     """Phase 15: the f32 checks of the six models, xcit_nano_12_p16's five
     steps and the seven bf16 main paths."""
+    zoo_phase(la, "ViT-built transformers", VIT_ZOO_F32,
+              VIT_ZOO_STEPS_MODEL, VIT_ZOO_PATHS)
+
+
+# ---- phase 16: the last ViT-built transformers -----------------------------
+
+def vit_tail_phase(la):
+    """Phase 16: the f32 checks of the six models, levit_128s's five steps
+    and the eight bf16 main paths."""
+    zoo_phase(la, "last ViT-built transformers", VIT_TAIL_F32,
+              VIT_TAIL_STEPS_MODEL, VIT_TAIL_PATHS)
+
+
+def zoo_phase(la, label: str, f32_models, steps_model: str, paths):
+    """A phase of models without the op: each of ``f32_models`` (model,
+    image size, batch) in f32 on the card against the CPU, five f32 steps
+    of ``steps_model``, then the bf16 main ``paths``; no launch of the op
+    and no plain call.  Logs the phase's seconds."""
     from cotnet_tpu_torch.models import create_model
 
     t_phase = time.perf_counter()
     la.reset_counts()
     errs = {name: transformer_f32_check(name, size, n)
-            for name, size, n in VIT_ZOO_F32}
+            for name, size, n in f32_models}
     no_op(la, "the f32 checks")
-    log("ViT-built transformers f32, logits on the card against the CPU, "
-        "max|err| / max|logit| (limit 1e-3): "
+    log(f"{label} f32, logits on the card against the CPU, max|err| / "
+        "max|logit| (limit 1e-3): "
         + ", ".join(f"{name} ({size}, bs{n}) {errs[name]:.3g}"
-                    for name, size, n in VIT_ZOO_F32))
-    model = create_model(VIT_ZOO_STEPS_MODEL, device="cuda", seed=0)
+                    for name, size, n in f32_models))
+    model = create_model(steps_model, device="cuda", seed=0)
     with tf32_off():
         loss_falls(la, model, images_f32(16))
     del model
-    no_op(la, f"{VIT_ZOO_STEPS_MODEL}'s f32 steps")
-    for name, kind, size, n in VIT_ZOO_PATHS:
+    no_op(la, f"{steps_model}'s f32 steps")
+    for name, kind, size, n in paths:
         transformer_path(la, name, kind, size, n)
-    log(f"ViT-built transformers phase: {time.perf_counter() - t_phase:.1f} "
-        "s")
+    log(f"{label} phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def expected_route(e) -> str:
@@ -4252,6 +4311,9 @@ def main() -> int:
     log(f"transformer core phase done at {time.perf_counter() - t0:.1f} s")
     vit_zoo_phase(la)
     log(f"ViT-built transformers phase done at "
+        f"{time.perf_counter() - t0:.1f} s")
+    vit_tail_phase(la)
+    log(f"last ViT-built transformers phase done at "
         f"{time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()

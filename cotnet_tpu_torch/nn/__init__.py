@@ -17,7 +17,7 @@ from cotnet_tpu_torch.nn.drop import (
 )
 from cotnet_tpu_torch.nn.linear import Linear
 from cotnet_tpu_torch.nn.norm import (BatchNorm2d, GroupNorm, LayerNorm,
-                                      SubChannelGroupNorm)
+                                      SubChannelGroupNorm, TokenBatchNorm)
 from cotnet_tpu_torch.nn.pool import (avg_pool2d, global_pool2d, max_pool2d,
                                       max_pool2d_same)
 from cotnet_tpu_torch.nn.split_attn import SplitAttnConv2d, radix_softmax
@@ -26,8 +26,9 @@ __all__ = [
     "BatchNorm2d", "BlurPool2d", "CbamModule", "ClassifierHead", "Conv2d",
     "DropBlock2d", "DropPath", "Dropout", "EcaModule", "EffectiveSEModule",
     "GroupNorm", "LayerNorm", "Linear", "SEModule", "SplitAttnConv2d",
-    "StdConv2d", "SubChannelGroupNorm", "avg_pool2d", "create_attn",
-    "drop_block_2d", "drop_path", "dropout", "get_act_fn", "get_padding",
-    "global_pool2d", "list_act_fns", "max_pool2d", "max_pool2d_same",
-    "pad_same", "radix_softmax", "relu", "set_generator", "swish",
+    "StdConv2d", "SubChannelGroupNorm", "TokenBatchNorm", "avg_pool2d",
+    "create_attn", "drop_block_2d", "drop_path", "dropout", "get_act_fn",
+    "get_padding", "global_pool2d", "list_act_fns", "max_pool2d",
+    "max_pool2d_same", "pad_same", "radix_softmax", "relu", "set_generator",
+    "swish",
 ]

@@ -9,6 +9,9 @@ compute dtype.  In training the running variance is updated with the
 a process group of more than one rank the batch statistics are those of
 the global batch, as GSPMD makes the JAX package's.
 
+TokenBatchNorm: the same over the last axis of ``[N, L, D]`` tokens (LeViT's
+BN), sharing BatchNorm2d's code.
+
 SubChannelGroupNorm: the CoT attention-embed GroupNorm, the reference's
 ``nn.GroupNorm(Cw, K^2*Cw)`` on its cw-major channel order (channel =
 cw*K^2 + k), so group cw holds every tap of weight channel cw.  Statistics
@@ -82,6 +85,8 @@ class BatchNorm2d(nn.Module):
     under ``remat`` the BN neither all-reduces again nor moves its running
     statistics (``BatchStatsReplay``)."""
 
+    channel_axis = 1
+
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, zero_init: bool = False,
                  dtype: torch.dtype = torch.float32, group=None):
@@ -107,9 +112,10 @@ class BatchNorm2d(nn.Module):
             self.num_batches_tracked.zero_()
 
     def forward(self, x):
+        axis = self.channel_axis % x.dim()
         if self.training:
-            red = (0,) + tuple(range(2, x.dim()))
-            c = x.shape[1]
+            red = tuple(d for d in range(x.dim()) if d != axis)
+            c = x.shape[axis]
             count = x.numel() // c
             s1 = x.sum(red, dtype=torch.float32)
             s2 = x.square().sum(red, dtype=torch.float32)
@@ -140,8 +146,19 @@ class BatchNorm2d(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.weight
         b = self.bias - mean * inv
         dt = self.dtype
-        shape = (1, -1) + (1,) * (x.dim() - 2)
+        shape = [1] * x.dim()
+        shape[axis] = -1
         return x.to(dt) * inv.to(dt).view(shape) + b.to(dt).view(shape)
+
+
+class TokenBatchNorm(BatchNorm2d):
+    """``BatchNorm2d``'s arithmetic, running statistics and global-batch
+    sums over the last axis: ``[N, L, D]`` tokens or ``[N, D]`` vectors, the
+    statistics over every other axis, as the JAX package's ``batch_norm``
+    on a token array (``cotnet_tpu/models/levit.py:21-33``) and timm's
+    ``BatchNorm1d`` on the flattened tokens.  The same state_dict."""
+
+    channel_axis = -1
 
 
 class _GroupNormFn(torch.autograd.Function):

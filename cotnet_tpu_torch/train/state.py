@@ -16,11 +16,18 @@ import torch
 from torch import nn
 
 
-def float_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+def float_state(model: nn.Module, unique: bool = False
+                ) -> Dict[str, torch.Tensor]:
     """The model's own floating-point state tensors by state_dict name:
-    parameters and BN running stats, not the integer batch counters."""
-    return {k: v for k, v in model.state_dict(keep_vars=True).items()
-            if v.is_floating_point()}
+    parameters and BN running stats, not the integer batch counters.  A
+    module shared under several names (CoaT's) gives its tensors under
+    each; ``unique`` keeps the first name of each tensor only."""
+    out, seen = {}, set()
+    for k, v in model.state_dict(keep_vars=True).items():
+        if v.is_floating_point() and not (unique and id(v) in seen):
+            out[k] = v
+            seen.add(id(v))
+    return out
 
 
 @dataclasses.dataclass
@@ -38,8 +45,10 @@ class TrainState:
                ema: bool = False) -> "TrainState":
         copy = None
         if ema:
-            copy = {k: v.detach().clone()
-                    for k, v in float_state(model).items()}
+            # one EMA tensor per model tensor, under each of its names
+            clones = {id(v): v.detach().clone()
+                      for v in float_state(model, unique=True).values()}
+            copy = {k: clones[id(v)] for k, v in float_state(model).items()}
         return cls(model=model, optimizer=optimizer, ema=copy)
 
 

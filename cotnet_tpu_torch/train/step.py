@@ -81,7 +81,7 @@ def make_train_step(model, optimizer, schedule_fn: Callable, loss_fn: Callable,
             "SelfAttLayer), whose backward is not twice differentiable; the "
             "JAX package cannot take this step either")
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    live = list(float_state(model).items())
+    live = list(float_state(model, unique=True).items())
     offset = getattr(optimizer, "schedule_offset", 0)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],

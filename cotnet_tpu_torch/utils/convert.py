@@ -57,7 +57,21 @@ state_dict is the reference's torch layout:
   ``cls_attn_blocks.{i}``, Swin's ``layers_{s}_{b}`` and ``merge_*{s}`` to
   ``layers.{s-1}.downsample`` with the merge's channel groups 1 and 2
   swapped back, PiT's ``pool{s}_*`` to ``transformers.{s-1}.pool`` and its
-  NHWC ``pos_embed`` to timm's NCHW.
+  NHWC ``pos_embed`` to timm's NCHW;
+- the last ViT-built families, the inverse of the ``tnt``, ``twins``,
+  ``coat``, ``levit`` and ``visformer`` adapters
+  (``cotnet_tpu/utils/convert.py:217-353``; ConViT takes the ``vit``
+  rules): TNT's fused ``qkv`` rows split back into timm's ``qk`` and ``v``
+  and its token-major ``pixel_pos`` to ``[1, C, 4, 4]``; Twins'
+  ``patch_embed{s}``/``embed_norm{s}`` to ``patch_embeds.{s}``,
+  ``pos_block{s}`` to ``pos_block.{s}.proj.0``, ``sr_norm`` to ``norm``;
+  CoaT's ``conv{i}`` to ``conv_list.{i}``, the lite models' ``norm`` to
+  ``norm4``, the ``aggregate`` Dense to a Conv1d kernel, and each shared
+  module under all of timm's names (``_coat_aliases``); LeViT's blocks to
+  timm's flat ``blocks.{i}`` (``_levit_blocks``), ``linear``/``fc1``/
+  ``fc2``/``proj``/``q`` to ``c``/``0``/``2``/``proj.1``/``q.1``, with an
+  ``attention_bias_idxs`` beside each bias table; Visformer's stem to
+  ``stem.{0,1}`` and its NHWC ``pos_embed{s}`` to NCHW.
 
 The port's state_dict keys are the reference's, so a reference
 ``.pth.tar`` needs no key conversion: ``load_checkpoint_into`` reads it
@@ -114,7 +128,10 @@ _FAMILY_MODULES = (("san", "san"), ("botnet", "botnet"),
                    ("vision_transformer", "vit"), ("resnetv2", "resnetv2"),
                    ("vision_transformer_hybrid", "vit_hybrid"),
                    ("cait", "cait"), ("xcit", "xcit"),
-                   ("swin_transformer", "swin"), ("pit", "pit"))
+                   ("swin_transformer", "swin"), ("pit", "pit"),
+                   ("convit", "vit"), ("tnt", "tnt"), ("twins", "twins"),
+                   ("visformer", "visformer"), ("levit", "levit"),
+                   ("coat", "coat"))
 # the ViT-built families: each JAX module name (and each top-level raw
 # parameter name) renamed by the first rule that matches it whole, the
 # inverse of the JAX converter's FAMILY_ADAPTERS entries
@@ -145,6 +162,32 @@ _FAMILY_RULES = {
              r"transformers.\1.blocks.\2"),
             (r"pool(\d)_(conv|fc)",
              lambda m: f"transformers.{int(m[1]) - 1}.pool.{m[2]}")),
+    "tnt": ((r"pixel_embed", "pixel_embed.proj"),
+            (r"proj_embed", "proj"),
+            (r"blocks_(\d+)", r"blocks.\1")),
+    "twins": ((r"patch_embed(\d+)", r"patch_embeds.\1.proj"),
+              (r"embed_norm(\d+)", r"patch_embeds.\1.norm"),
+              (r"pos_block(\d+)", r"pos_block.\1.proj.0"),
+              (r"blocks_(\d+)_(\d+)", r"blocks.\1.\2"),
+              (r"sr_norm", "norm")),
+    "visformer": ((r"stem_conv", "stem.0"), (r"stem_bn", "stem.1"),
+                  (r"patch_embed(\d)", r"patch_embed\1.proj"),
+                  (r"embed_norm(\d)", r"patch_embed\1.norm"),
+                  (r"stage(\d)_(\d+)", r"stage\1.\2")),
+    # the flat blocks.{i} of LeViT are numbered by _levit_blocks
+    "levit": ((r"linear", "c"), (r"fc1", "0"), (r"fc2", "2"),
+              (r"proj", "proj.1"), (r"q", "q.1"),
+              (r"stem(\d)", lambda m: f"patch_embed.{2 * int(m[1])}.c"),
+              (r"stem_bn(\d)", lambda m: f"patch_embed.{2 * int(m[1])}.bn"),
+              (r"head_bn", "head.bn"), (r"head", "head.l"),
+              (r"head_dist", "head_dist.l")),
+    "coat": ((r"patch_embed(\d)", r"patch_embed\1.proj"),
+             (r"embed_norm(\d)", r"patch_embed\1.norm"),
+             (r"serial_blocks(\d)_(\d+)", r"serial_blocks\1.\2"),
+             (r"parallel_blocks_(\d+)", r"parallel_blocks.\1"),
+             (r"conv(\d)", r"conv_list.\1"),
+             # the lite models' last norm is timm's norm4 (coat.py:440)
+             (r"norm", "norm4")),
 }
 _TRANSFORMER_FAMILIES = ("vit", "resnetv2", "vit_hybrid", *_FAMILY_RULES)
 
@@ -162,9 +205,10 @@ def _kmajor_perm(n: int, k2: int, groups: int = 1) -> np.ndarray:
 def model_family(model_name: str):
     """The family whose names ``jax_to_torch_state_dict`` maps for
     ``model_name`` (``"san"``, ``"botnet"``, ``"lambdanet"``,
-    ``"resnet_dw"``, ``"vit"``, ``"resnetv2"``, ``"vit_hybrid"``,
-    ``"cait"``, ``"xcit"``, ``"swin"``, ``"pit"``), or None for the
-    chassis' default mapping."""
+    ``"resnet_dw"``, ``"vit"`` (ConViT's too), ``"resnetv2"``,
+    ``"vit_hybrid"``, ``"cait"``, ``"xcit"``, ``"swin"``, ``"pit"``,
+    ``"tnt"``, ``"twins"``, ``"visformer"``, ``"levit"``, ``"coat"``), or
+    None for the chassis' default mapping."""
     from cotnet_tpu_torch.models.registry import is_model_in_modules
 
     for module, family in _FAMILY_MODULES:
@@ -255,12 +299,85 @@ def _swin_merge_perm(val: np.ndarray) -> np.ndarray:
     return val[np.concatenate([np.arange(c) + g * c for g in (0, 2, 1, 3)])]
 
 
-def _transformer_path(parts, family: str, stem_only: bool) -> str:
+def _levit_blocks(flat) -> Dict[str, str]:
+    """LeViT's JAX block names -> timm's flat ``blocks.{i}`` paths: per
+    stage its attention and MLP blocks in turn, then its subsampling and
+    the MLP after it (the inverse of the JAX converter's ``_levit_infer``,
+    ``cotnet_tpu/utils/convert.py:113-148``)."""
+    names = {key.split("/")[1] for key in flat}
+    out, i, si = {}, 0, 0
+    while f"attn_{si}_0" in names:
+        bi = 0
+        while f"attn_{si}_{bi}" in names:
+            out[f"attn_{si}_{bi}"] = f"blocks.{i}.m"
+            out[f"mlp_{si}_{bi}"] = f"blocks.{i + 1}.m"
+            i += 2
+            bi += 1
+        if f"downsample_{si}" in names:
+            out[f"downsample_{si}"] = f"blocks.{i}"
+            out[f"ds_mlp_{si}"] = f"blocks.{i + 1}.m"
+            i += 2
+        si += 1
+    return out
+
+
+def _levit_bias_indices(sd) -> Dict[str, np.ndarray]:
+    """An ``attention_bias_idxs`` beside each of LeViT's
+    ``attention_biases``: the grid follows from the table's size (a
+    ``res x res`` grid has ``res^2`` distinct offsets, from the queries of
+    the subsampling's stride-2 grid too), the stride from the module (a
+    subsampling has ``kv``, an attention ``qkv``)."""
+    from cotnet_tpu_torch.models.levit import bias_index
+
+    out = {}
+    for key, val in sd.items():
+        if key.endswith("attention_biases"):
+            prefix = key[:-len("attention_biases")]
+            res = int(round(val.shape[1] ** 0.5))
+            stride = 2 if f"{prefix}kv.c.weight" in sd else 1
+            out[f"{prefix}attention_bias_idxs"] = bias_index(
+                (res - 1) // stride + 1, res, stride)[0]
+    return out
+
+
+def _coat_aliases(sd) -> Dict[str, np.ndarray]:
+    """CoaT's shared modules under each of timm's names: each stage's
+    ``cpe{s}`` and ``crpe{s}`` in its serial blocks and ``crpe{2,3,4}`` in
+    the parallel blocks, and a parallel block's one ``mlp`` as ``mlp2``,
+    ``mlp3`` and ``mlp4``."""
+    serial = {m.groups() for k in sd
+              for m in [re.match(r"serial_blocks(\d)\.(\d+)\.", k)] if m}
+    parallel = {m.group(1) for k in sd
+                for m in [re.match(r"parallel_blocks\.(\d+)\.", k)] if m}
+    out = {}
+    for key, val in sd.items():
+        m = re.match(r"(parallel_blocks\.\d+)\.mlp\.(.*)", key)
+        if m:
+            for i in (2, 3, 4):
+                out[f"{m.group(1)}.mlp{i}.{m.group(2)}"] = val
+            continue
+        out[key] = val
+        m = re.match(r"(cpe|crpe)(\d)\.(.*)", key)
+        if m:
+            kind, s, rest = m.groups()
+            inner = "cpe" if kind == "cpe" else "factoratt_crpe.crpe"
+            for stage, b in serial:
+                if stage == s:
+                    out[f"serial_blocks{s}.{b}.{inner}.{rest}"] = val
+            if kind == "crpe" and s != "1":
+                for p in parallel:
+                    out[f"parallel_blocks.{p}.factoratt_crpe{s}.crpe."
+                        f"{rest}"] = val
+    return out
+
+
+def _transformer_path(parts, family: str, stem_only: bool,
+                      blocks: Dict[str, str]) -> str:
     """The module path of the transformer families (``vit``, ``resnetv2``,
     ``vit_hybrid`` and those of ``_FAMILY_RULES``); "" for a top-level raw
-    parameter."""
+    parameter.  ``blocks`` renames whole JAX module names (LeViT's)."""
     if family in _FAMILY_RULES:
-        return ".".join(_rename(p, family) for p in parts)
+        return ".".join(blocks.get(p) or _rename(p, family) for p in parts)
     if family == "resnetv2":
         return _resnetv2_path(parts)
     if parts and parts[0] == "backbone":
@@ -291,11 +408,12 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
     k2 = kernel_size * kernel_size
     # the hybrids' R+Ti backbone is the stem alone, without timm's 'stem.'
     stem_only = not any("/backbone/stage" in k for k in flat)
+    blocks = _levit_blocks(flat) if family == "levit" else {}
     sd = {}
     for key, val in flat.items():
         collection, *parts, leaf = key.split("/")
         val = np.asarray(val, dtype=np.float32)
-        mod = (_transformer_path(parts, family, stem_only)
+        mod = (_transformer_path(parts, family, stem_only, blocks)
                if family in _TRANSFORMER_FAMILIES else
                _module_path(parts, avg_down, family))
         owner = parts[-1] if parts else leaf
@@ -329,15 +447,33 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
                 name = _rename(name, family)
             if family == "lambdanet" and leaf == "embeddings":
                 val = val.reshape(val.shape[0], 1, 1, *val.shape[1:])
-            if family == "pit" and leaf == "pos_embed":
+            if (family == "pit" and leaf == "pos_embed") or (
+                    family == "visformer" and leaf.startswith("pos_embed")):
                 val = np.transpose(val, (0, 3, 1, 2))   # NHWC -> timm's NCHW
+            if family == "tnt" and leaf == "pixel_pos":
+                # token-major [1, P, C] -> timm's [1, C, sqrt P, sqrt P]
+                side = int(round(val.shape[1] ** 0.5))
+                val = np.transpose(val, (0, 2, 1)).reshape(
+                    1, -1, side, side)
         if owner in _EMBED_PRODUCER:
             val = val[np.argsort(_kmajor_perm(val.shape[0], k2, dw_group))]
         if family == "san" and owner == "conv_w_conv2":
             cw = _SAN_CW[int(re.match(r"layer(\d)_", parts[0]).group(1))]
             val = val[np.argsort(_kmajor_perm(val.shape[0],
                                               val.shape[0] // cw))]
+        if family == "tnt" and owner == "qkv":
+            # timm's TNT attention keeps q and k fused apart from v
+            d = val.shape[1]
+            sd[f"{mod[:-len('qkv')]}qk.weight"] = val[:2 * d]
+            sd[f"{mod[:-len('qkv')]}v.weight"] = val[2 * d:]
+            continue
+        if family == "coat" and owner == "aggregate" and leaf == "kernel":
+            val = val[:, :, None]   # Dense [3, 1] -> Conv1d [1, 3, 1]
         sd[f"{mod}.{name}" if mod else name] = val
+    if family == "levit":
+        sd.update(_levit_bias_indices(sd))
+    if family == "coat":
+        sd = _coat_aliases(sd)
     # own, writable memory: arrays that come from JAX are read-only
     return {k: torch.from_numpy(np.require(v, requirements="CW"))
             for k, v in sd.items()}

@@ -1603,3 +1603,71 @@ def test_vit_family_logits_card_against_cpu(name):
     err = float((got - ref).abs().max())
     assert err <= 1e-4 * float(ref.abs().max()), err
     assert la.LAUNCHES == la.PLAIN_CALLS == la.EMBED_GN_LAUNCHES == 0
+
+
+# ---- the last ViT-built transformers: ConViT, TNT, Twins, Visformer,
+# LeViT, CoaT ----------------------------------------------------------------
+
+# reduced nets (module, class, constructor arguments, image size): ConViT
+# with two GPSA blocks and the class token at the third, TNT's inner and
+# outer blocks, Twins-SVT with windows of 7, 7, 3 and 1, Visformer's BN
+# stages, LeViT's BN-over-tokens attention and subsampling, CoaT with two
+# parallel blocks (the antialiased shrink)
+VIT_TAIL_NETS = {
+    "convit": ("convit", "ConViT", dict(img_size=32, patch_size=8,
+                                        embed_dim=32, depth=3, num_heads=4,
+                                        local_layers=2), 32),
+    "tnt": ("tnt", "TNT", dict(img_size=32, patch_size=16, embed_dim=32,
+                               inner_dim=8, depth=2, outer_heads=4,
+                               inner_heads=2), 32),
+    "twins": ("twins", "Twins", dict(embed_dims=(16, 32, 32, 32),
+                                     num_heads=(2, 2, 4, 4),
+                                     depths=(2, 2, 2, 1)), 56),
+    "visformer": ("visformer", "Visformer",
+                  dict(img_size=64, init_channels=8, embed_dim=32,
+                       depths=(1, 1, 1), num_heads=2), 64),
+    "levit": ("levit", "Levit", dict(img_size=64, embed_dims=(32, 48, 64),
+                                     key_dim=8, num_heads=(2, 3, 4),
+                                     depths=(1, 1, 1)), 64),
+    "coat": ("coat", "CoaT", dict(embed_dims=(16, 24, 24, 24),
+                                  serial_depths=(1, 1, 1, 1),
+                                  parallel_depth=2,
+                                  mlp_ratios=(2, 2, 2, 2)), 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VIT_TAIL_NETS))
+def test_vit_tail_logits_card_against_cpu(name):
+    """f32 logits of a reduced net at bs2, weights from a seeded generator,
+    TF32 off: the card against the CPU at 1e-4 of the largest logit.  No
+    op of the port runs: no launch and no plain call."""
+    _need_cuda()
+    import importlib
+
+    module, cls, kw, size = VIT_TAIL_NETS[name]
+    build = getattr(importlib.import_module(
+        f"cotnet_tpu_torch.models.{module}"), cls)
+    cpu = build(num_classes=10, **kw).eval()
+    gen = torch.Generator().manual_seed(0)
+    for m in cpu.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    card = build(num_classes=10, **kw).cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 3, size, size, generator=gen)
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    la.reset_counts()
+    try:
+        with torch.no_grad():
+            ref = cpu(x)
+            got = card(x.cuda()).cpu()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    assert got.shape == (2, 10) and torch.isfinite(got).all()
+    err = float((got - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+    assert la.LAUNCHES == la.PLAIN_CALLS == la.EMBED_GN_LAUNCHES == 0
