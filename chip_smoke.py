@@ -258,6 +258,21 @@ printing the last line:
    path 0.1: 2 warm-up and 4 timed steps each, images/s, peak memory, and
    one profiled step (device kernels, busy share); no launch of the op and
    no plain call.  The phase's seconds.
+17. The EfficientNet superfamily (after phase 16; no op on its paths):
+   efficientnet_b0, tf_efficientnet_b0 (TF-SAME, eps 1e-3), mixnet_s
+   (MixedConv), efficientnet_cc_b0_4e (CondConv), efficientnet_es
+   (EdgeResidual) and mobilenetv3_large_100 in f32 at bs4 and 224 with
+   TF32 off, seeded weights and BN statistics calibrated on the images:
+   logits on the card against the port on the CPU at 1e-3 of the largest
+   logit; five f32 steps of efficientnet_cc_b0_4e at bs16 on one batch
+   lower the loss (CondConv's per-sample backward).  The bf16 main paths
+   at 224 bs128: the eval steps of efficientnet_b0, mobilenetv3_large_100,
+   mixnet_m and efficientnet_cc_b0_4e, and the train steps of
+   efficientnet_b0 and mobilenetv3_large_100 under timm's recipes
+   (``EFFNET_RECIPE``, ``MNV3_RECIPE``): 2 warm-up and 4 timed steps
+   each, images/s, peak memory, and one profiled step (device kernels,
+   busy share); no launch of the op and no plain call.  The phase's
+   seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -535,6 +550,43 @@ VIT_TAIL_PATHS = (("twins_svt_small", "eval", 224, 128),
                   ("levit_256", "eval", 224, 128),
                   ("convit_small", "eval", 224, 128),
                   ("tnt_s_patch16_224", "eval", 224, 128))
+# phase 17, the EfficientNet superfamily: the f32 checks (model, image
+# size, batch), the model of the five f32 steps (CondConv's per-sample
+# backward), and the bf16 main paths (model, kind, image size, batch)
+EFFNET_F32 = (("efficientnet_b0", 224, 4), ("tf_efficientnet_b0", 224, 4),
+              ("mixnet_s", 224, 4), ("efficientnet_cc_b0_4e", 224, 4),
+              ("efficientnet_es", 224, 4), ("mobilenetv3_large_100", 224, 4))
+EFFNET_STEPS_MODEL = "efficientnet_cc_b0_4e"
+EFFNET_PATHS = (("efficientnet_b0", "eval", 224, 128),
+                ("efficientnet_b0", "train", 224, 128),
+                ("mobilenetv3_large_100", "eval", 224, 128),
+                ("mobilenetv3_large_100", "train", 224, 128),
+                ("mixnet_m", "eval", 224, 128),
+                ("efficientnet_cc_b0_4e", "eval", 224, 128))
+# timm's README, "Training Examples", its efficientnet_b0 line (2 cards x
+# 384 images): RMSpropTF with eps 1e-3 and momentum 0.9 (train.py's
+# default), weight decay 1e-5, LR 0.048 per 768 images scaled to the
+# batch, a step schedule decaying 0.97 every 2.4 epochs over 450, warm-up
+# from 1e-6 over train.py's default 3 epochs, dropout 0.2, drop path
+# ("drop-connect") 0.2, EMA 0.9999, label smoothing 0.1 (train.py's
+# default), no mixup; its mobilenetv3_large_100 line (2 x 512 images):
+# LR 0.064 per 1024 images, decay 0.973 over 600 epochs, LR noise over
+# epochs 0.42 to 0.9 of them, the rest the same
+EFFNET_RECIPE = {
+    "model": dict(drop_rate=0.2, drop_path_rate=0.2),
+    "mixup": None,
+    "loss": dict(smoothing=0.1),
+    "solver": dict(opt="rmsproptf", opt_eps=1e-3, momentum=0.9,
+                   weight_decay=1e-5, sched="step", lr=0.048 * BATCH / 768,
+                   warmup_lr=1e-6, warmup_epochs=3, epochs=450,
+                   decay_epochs=2.4, decay_rate=0.97),
+    "ema_decay": 0.9999,
+}
+MNV3_RECIPE = dict(EFFNET_RECIPE, solver=dict(
+    EFFNET_RECIPE["solver"], lr=0.064 * BATCH / 1024, epochs=600,
+    decay_rate=0.973, lr_noise=(0.42, 0.9)))
+TRANSFORMER_RECIPES.update({"efficientnet_b0": EFFNET_RECIPE,
+                            "mobilenetv3_large_100": MNV3_RECIPE})
 
 
 def log(*args):
@@ -1746,7 +1798,8 @@ def loss_falls(la, model, x, steps: int = 5, lr: float = 0.01):
 
 def recipe_train_step(model, recipe=RECIPE, batch: int = BATCH):
     """``make_train_step`` on ``model`` under ``recipe`` at ``batch`` images
-    a step; returns (step, its TrainState with an EMA)."""
+    a step (no mixup where the recipe's is None); returns (step, its
+    TrainState with an EMA)."""
     from cotnet_tpu_torch.data.mixup import Mixup
     from cotnet_tpu_torch.train.loss import create_loss_fn
     from cotnet_tpu_torch.train.optim import create_optimizer
@@ -1757,10 +1810,11 @@ def recipe_train_step(model, recipe=RECIPE, batch: int = BATCH):
     schedule_fn, _ = create_scheduler(recipe["solver"],
                                       IMAGENET_TRAIN_IMAGES // batch)
     optimizer = create_optimizer(recipe["solver"], model.parameters())
-    loss_fn, _ = create_loss_fn(recipe["loss"], mixup_active=True)
+    mixup = recipe["mixup"]
+    loss_fn, _ = create_loss_fn(recipe["loss"], mixup_active=bool(mixup))
     step = make_train_step(model, optimizer, schedule_fn, loss_fn,
                            ema_decay=recipe["ema_decay"],
-                           mixup_fn=Mixup(**recipe["mixup"]))
+                           mixup_fn=Mixup(**mixup) if mixup else None)
     return step, TrainState.create(model, optimizer, ema=True)
 
 
@@ -4104,6 +4158,15 @@ def vit_tail_phase(la):
               VIT_TAIL_STEPS_MODEL, VIT_TAIL_PATHS)
 
 
+# ---- phase 17: the EfficientNet superfamily ---------------------------------
+
+def effnet_phase(la):
+    """Phase 17: the f32 checks of the six models, efficientnet_cc_b0_4e's
+    five steps and the six bf16 main paths."""
+    zoo_phase(la, "EfficientNet superfamily", EFFNET_F32,
+              EFFNET_STEPS_MODEL, EFFNET_PATHS)
+
+
 def zoo_phase(la, label: str, f32_models, steps_model: str, paths):
     """A phase of models without the op: each of ``f32_models`` (model,
     image size, batch) in f32 on the card against the CPU, five f32 steps
@@ -4314,6 +4377,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     vit_tail_phase(la)
     log(f"last ViT-built transformers phase done at "
+        f"{time.perf_counter() - t0:.1f} s")
+    effnet_phase(la)
+    log(f"EfficientNet superfamily phase done at "
         f"{time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()

@@ -1,7 +1,7 @@
 # importing the model modules registers their entrypoints
 from cotnet_tpu_torch.models import (botnet, cait,  # noqa: F401
                                      coat, convit, cotnet, cotnet_hybrid,
-                                     lambda_net, levit, lr_net, pit, resnet,
+                                     efficientnet, lambda_net, levit, lr_net, pit, resnet,
                                      resnet_dw, resnetv2, san,
                                      swin_transformer, tnt, twins,
                                      vision_transformer,

@@ -11,6 +11,8 @@ import torch
 
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
+IMAGENET_INCEPTION_MEAN = (0.5, 0.5, 0.5)
+IMAGENET_INCEPTION_STD = (0.5, 0.5, 0.5)
 
 _default_cfg_by_model: Dict[str, dict] = {}
 
@@ -35,14 +37,23 @@ def default_cfg(url: str = "", **kwargs) -> dict:
 
 
 def get_model_default_cfg(model_name: str) -> dict:
-    return copy.deepcopy(_default_cfg_by_model.get(model_name, default_cfg()))
+    """The data config of ``model_name``: the one it was last built with,
+    else the one its module registered (``registry._model_default_cfgs``,
+    filled at import), else the template."""
+    if model_name in _default_cfg_by_model:
+        return copy.deepcopy(_default_cfg_by_model[model_name])
+    from cotnet_tpu_torch.models.registry import _model_default_cfgs
+
+    return copy.deepcopy(_model_default_cfgs.get(model_name, default_cfg()))
 
 
 def build_model_with_cfg(model_cls: Callable, model_name: str,
                          default_cfg: dict, **kwargs):
     """Construct the model module and record its data config.  Weights come
-    from ``create_model``'s seeded initialization or a state_dict."""
+    from ``create_model``'s seeded initialization or a state_dict;
+    ``pretrained`` is accepted and ignored, as in the JAX package."""
     _default_cfg_by_model[model_name] = copy.deepcopy(default_cfg)
+    kwargs.pop("pretrained", None)
     return model_cls(**kwargs)
 
 

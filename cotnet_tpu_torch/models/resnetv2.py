@@ -27,15 +27,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cotnet_tpu_torch.models.helpers import (build_model_with_cfg,
+from cotnet_tpu_torch.models.helpers import (IMAGENET_INCEPTION_MEAN,
+                                             IMAGENET_INCEPTION_STD,
+                                             build_model_with_cfg,
                                              default_cfg,
                                              register_variant_table)
 from cotnet_tpu_torch.nn import (BatchNorm2d, ClassifierHead, Conv2d,
                                  Dropout, GroupNorm, StdConv2d, avg_pool2d,
                                  max_pool2d, max_pool2d_same)
-
-IMAGENET_INCEPTION_MEAN = (0.5, 0.5, 0.5)
-IMAGENET_INCEPTION_STD = (0.5, 0.5, 0.5)
 
 default_cfgs = {}  # filled beside the variant table below
 

@@ -71,7 +71,13 @@ state_dict is the reference's torch layout:
   timm's flat ``blocks.{i}`` (``_levit_blocks``), ``linear``/``fc1``/
   ``fc2``/``proj``/``q`` to ``c``/``0``/``2``/``proj.1``/``q.1``, with an
   ``attention_bias_idxs`` beside each bias table; Visformer's stem to
-  ``stem.{0,1}`` and its NHWC ``pos_embed{s}`` to NCHW.
+  ``stem.{0,1}`` and its NHWC ``pos_embed{s}`` to NCHW;
+- the EfficientNet superfamily, the inverse of the ``efficientnet``
+  adapter (``cotnet_tpu/utils/convert.py:83, 199-200, 547-554``):
+  ``blocks_{s}_{i}`` to ``blocks.{s}.{i}``, the SE's Dense ``fc1``/``fc2``
+  to the 1x1 convs ``se.conv_reduce``/``se.conv_expand``, a MixedConv's
+  ``conv_{i}`` to its bare index, CondConv's ``experts`` ``[E, kh, kw,
+  I/g, O]`` to the flat ``weight`` ``[E, O*I/g*kh*kw]``.
 
 The port's state_dict keys are the reference's, so a reference
 ``.pth.tar`` needs no key conversion: ``load_checkpoint_into`` reads it
@@ -131,7 +137,7 @@ _FAMILY_MODULES = (("san", "san"), ("botnet", "botnet"),
                    ("swin_transformer", "swin"), ("pit", "pit"),
                    ("convit", "vit"), ("tnt", "tnt"), ("twins", "twins"),
                    ("visformer", "visformer"), ("levit", "levit"),
-                   ("coat", "coat"))
+                   ("coat", "coat"), ("efficientnet", "efficientnet"))
 # the ViT-built families: each JAX module name (and each top-level raw
 # parameter name) renamed by the first rule that matches it whole, the
 # inverse of the JAX converter's FAMILY_ADAPTERS entries
@@ -188,6 +194,11 @@ _FAMILY_RULES = {
              (r"conv(\d)", r"conv_list.\1"),
              # the lite models' last norm is timm's norm4 (coat.py:440)
              (r"norm", "norm4")),
+    # the SE's Dense fc1/fc2 are the reference's conv_reduce/conv_expand;
+    # a MixedConv's groups are children by bare index
+    "efficientnet": ((r"blocks_(\d+)_(\d+)", r"blocks.\1.\2"),
+                     (r"conv_(\d+)", r"\1"), (r"fc1", "conv_reduce"),
+                     (r"fc2", "conv_expand")),
 }
 _TRANSFORMER_FAMILIES = ("vit", "resnetv2", "vit_hybrid", *_FAMILY_RULES)
 
@@ -207,8 +218,8 @@ def model_family(model_name: str):
     ``model_name`` (``"san"``, ``"botnet"``, ``"lambdanet"``,
     ``"resnet_dw"``, ``"vit"`` (ConViT's too), ``"resnetv2"``,
     ``"vit_hybrid"``, ``"cait"``, ``"xcit"``, ``"swin"``, ``"pit"``,
-    ``"tnt"``, ``"twins"``, ``"visformer"``, ``"levit"``, ``"coat"``), or
-    None for the chassis' default mapping."""
+    ``"tnt"``, ``"twins"``, ``"visformer"``, ``"levit"``, ``"coat"``,
+    ``"efficientnet"``), or None for the chassis' default mapping."""
     from cotnet_tpu_torch.models.registry import is_model_in_modules
 
     for module, family in _FAMILY_MODULES:
@@ -445,6 +456,12 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
             name = _FAMILY_LEAVES.get(family, {}).get(leaf, leaf)
             if not parts:   # top level: XCiT's class-attention gammas
                 name = _rename(name, family)
+            if leaf == "experts":
+                # CondConv's bank [E, kh, kw, I/g, O] -> the reference's
+                # flat rows [E, O*I/g*kh*kw]
+                name = "weight"
+                val = np.transpose(val, (0, 4, 3, 1, 2)).reshape(
+                    val.shape[0], -1)
             if family == "lambdanet" and leaf == "embeddings":
                 val = val.reshape(val.shape[0], 1, 1, *val.shape[1:])
             if (family == "pit" and leaf == "pos_embed") or (

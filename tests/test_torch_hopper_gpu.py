@@ -1671,3 +1671,70 @@ def test_vit_tail_logits_card_against_cpu(name):
     err = float((got - ref).abs().max())
     assert err <= 1e-4 * float(ref.abs().max()), err
     assert la.LAUNCHES == la.PLAIN_CALLS == la.EMBED_GN_LAUNCHES == 0
+
+
+# ---- the EfficientNet superfamily --------------------------------------------
+
+# reduced nets (arch strings and EfficientNet arguments, at 32 px): swish
+# with SE, MixNet's mixed depthwise and grouped pointwise kernels under
+# TF-SAME, CondConv's per-sample grouped convs, MobileNetV3's hard-swish,
+# reduce-mid hard-sigmoid SE and head_hidden
+EFFNET_NETS = {
+    "efficientnet": ((("ds_r1_k3_s1_e1_c8_se0.25",),
+                      ("ir_r2_k3_s2_e4_c16_se0.25",),
+                      ("ir_r1_k5_s2_e3_c24_se0.25",)), dict(act="swish")),
+    "mixnet": ((("ds_r1_k3_s1_e1_c8",),
+                ("ir_r1_k3_a1.1_p1.1_s2_e3_c16",
+                 "ir_r1_k3.5_a1.1_p1.1_s1_e3_c16_se0.5_nsw"),
+                ("ir_r1_k3.5.7_s2_e6_c24_se0.25_nsw",)),
+               dict(pad_type="same", bn_eps=1e-3)),
+    "condconv": ((("ds_r1_k3_s1_e1_c8_se0.25",),
+                  ("ir_r1_k3_s2_e4_c16_se0.25",),
+                  ("ir_r2_k5_s1_e3_c16_se0.25_cc4",)), dict(act="swish")),
+    "mobilenetv3": ((("ds_r1_k3_s1_c8_nre",), ("ir_r1_k3_s2_e4_c16_nre",),
+                     ("ir_r1_k5_s2_e3_c24_se0.25",
+                      "ir_r1_k5_s1_e3_c24_se0.25")),
+                    dict(act="hard_swish", head_hidden=40, fix_stem=True,
+                         se_act="relu", se_reduce_mid=True, se_divisor=8,
+                         se_gate="hard_sigmoid")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EFFNET_NETS))
+def test_efficientnet_logits_card_against_cpu(name):
+    """f32 logits of a reduced net at bs2 and 32 px, weights from a seeded
+    generator, TF32 off: the card against the CPU at 1e-4 of the largest
+    logit.  No op of the port runs: no launch and no plain call."""
+    _need_cuda()
+    from cotnet_tpu_torch.models.efficientnet import (EfficientNet,
+                                                      decode_arch_def)
+
+    arch, kw = EFFNET_NETS[name]
+
+    def build():
+        return EfficientNet(decode_arch_def(arch), num_classes=10,
+                            stem_size=8, num_features=32, **kw)
+    cpu = build().eval()
+    gen = torch.Generator().manual_seed(0)
+    for m in cpu.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    card = build().cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 3, 32, 32, generator=gen)
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    la.reset_counts()
+    try:
+        with torch.no_grad():
+            ref = cpu(x)
+            got = card(x.cuda()).cpu()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    assert got.shape == (2, 10) and torch.isfinite(got).all()
+    err = float((got - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+    assert la.LAUNCHES == la.PLAIN_CALLS == la.EMBED_GN_LAUNCHES == 0
