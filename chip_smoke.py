@@ -273,6 +273,23 @@ printing the last line:
    each, images/s, peak memory, and one profiled step (device kernels,
    busy share); no launch of the op and no plain call.  The phase's
    seconds.
+18. The CNN tail (after phase 17; no op on its paths): resnest14d,
+   skresnet18, skresnext50_32x4d, res2net50_26w_4s, resnet_rs50,
+   psresnet50, regnety_002, densenetblur121d and rexnet_100 at 224 and
+   xception at 299, in f32 at bs4 with TF32 off, seeded weights and BN
+   statistics calibrated on the images: logits on the card against the
+   port on the CPU at 1e-3 of the largest logit; five f32 steps of
+   psresnet50 at bs16 on one batch lower the loss, and every PSConv's
+   masked dense weights are still exactly zero after them (the mask's
+   zero gradient under SGD with weight decay).  The bf16 main paths at
+   bs128: the eval steps of resnest50d, skresnext50_32x4d,
+   res2net50_26w_4s, resnet_rs50, psresnet50, regnety_032, densenet121
+   and rexnet_100 at 224 and xception at 299, and the train steps of
+   resnest50d and densenet121 at 224 under the CoTNet-50 recipe
+   (densenet121 without drop path, which it has not): 2 warm-up and 4
+   timed steps each, images/s, peak memory, and one profiled step
+   (device kernels, busy share); no launch of the op and no plain call.
+   The phase's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -587,6 +604,30 @@ MNV3_RECIPE = dict(EFFNET_RECIPE, solver=dict(
     decay_rate=0.973, lr_noise=(0.42, 0.9)))
 TRANSFORMER_RECIPES.update({"efficientnet_b0": EFFNET_RECIPE,
                             "mobilenetv3_large_100": MNV3_RECIPE})
+# phase 18, the CNN tail: the f32 checks (model, image size, batch), the
+# model of the five f32 steps (PSConv's masked weight), and the bf16 main
+# paths (model, kind, image size, batch); the two train paths under the
+# CoTNet-50 recipe, densenet121 without drop path
+CNN_TAIL_F32 = (("resnest14d", 224, 4), ("skresnet18", 224, 4),
+                ("skresnext50_32x4d", 224, 4), ("res2net50_26w_4s", 224, 4),
+                ("resnet_rs50", 224, 4), ("psresnet50", 224, 4),
+                ("regnety_002", 224, 4), ("densenetblur121d", 224, 4),
+                ("rexnet_100", 224, 4), ("xception", 299, 4))
+CNN_TAIL_STEPS_MODEL = "psresnet50"
+CNN_TAIL_PATHS = (("resnest50d", "eval", 224, 128),
+                  ("resnest50d", "train", 224, 128),
+                  ("skresnext50_32x4d", "eval", 224, 128),
+                  ("res2net50_26w_4s", "eval", 224, 128),
+                  ("resnet_rs50", "eval", 224, 128),
+                  ("psresnet50", "eval", 224, 128),
+                  ("regnety_032", "eval", 224, 128),
+                  ("densenet121", "eval", 224, 128),
+                  ("densenet121", "train", 224, 128),
+                  ("rexnet_100", "eval", 224, 128),
+                  ("xception", "eval", 299, 128))
+TRANSFORMER_RECIPES.update({"resnest50d": RECIPE,
+                            "densenet121": dict(
+                                RECIPE, model=dict(drop_rate=0.25))})
 
 
 def log(*args):
@@ -4167,11 +4208,37 @@ def effnet_phase(la):
               EFFNET_STEPS_MODEL, EFFNET_PATHS)
 
 
-def zoo_phase(la, label: str, f32_models, steps_model: str, paths):
+# ---- phase 18: the CNN tail ---------------------------------------------------
+
+def psconv_masks_zero(model):
+    """Every PSConv's masked dense weights exactly zero (PS-ResNet's
+    mask, whose gradient is zero too)."""
+    from cotnet_tpu_torch.models.psresnet import MaskedConv2d
+
+    convs = [m for m in model.modules() if isinstance(m, MaskedConv2d)]
+    nonzero = sum(int(m.weight[(m.mask == 0).expand_as(m.weight)]
+                      .count_nonzero()) for m in convs)
+    if not convs or nonzero:
+        raise AssertionError(f"PSConv masked weights: {nonzero} non-zero "
+                             f"in {len(convs)} convs")
+    log(f"{len(convs)} PSConv masked weights still exactly zero after the "
+        f"f32 steps")
+
+
+def cnn_tail_phase(la):
+    """Phase 18: the f32 checks of the ten models, psresnet50's five steps
+    and its masked weights, and the eleven bf16 main paths."""
+    zoo_phase(la, "CNN tail", CNN_TAIL_F32, CNN_TAIL_STEPS_MODEL,
+              CNN_TAIL_PATHS, after_steps=psconv_masks_zero)
+
+
+def zoo_phase(la, label: str, f32_models, steps_model: str, paths,
+              after_steps=None):
     """A phase of models without the op: each of ``f32_models`` (model,
     image size, batch) in f32 on the card against the CPU, five f32 steps
-    of ``steps_model``, then the bf16 main ``paths``; no launch of the op
-    and no plain call.  Logs the phase's seconds."""
+    of ``steps_model`` (then ``after_steps(model)``), then the bf16 main
+    ``paths``; no launch of the op and no plain call.  Logs the phase's
+    seconds."""
     from cotnet_tpu_torch.models import create_model
 
     t_phase = time.perf_counter()
@@ -4186,6 +4253,8 @@ def zoo_phase(la, label: str, f32_models, steps_model: str, paths):
     model = create_model(steps_model, device="cuda", seed=0)
     with tf32_off():
         loss_falls(la, model, images_f32(16))
+    if after_steps is not None:
+        after_steps(model)
     del model
     no_op(la, f"{steps_model}'s f32 steps")
     for name, kind, size, n in paths:
@@ -4381,6 +4450,8 @@ def main() -> int:
     effnet_phase(la)
     log(f"EfficientNet superfamily phase done at "
         f"{time.perf_counter() - t0:.1f} s")
+    cnn_tail_phase(la)
+    log(f"CNN tail phase done at {time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()
     log(f"device copy rate: {hbm_rate / 1e12:.3f} TB/s (data sheet "

@@ -1,12 +1,14 @@
 # importing the model modules registers their entrypoints
 from cotnet_tpu_torch.models import (botnet, cait,  # noqa: F401
                                      coat, convit, cotnet, cotnet_hybrid,
-                                     efficientnet, lambda_net, levit, lr_net, pit, resnet,
-                                     resnet_dw, resnetv2, san,
-                                     swin_transformer, tnt, twins,
+                                     densenet, efficientnet, lambda_net,
+                                     levit, lr_net, pit, psresnet, regnet,
+                                     res2net, resnest, resnet, resnet_dw,
+                                     resnet_rs, resnetv2, rexnet, san,
+                                     sknet, swin_transformer, tnt, twins,
                                      vision_transformer,
                                      vision_transformer_hybrid, visformer,
-                                     xcit)
+                                     xception, xcit)
 from cotnet_tpu_torch.models.factory import create_model
 from cotnet_tpu_torch.models.helpers import get_model_default_cfg
 from cotnet_tpu_torch.models.registry import (

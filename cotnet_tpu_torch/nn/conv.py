@@ -4,7 +4,8 @@ The weight is float32 and cast to the module's compute dtype at use, as
 flax's ``Conv(dtype=...)`` does; the initialization is the reference's
 ``kaiming_normal_(mode='fan_out', nonlinearity='relu')``.  ``padding="same"``
 pads TF-SAME (``pad_same``) at each call; ``StdConv2d`` standardizes its
-weight first.
+weight first; ``ConvBnAct`` is a conv, a BN and an activation as the
+children ``conv`` and ``bn``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cotnet_tpu_torch.nn.activations import get_act_fn
+from cotnet_tpu_torch.nn.norm import BatchNorm2d
 
 
 def to_2tuple(v):
@@ -109,3 +113,28 @@ class StdConv2d(Conv2d):
         mean = w.mean((1, 2, 3), keepdim=True)
         std = w.var((1, 2, 3), unbiased=False, keepdim=True).sqrt()
         return (w - mean) * torch.reciprocal(std + self.eps)
+
+
+class ConvBnAct(nn.Module):
+    """conv + BN + act (reference models/layers/conv_bn_act.py,
+    ``cotnet_tpu/nn/conv.py:144-168``): the children ``conv`` (a
+    ``Conv2d`` without bias) and ``bn`` (None without ``use_bn``), then
+    ``act`` (None for none).  ``zero_init`` starts the BN's scale at 0
+    (the last BN of a residual branch)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=1,
+                 stride=1, padding=None, dilation=1, groups: int = 1,
+                 act: Optional[str] = "relu", use_bn: bool = True,
+                 zero_init: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
+                           padding, dilation, groups, dtype=dtype)
+        self.bn = (BatchNorm2d(out_channels, zero_init=zero_init, dtype=dtype)
+                   if use_bn else None)
+        self.act = get_act_fn(act)
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return self.act(x)

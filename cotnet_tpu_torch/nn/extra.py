@@ -17,8 +17,16 @@ cond_conv2d.py, mixed_conv2d.py), on NCHW.
   as the reference runs it, ``x`` viewed as ``[1, N*C, H, W]`` and one
   conv of ``N * groups`` groups.
 
+- ``SelectiveKernelConv`` (``cotnet_tpu/nn/extra.py:144-200``, reference
+  selective_kernel.py): parallel ``ConvBnAct`` paths ``paths.{i}`` (3x3
+  at growing dilation under ``keep_3x3``), each on its own slice of the
+  input under ``split_input``, mixed by a softmax over the paths from
+  the pooled sum through ``attn.fc_reduce``, ``attn.bn`` and
+  ``attn.fc_select`` (1x1 convs without bias, the reference's; the JAX
+  layer's Dense kernels are their transposes).
+
 The file's other JAX layers (Shiftlution, TBConv, Kerv2d, SpaceToDepth,
-SelectiveKernelConv, EvoNorm, SplitBatchNorm) are not ported yet.
+EvoNorm, SplitBatchNorm) are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,7 +38,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cotnet_tpu_torch.nn.conv import Conv2d, get_padding, pad_same, to_2tuple
+from cotnet_tpu_torch.nn.activations import get_act_fn
+from cotnet_tpu_torch.nn.conv import (Conv2d, ConvBnAct, get_padding,
+                                      pad_same, to_2tuple)
+from cotnet_tpu_torch.nn.norm import BatchNorm2d
 
 
 def _split_channels(num_chan: int, num_groups: int):
@@ -123,3 +134,71 @@ class CondConv2d(nn.Module):
             bias = torch.matmul(route.float(), self.bias).to(dt)
             y = y + bias[:, :, None, None]
         return y
+
+
+class SelectiveKernelAttn(nn.Module):
+    """The path attention of ``SelectiveKernelConv``: the pooled
+    ``[N, C, 1, 1]`` through ``fc_reduce``, ``bn``, ``act`` and
+    ``fc_select`` to ``num_paths * C`` logits, path-major."""
+
+    def __init__(self, channels: int, num_paths: int, attn_channels: int,
+                 act: str = "relu", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc_reduce = Conv2d(channels, attn_channels, 1, dtype=dtype)
+        self.bn = BatchNorm2d(attn_channels, dtype=dtype)
+        self.fc_select = Conv2d(attn_channels, channels * num_paths, 1,
+                                dtype=dtype)
+        self.act = get_act_fn(act)
+
+    def forward(self, x):
+        return self.fc_select(self.act(self.bn(self.fc_reduce(x))))
+
+
+class SelectiveKernelConv(nn.Module):
+    """SK conv: ``len(kernel_size)`` paths (default 3 and 5; with
+    ``keep_3x3`` each a 3x3 at dilation ``dilation * (k - 1) // 2``), each
+    ``ConvBnAct`` grouped by ``min(out_channels, groups)``, on the whole
+    input or, with ``split_input``, on its ``i``-th of ``num_paths`` equal
+    channel slices; the outputs summed with per-channel softmax weights
+    over the paths (``attn``), computed from the spatial mean of their
+    sum."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Optional[Sequence[int]] = None,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 attn_reduction: int = 16, min_attn_channels: int = 32,
+                 keep_3x3: bool = True, split_input: bool = False,
+                 act: str = "relu", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        ks = list(kernel_size or [3, 5])
+        if keep_3x3:
+            dil = [dilation * (k - 1) // 2 for k in ks]
+            ks = [3] * len(ks)
+        else:
+            dil = [dilation] * len(ks)
+        self.num_paths = len(ks)
+        if split_input and in_channels % self.num_paths:
+            raise ValueError(f"split_input: {in_channels} channels into "
+                             f"{self.num_paths} paths")
+        self.split = in_channels // self.num_paths if split_input else None
+        path_in = self.split or in_channels
+        groups = min(out_channels, groups)
+        self.paths = nn.ModuleList(
+            ConvBnAct(path_in, out_channels, k, stride,
+                      get_padding(k, stride, d), d, groups, act=act,
+                      dtype=dtype)
+            for k, d in zip(ks, dil))
+        attn_channels = max(int(out_channels / attn_reduction),
+                            min_attn_channels)
+        self.attn = SelectiveKernelAttn(out_channels, self.num_paths,
+                                        attn_channels, act, dtype)
+
+    def forward(self, x):
+        xs = (torch.split(x, self.split, 1) if self.split
+              else [x] * self.num_paths)
+        stacked = torch.stack([path(xi) for path, xi in zip(self.paths, xs)],
+                              1)
+        n, p, c = stacked.shape[:3]
+        logits = self.attn(stacked.sum(1).mean((2, 3), keepdim=True))
+        weights = logits.view(n, p, c, 1, 1).softmax(1)
+        return (stacked * weights).sum(1)

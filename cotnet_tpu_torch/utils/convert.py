@@ -77,7 +77,23 @@ state_dict is the reference's torch layout:
   ``blocks_{s}_{i}`` to ``blocks.{s}.{i}``, the SE's Dense ``fc1``/``fc2``
   to the 1x1 convs ``se.conv_reduce``/``se.conv_expand``, a MixedConv's
   ``conv_{i}`` to its bare index, CondConv's ``experts`` ``[E, kh, kw,
-  I/g, O]`` to the flat ``weight`` ``[E, O*I/g*kh*kw]``.
+  I/g, O]`` to the flat ``weight`` ``[E, O*I/g*kh*kw]``;
+- the CNN tail, the inverse of the ``psresnet``, ``sknet``, ``res2net``,
+  ``regnet``, ``densenet``, ``rexnet`` and ``xception`` adapters
+  (``cotnet_tpu/utils/convert.py:87-170, 260-279, 384-407``): PSConv's
+  raw HWIO ``conv_kernel`` to ``conv.weight``; the SK conv's ``path_{i}``
+  to ``paths.{i}``, its ``fc_reduce`` / ``bn`` / ``fc_select`` (Dense
+  kernels to 1x1 convs) under ``attn``, an SK block's plain
+  ``conv{i}`` / ``bn{i}`` to ``conv{i}.conv`` / ``.bn``; Res2Net's
+  ``convs_{i}`` / ``bns_{i}``; RegNet's ``s{i}_b{j}``, ``conv{i}`` /
+  ``bn{i}`` to ``conv{i}.conv`` / ``.bn`` and ``stem``, ``downsample``,
+  ``head.fc``; DenseNet's blocks, transitions and top-level stem under
+  ``features``; ReXNet's ``block_{i}`` to ``features.{i}`` and its head
+  to ``features.{num_blocks}``; Xception's ``sep{k}`` to the ``rep``
+  indices behind the leading ReLU (``block1`` has none), ``conv3`` /
+  ``conv4``'s BN to ``bn3`` / ``bn4``.  ResNeSt and ResNet-RS take the
+  chassis' names (the ResNet-D shortcut: ``avg_down`` from the variant
+  table, not ``model_avg_down``).
 
 The port's state_dict keys are the reference's, so a reference
 ``.pth.tar`` needs no key conversion: ``load_checkpoint_into`` reads it
@@ -137,7 +153,24 @@ _FAMILY_MODULES = (("san", "san"), ("botnet", "botnet"),
                    ("swin_transformer", "swin"), ("pit", "pit"),
                    ("convit", "vit"), ("tnt", "tnt"), ("twins", "twins"),
                    ("visformer", "visformer"), ("levit", "levit"),
-                   ("coat", "coat"), ("efficientnet", "efficientnet"))
+                   ("coat", "coat"), ("efficientnet", "efficientnet"),
+                   ("psresnet", "psresnet"), ("sknet", "sknet"),
+                   ("res2net", "res2net"), ("regnet", "regnet"),
+                   ("densenet", "densenet"), ("rexnet", "rexnet"),
+                   ("xception", "xception"))
+# the families on the ResNet chassis: each JAX module name renamed by the
+# first rule that matches it whole (Res2Net's lists, the SK conv's paths
+# and its attention's 1x1 convs)
+_CHASSIS_RULES = {
+    "res2net": ((r"convs_(\d+)", r"convs.\1"), (r"bns_(\d+)", r"bns.\1")),
+    "sknet": ((r"path_(\d+)", r"paths.\1"),
+              (r"fc_(reduce|select)", r"attn.fc_\1")),
+}
+# the SK attention's Dense layers, the reference's 1x1 convs
+_CONV_DENSE = {"sknet": ("fc_reduce", "fc_select")}
+# the only block of the reference's Xception without a ReLU ahead of its
+# first separable conv
+_XCEPTION_PLAIN_START = ("block1",)
 # the ViT-built families: each JAX module name (and each top-level raw
 # parameter name) renamed by the first rule that matches it whole, the
 # inverse of the JAX converter's FAMILY_ADAPTERS entries
@@ -199,8 +232,58 @@ _FAMILY_RULES = {
     "efficientnet": ((r"blocks_(\d+)_(\d+)", r"blocks.\1.\2"),
                      (r"conv_(\d+)", r"\1"), (r"fc1", "conv_reduce"),
                      (r"fc2", "conv_expand")),
+    # the CNNs off the chassis, whose plain convs are ConvBnActs
+    "regnet": ((r"stem_(conv|bn)", r"stem.\1"),
+               (r"s(\d+)_b(\d+)", r"s\1.b\2"),
+               (r"conv(\d)", r"conv\1.conv"), (r"bn(\d)", r"conv\1.bn"),
+               (r"downsample_(conv|bn)", r"downsample.\1"),
+               (r"fc", "head.fc")),
+    "densenet": ((r"denseblock(\d+)_layer(\d+)",
+                  r"features.denseblock\1.denselayer\2"),
+                 (r"transition(\d+)_(conv|norm)", r"features.transition\1.\2")),
+    # rexnet's head ConvBnAct (features.{num_blocks}) is placed by
+    # _rexnet_head
+    "rexnet": ((r"stem_(conv|bn)", r"stem.\1"),
+               (r"block_(\d+)", r"features.\1"),
+               (r"conv_(exp|dw|pwl)", r"conv_\1.conv"),
+               (r"bn_(exp|dw|pwl)", r"conv_\1.bn"), (r"fc", "head.fc")),
+    "xception": ((r"skip_conv", "skip"), (r"skip_bn", "skipbn")),
 }
-_TRANSFORMER_FAMILIES = ("vit", "resnetv2", "vit_hybrid", *_FAMILY_RULES)
+# the families off the ResNet chassis
+_OFF_CHASSIS = ("vit", "resnetv2", "vit_hybrid", *_FAMILY_RULES)
+
+
+def _xception_sep(m) -> str:
+    """An Xception block's ``sep{k}/{dw,pw,bn}`` -> its ``rep`` indices:
+    the k-th separable conv at ``3k + 1`` behind a ReLU (``3k`` in a
+    block that starts without one), its BN after it (the inverse of the
+    JAX converter's ``_xception_infer``)."""
+    p = 3 * int(m[2]) + (m[1] not in _XCEPTION_PLAIN_START)
+    return {"dw": f"{m[1]}.rep.{p}.conv1",
+            "pw": f"{m[1]}.rep.{p}.pointwise",
+            "bn": f"{m[1]}.rep.{p + 1}"}[m[3]]
+
+
+# renames of a whole module path, after the per-name ones (the JAX
+# converter's post_regex_map): the SK blocks' plain convs and BNs to their
+# ConvBnActs and the SK conv's BN to its attention's; DenseNet's top-level
+# stem and last norm under features; Xception's separable convs
+_FAMILY_POST = {
+    "sknet": ((r"^(layer\d+\.\d+\.conv\d)\.bn$", r"\1.attn.bn"),
+              (r"^(layer\d+\.\d+\.)(conv|bn)(\d)$",
+               lambda m: f"{m[1]}conv{m[3]}.{m[2]}")),
+    "densenet": ((r"^(conv|norm)(\d+)$", r"features.\1\2"),),
+    "xception": ((r"^(block\d+)\.sep(\d+)\.(dw|pw|bn)$", _xception_sep),
+                 (r"^conv([34])\.dw$", r"conv\1.conv1"),
+                 (r"^conv([34])\.pw$", r"conv\1.pointwise"),
+                 (r"^conv([34])\.bn$", r"bn\1")),
+}
+
+
+def _post(path: str, family) -> str:
+    for pattern, repl in _FAMILY_POST.get(family, ()):
+        path = re.sub(pattern, repl, path)
+    return path
 
 
 def _kmajor_perm(n: int, k2: int, groups: int = 1) -> np.ndarray:
@@ -219,7 +302,9 @@ def model_family(model_name: str):
     ``"resnet_dw"``, ``"vit"`` (ConViT's too), ``"resnetv2"``,
     ``"vit_hybrid"``, ``"cait"``, ``"xcit"``, ``"swin"``, ``"pit"``,
     ``"tnt"``, ``"twins"``, ``"visformer"``, ``"levit"``, ``"coat"``,
-    ``"efficientnet"``), or None for the chassis' default mapping."""
+    ``"efficientnet"``, ``"psresnet"``, ``"sknet"``, ``"res2net"``,
+    ``"regnet"``, ``"densenet"``, ``"rexnet"``, ``"xception"``), or None
+    for the chassis' default mapping (ResNeSt's and ResNet-RS's too)."""
     from cotnet_tpu_torch.models.registry import is_model_in_modules
 
     for module, family in _FAMILY_MODULES:
@@ -254,7 +339,7 @@ def _module_path(parts, avg_down: bool = False, family=None) -> str:
         elif p in _COT:
             out.append(_COT[p])
         else:
-            out.append(p)
+            out.append(_rename(p, family, _CHASSIS_RULES))
         i += 1
     return ".".join(out)
 
@@ -291,10 +376,10 @@ def _resnetv2_path(parts, stem_only: bool = False) -> str:
     return ".".join(out)
 
 
-def _rename(name: str, family: str) -> str:
-    """``name`` by the first of the family's ``_FAMILY_RULES`` that matches
-    it whole, else as it is."""
-    for pattern, repl in _FAMILY_RULES.get(family, ()):
+def _rename(name: str, family: str, rules=None) -> str:
+    """``name`` by the first of the family's ``rules`` (``_FAMILY_RULES``)
+    that matches it whole, else as it is."""
+    for pattern, repl in (rules or _FAMILY_RULES).get(family, ()):
         new, hits = re.subn(f"^{pattern}$", repl, name)
         if hits:
             return new
@@ -330,6 +415,16 @@ def _levit_blocks(flat) -> Dict[str, str]:
             i += 2
         si += 1
     return out
+
+
+def _rexnet_head(flat) -> Dict[str, str]:
+    """ReXNet's head ``ConvBnAct`` after its blocks: ``head_conv`` and
+    ``head_bn`` -> ``features.{num_blocks}.conv`` / ``.bn`` (the inverse
+    of the JAX converter's ``_rexnet_infer``)."""
+    n = len({m[1] for key in flat
+             for m in [re.match(r"[^/]+/block_(\d+)/", key)] if m})
+    return {"head_conv": f"features.{n}.conv",
+            "head_bn": f"features.{n}.bn"}
 
 
 def _levit_bias_indices(sd) -> Dict[str, np.ndarray]:
@@ -419,14 +514,15 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
     k2 = kernel_size * kernel_size
     # the hybrids' R+Ti backbone is the stem alone, without timm's 'stem.'
     stem_only = not any("/backbone/stage" in k for k in flat)
-    blocks = _levit_blocks(flat) if family == "levit" else {}
+    blocks = (_levit_blocks(flat) if family == "levit" else
+              _rexnet_head(flat) if family == "rexnet" else {})
     sd = {}
     for key, val in flat.items():
         collection, *parts, leaf = key.split("/")
         val = np.asarray(val, dtype=np.float32)
-        mod = (_transformer_path(parts, family, stem_only, blocks)
-               if family in _TRANSFORMER_FAMILIES else
-               _module_path(parts, avg_down, family))
+        mod = _post(_transformer_path(parts, family, stem_only, blocks)
+                    if family in _OFF_CHASSIS else
+                    _module_path(parts, avg_down, family), family)
         owner = parts[-1] if parts else leaf
         if family == "swin" and owner.startswith("merge_"):
             val = _swin_merge_perm(val)
@@ -441,7 +537,8 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
                 val = np.transpose(val, (3, 2, 0, 1))
             elif val.ndim == 3:  # ECA's Conv1d
                 val = np.transpose(val, (2, 1, 0))
-            elif owner in _SE_DENSE or parts[-2:-1] == ["se"]:
+            elif (owner in _SE_DENSE or parts[-2:-1] == ["se"]
+                  or owner in _CONV_DENSE.get(family, ())):
                 val = val.T[:, :, None, None]
             else:
                 val = val.T
@@ -462,6 +559,10 @@ def jax_to_torch_state_dict(flat: Dict[str, np.ndarray], *,
                 name = "weight"
                 val = np.transpose(val, (0, 4, 3, 1, 2)).reshape(
                     val.shape[0], -1)
+            if family == "psresnet" and leaf == "conv_kernel":
+                # PSConv's masked dense conv, a raw HWIO kernel in JAX
+                name = "conv.weight"
+                val = np.transpose(val, (3, 2, 0, 1))
             if family == "lambdanet" and leaf == "embeddings":
                 val = val.reshape(val.shape[0], 1, 1, *val.shape[1:])
             if (family == "pit" and leaf == "pos_embed") or (

@@ -401,6 +401,7 @@ def test_surgery_matches_jax(in_chans, tmp_path):
 def test_model_avg_down_matches_jax():
     for name in ("cotnet50", "cotnext50_2x48d", "cotnet101",
                  "cotnext101_2x48d", "se_cotnetd_50", "se_cotnetd_101",
-                 "se_cotnetd_152", "resnet50d", "resnet50"):
+                 "se_cotnetd_152", "resnet50d", "resnet50", "resnest50d",
+                 "resnest50d_4s2x40d", "resnest101e", "skresnet50d"):
         assert convert.model_avg_down(name) == \
             jax_convert.model_avg_down(name), name

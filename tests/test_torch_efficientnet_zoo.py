@@ -94,7 +94,7 @@ def test_the_module_registers_91_keys_in_the_port():
     assert len(EFFICIENTNET_VARIANTS) == 89 and len(ROWS) == 69
     assert sorted(names) == sorted([*EFFICIENTNET_VARIANTS, "mnasnet_b1",
                                     "mnasnet_a1"])
-    assert len(list_models()) == 345
+    assert len(list_models()) == 418
     assert {model_family(n) for n in names} == {"efficientnet"}
 
 

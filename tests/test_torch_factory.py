@@ -48,7 +48,7 @@ def test_default_cfgs_match_the_jax_package_before_any_build():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     cfgs = json.loads(out.stdout.splitlines()[-1])
-    assert len(cfgs) == 345
+    assert len(cfgs) == 418
     differ = sorted(n for n, (port, jax_cfg) in cfgs.items()
                     if port != jax_cfg)
     assert not differ, differ[:10]
@@ -58,6 +58,9 @@ def test_default_cfgs_match_the_jax_package_before_any_build():
     assert cfgs["BoTNetS1_59"][0]["input_size"] == [3, 256, 256]
     assert cfgs["tf_efficientnet_b0_ap"][0]["mean"] == [0.5, 0.5, 0.5]
     assert cfgs["fbnetc_100"][0]["interpolation"] == "bilinear"
+    assert cfgs["xception"][0]["input_size"] == [3, 299, 299]
+    assert cfgs["resnest269e"][0]["input_size"] == [3, 416, 416]
+    assert cfgs["regnety_032"][0]["classifier"] == "head.fc"
 
 
 MODELS = ("resnet18", "cotnet50", "efficientnet_b0")

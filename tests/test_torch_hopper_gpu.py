@@ -1738,3 +1738,122 @@ def test_efficientnet_logits_card_against_cpu(name):
     err = float((got - ref).abs().max())
     assert err <= 1e-4 * float(ref.abs().max()), err
     assert la.LAUNCHES == la.PLAIN_CALLS == la.EMBED_GN_LAUNCHES == 0
+
+
+# ---- the CNN tail: ResNeSt, SKNet, Res2Net, ResNet-RS, PS-ResNet on the
+# chassis; RegNet, DenseNet, ReXNet, Xception --------------------------------
+
+def _chassis(block_module, block, **kw):
+    """A reduced net of one block a stage on the chassis."""
+    import importlib
+
+    from cotnet_tpu_torch.models.resnet import ResNet
+
+    cls = getattr(importlib.import_module(
+        f"cotnet_tpu_torch.models.{block_module}"), block)
+    return lambda: ResNet(cls, (1, 1, 1, 1), num_classes=10, **kw)
+
+
+def _net(module, cls, **kw):
+    import importlib
+
+    build = getattr(importlib.import_module(
+        f"cotnet_tpu_torch.models.{module}"), cls)
+    return lambda: build(num_classes=10, **kw)
+
+
+# reduced nets of each module (constructor, image size): the split attention
+# with avd, the grouped SK bottleneck, the hierarchical 3x3s, the RS stem
+# without pool and SE at 4, the poly-scale conv, RegNetY's SE, DenseNet's
+# deep stem with BlurPool, ReXNet's partial residuals, the whole Xception
+CNN_TAIL_NETS = {
+    "resnest": (_chassis("resnest", "ResNestBottleneck", stem_type="deep",
+                         stem_width=8, avg_down=True,
+                         block_args=dict(radix=2)), 64),
+    "sknet": (_chassis("sknet", "SelectiveKernelBottleneck", cardinality=8,
+                       base_width=4, zero_init_last_bn=False), 64),
+    "res2net": (_chassis("res2net", "Bottle2neck", base_width=26,
+                         block_args=dict(scale=4)), 64),
+    "resnet_rs": (_chassis("resnet", "Bottleneck", stem_type="deep",
+                           stem_width=8, replace_stem_pool=True,
+                           block_args=dict(attn_layer="se",
+                                           attn_kwargs=dict(reduction=4))),
+                  64),
+    "psresnet": (_chassis("psresnet", "PSBottleneck"), 64),
+    "regnet": (_net("regnet", "RegNet", widths=(8, 16, 24, 32),
+                    depths=(1, 2, 1, 1), group_widths=(8, 8, 8, 8),
+                    se_ratio=0.25, stem_width=8), 64),
+    "densenet": (_net("densenet", "DenseNet", growth_rate=4,
+                      block_config=(2, 1, 1, 1), stem_width=8,
+                      stem_type="deep", aa_layer="blur"), 64),
+    "rexnet": (_net("rexnet", "ReXNet", width_mult=0.5, depth_mult=0.1),
+               64),
+    "xception": (_net("xception", "Xception"), 96),
+}
+
+
+def _seeded_pair(build):
+    """The net on the CPU with weights from a seeded generator, and its
+    copy on the card."""
+    cpu = build().eval()
+    gen = torch.Generator().manual_seed(0)
+    for m in cpu.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    card = build().cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card, gen
+
+
+@pytest.mark.parametrize("name", sorted(CNN_TAIL_NETS))
+def test_cnn_tail_logits_card_against_cpu(name):
+    """f32 logits of a reduced net at bs2, weights from a seeded generator,
+    TF32 off: the card against the CPU at 1e-4 of the largest logit.  No
+    op of the port runs: no launch and no plain call."""
+    _need_cuda()
+    build, size = CNN_TAIL_NETS[name]
+    cpu, card, gen = _seeded_pair(build)
+    x = torch.randn(2, 3, size, size, generator=gen)
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    la.reset_counts()
+    try:
+        with torch.no_grad():
+            ref = cpu(x)
+            got = card(x.cuda()).cpu()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    assert got.shape == (2, 10) and torch.isfinite(got).all()
+    err = float((got - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+    assert la.LAUNCHES == la.PLAIN_CALLS == la.EMBED_GN_LAUNCHES == 0
+
+
+def test_psconv_masked_weights_stay_zero_on_the_card():
+    """Two SGD steps with momentum and weight decay of the reduced
+    PS-ResNet on the card: the masked dense weights get a zero gradient
+    and stay exactly zero, the others move."""
+    _need_cuda()
+    from cotnet_tpu_torch.models.psresnet import MaskedConv2d
+
+    _, card, gen = _seeded_pair(CNN_TAIL_NETS["psresnet"][0])
+    card.train()
+    convs = [m for m in card.modules() if isinstance(m, MaskedConv2d)]
+    before = [m.weight.detach().clone() for m in convs]
+    opt = torch.optim.SGD(card.parameters(), lr=0.1, momentum=0.9,
+                          weight_decay=1e-4)
+    x = torch.randn(4, 3, 64, 64, generator=gen).cuda()
+    for _ in range(2):
+        opt.zero_grad()
+        card(x).square().mean().backward()
+        for m in convs:
+            masked = (m.mask == 0).expand_as(m.weight)
+            assert not m.weight.grad[masked].any()
+        opt.step()
+    for m, w0 in zip(convs, before):
+        masked = (m.mask == 0).expand_as(m.weight)
+        assert not m.weight[masked].any()
+        assert not torch.equal(m.weight[~masked], w0[~masked])

@@ -15,7 +15,6 @@ logits from the seeded running statistics, each at the limit its test
 gives with its reason.
 """
 
-import copy
 
 import numpy as np
 import pytest
@@ -39,10 +38,9 @@ from cotnet_tpu_torch.models import vision_transformer_hybrid as phyb  # noqa: E
 from cotnet_tpu_torch.models.vision_transformer import VisionTransformer  # noqa: E402
 from cotnet_tpu_torch.nn import (GroupNorm, StdConv2d, max_pool2d_same,  # noqa: E402
                                  pad_same)
-from cotnet_tpu_torch.utils.convert import jax_to_torch_state_dict  # noqa: E402
-from torch_family_parity import (check_train_grads, flat_np,  # noqa: E402
-                                 images, nchw, random_variables, to_nhwc,
-                                 unflatten)
+from torch_family_parity import (check_train_grads, images,  # noqa: E402
+                                 nchw, net_parity, random_variables,
+                                 to_nhwc, unflatten)
 
 
 # ---- TF-SAME padding and pooling, the standardized conv, the GroupNorm -----
@@ -163,106 +161,6 @@ def test_bottleneck_matches_jax(case):
 
 
 # ---- reduced nets -----------------------------------------------------------
-
-def f64_twin(port):
-    """A copy of ``port`` that computes in f64."""
-    twin = copy.deepcopy(port).double()
-    for m in twin.modules():
-        if getattr(m, "dtype", None) == torch.float32:
-            m.dtype = torch.float64
-    return twin
-
-
-def net_parity(jax_model, port, x, seed, family, rel_logits, rel_grads):
-    """Train-mode logits, the updated BN statistics and the gradients of
-    ``sum(logits * r)`` in the image and every parameter, then the eval
-    logits from those statistics, of ``port`` against ``jax_model`` (one
-    jitted function, run again on a 1e-7 relative perturbation of the
-    image).  Logits at ``rel_logits`` of the largest.  A gradient at
-    ``rel_grads`` of its largest, or at 3 times the larger of the JAX
-    gradient's move under the perturbation and the port's own f32 error
-    against its f64 twin: both measure how the function's conditioning
-    amplifies f32 rounding.  The train-mode BN's one-pass variance, whose
-    gradient ``2(x - mean)/N`` is formed as ``2x/N - 2mean/N``, cancels
-    where a channel's |mean| >> std: under the deep preact stem the port's
-    f32 input gradient lies 4e-4 of its largest from the f64 value on one
-    thread (3e-8 on several, which sum in blocks), the JAX package's fused
-    BN backward 1e-4.  Returns the worst ratio of error to limit."""
-    flat = random_variables(jax_model, x, seed)
-    variables = unflatten(flat)
-    stats = variables.get("batch_stats", {})
-    shape = jax.eval_shape(
-        lambda x_: jax_model.apply(variables, x_, training=False),
-        jnp.asarray(x)).shape
-    r = np.random.RandomState(seed + 1).randn(*shape).astype(np.float32)
-
-    def loss(params, x_):
-        out, mutated = jax_model.apply(
-            {"params": params, "batch_stats": stats}, x_, training=True,
-            mutable=["batch_stats"])
-        return jnp.vdot(out, jnp.asarray(r)), (
-            out, mutated.get("batch_stats", {}))
-
-    @jax.jit
-    def fn(params, x_):
-        (_, (out, new_stats)), grads = jax.value_and_grad(
-            loss, (0, 1), has_aux=True)(params, x_)
-        # eval from the statistics the train forward left, as the port's
-        evals = jax_model.apply({"params": params,
-                                 "batch_stats": new_stats}, x_,
-                                training=False)
-        return out, new_stats, grads, evals
-
-    noise = 1e-7 * np.random.RandomState(99).randn(*x.shape)
-    out, new_stats, (gp, gx), evals = fn(variables["params"],
-                                         jnp.asarray(x))
-    _, _, (gp2, gx2), _ = fn(variables["params"],
-                             jnp.asarray((x * (1 + noise)).astype(np.float32)))
-    port.load_state_dict(jax_to_torch_state_dict(flat, family=family),
-                         strict=True)
-    twin = f64_twin(port).train()
-    x64 = nchw(x).double().requires_grad_()
-    (twin(x64) * torch.from_numpy(r).double()).sum().backward()
-    port.train()
-    xt = nchw(x).requires_grad_()
-    got = port(xt)
-    (got * torch.from_numpy(r)).sum().backward()
-    worst = []
-
-    def close(what, g, want, rel, noise=0.0):
-        want = np.asarray(want)
-        limit = max(rel * float(np.abs(want).max()), 3 * noise)
-        err = float(np.abs(g - want).max())
-        worst.append(err / limit)
-        assert err <= limit, (what, err, limit)
-
-    def spread(a, b, c, d):
-        return max(float(np.abs(np.asarray(a) - np.asarray(b)).max()),
-                   float(np.abs(np.asarray(c) - np.asarray(d)).max()))
-
-    close("train logits", got.detach().numpy(), out, rel_logits)
-    dx = to_nhwc(xt.grad)
-    close("dx", dx, gx, rel_grads, spread(gx2, gx, dx, to_nhwc(x64.grad)))
-    want = jax_to_torch_state_dict(flat_np(gp, "params"), family=family)
-    want2 = jax_to_torch_state_dict(flat_np(gp2, "params"), family=family)
-    grads = dict(port.named_parameters())
-    grads64 = dict(twin.named_parameters())
-    assert sorted(want) == sorted(grads)
-    for name, g in want.items():
-        got_g = grads[name].grad.numpy()
-        close(name, got_g, g.numpy(), rel_grads,
-              spread(want2[name], g, got_g, grads64[name].grad))
-    sd = port.state_dict()
-    for k, v in jax_to_torch_state_dict(flat_np(new_stats, "batch_stats"),
-                                        family=family).items():
-        if "running_" in k:
-            np.testing.assert_allclose(sd[k].numpy(), v.numpy(), rtol=1e-5,
-                                       atol=1e-6, err_msg=k)
-    port.eval()
-    with torch.no_grad():
-        close("eval logits", port(nchw(x)).numpy(), evals, rel_logits)
-    return max(worst)
-
 
 # stem -> the norm its rows take (the BiT stems GN with standardized
 # convs, the torch-style ones BN with avg_down)

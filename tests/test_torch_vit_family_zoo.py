@@ -74,7 +74,7 @@ def test_the_tables_register_71_keys_in_the_port():
     names = [n for t in TABLES.values() for n in t]
     assert len(names) == 71 and len(set(names)) == 71
     assert set(names) <= set(list_models())
-    assert len(list_models()) == 345
+    assert len(list_models()) == 418
     assert {n: model_family(n) for n in names} == {
         n: f for f, t in TABLES.items() for n in t}
     assert [sum(f == family for f, _ in ROWS) for family in TABLES] == [

@@ -63,7 +63,7 @@ def test_the_six_modules_register_23_keys_in_the_port():
     names = [n for _, n in ROWS]
     assert len(names) == 23 and len(set(names)) == 23
     assert set(names) <= set(list_models())
-    assert len(list_models()) == 345
+    assert len(list_models()) == 418
     assert {n: model_family(n) for n in names} == {
         n: ADAPTERS[m] for m, n in ROWS}
 

@@ -105,7 +105,7 @@ def test_the_tables_register_75_keys_in_the_port():
     names = [n for t in TABLES.values() for n in t]
     assert len(names) == 75 and len(set(names)) == 75
     assert set(names) <= set(list_models())
-    assert len(list_models()) == 345
+    assert len(list_models()) == 418
     assert {model_family(n) for n in names} == set(TABLES)
     assert len(ROWS) == 44
 

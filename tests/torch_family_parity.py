@@ -6,14 +6,21 @@ variables of any JAX module, carried into the port by
 both sides in f32 on the CPU.
 
 The JAX side runs ``impl="xla"`` (the aggregation's XLA form), each
-function jitted once; the port runs its plain versions.
+function jitted once; the port runs its plain versions.  ``JaxPath`` and
+``At`` put a block at the module path its family's converter rules
+expect; ``net_parity`` holds a whole net's train-mode gradients against
+the port's own f64 twin's (``f64_twin``) where f32 rounding is amplified.
 """
+
+import copy
+from typing import Any, Tuple
 
 import numpy as np
 import torch
 
 import jax
 import jax.numpy as jnp
+from flax import linen as fnn
 from flax.traverse_util import flatten_dict
 
 from cotnet_tpu_torch.nn import BatchNorm2d
@@ -29,12 +36,52 @@ def images(n=2, size=64, c=3, seed=0):
                 np.float32)
 
 
+def maps(shape, seed):
+    """NHWC f32 maps of ``shape``, each sample at its own scale."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(*shape) * np.linspace(0.5, 2.0, shape[0]).reshape(
+        -1, 1, 1, 1)).astype(np.float32)
+
+
 def nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 
 
 def to_nhwc(t):
     return t.detach().numpy().transpose(0, 2, 3, 1)
+
+
+class JaxPath(fnn.Module):
+    """The JAX module ``build(name=...)`` under the module path ``names``
+    (a block where its family's converter rules expect it)."""
+
+    build: Any
+    names: Tuple[str, ...]
+
+    @fnn.compact
+    def __call__(self, x, training: bool = False):
+        if len(self.names) == 1:
+            return self.build(name=self.names[0])(x, training=training)
+        return JaxPath(self.build, self.names[1:], name=self.names[0])(
+            x, training)
+
+
+class At(torch.nn.Module):
+    """The port's ``module`` at the dotted ``path`` of the state_dict, its
+    map output NHWC, the layout ``check_parity`` compares a map in."""
+
+    def __init__(self, path: str, module):
+        super().__init__()
+        *outer, last = path.split(".")
+        holder = self
+        for name in outer:
+            holder.add_module(name, torch.nn.Module())
+            holder = getattr(holder, name)
+        holder.add_module(last, module)
+        self.__dict__["inner"] = module   # not a second child
+
+    def forward(self, x):
+        return self.inner(x).permute(0, 2, 3, 1)
 
 
 def random_variables(module, x_nhwc, seed, *args):
@@ -233,7 +280,7 @@ def _flat_out(out, lib):
 
 
 def check_parity(port, module, x, seed, family, rel=1e-5, *, image=False,
-                 args=(), training=False):
+                 args=(), training=False, avg_down=False):
     """Forward and gradients of one module or net on both sides in f32:
     the same seeded variables (``random_variables``, carried into the port
     by ``jax_to_torch_state_dict(family=...)``), the output, and the
@@ -244,7 +291,8 @@ def check_parity(port, module, x, seed, family, rel=1e-5, *, image=False,
     numpy array goes to the port as a tensor);
     ``training`` runs both in training mode, with the BNs' batch
     statistics, and compares the updated running statistics too (rtol
-    1e-5).  Each tensor is held at ``rel * max|ref|``, or where the JAX
+    1e-5); ``avg_down`` places a ResNet-D shortcut's keys.  Each tensor
+    is held at ``rel * max|ref|``, or where the JAX
     gradient itself moves by more under a 1e-7 relative perturbation of
     the input (a train-mode BN's cancelling sums), at 3 times that move;
     a gradient below 1e-6 of the largest parameter gradient is held
@@ -281,7 +329,7 @@ def check_parity(port, module, x, seed, family, rel=1e-5, *, image=False,
                         np.asarray(gx), flat_np(gp, "params")))
     (out, stats, gx, gp), (_, _, gx2, gp2) = results
 
-    load_port(port, flat, family).train(training)
+    load_port(port, flat, family, avg_down=avg_down).train(training)
     xt = (nchw(x) if image else torch.from_numpy(x)).requires_grad_()
     got = port(xt, *(torch.from_numpy(a) if isinstance(a, np.ndarray)
                      else a for a in args))
@@ -308,8 +356,8 @@ def check_parity(port, module, x, seed, family, rel=1e-5, *, image=False,
     # each; the converter's buffers (LeViT's bias indices) have none
     buffers = dict(port.named_buffers())
     want = {k: v for k, v in jax_to_torch_state_dict(
-        gp, family=family).items() if k not in buffers}
-    want2 = jax_to_torch_state_dict(gp2, family=family)
+        gp, family=family, avg_down=avg_down).items() if k not in buffers}
+    want2 = jax_to_torch_state_dict(gp2, family=family, avg_down=avg_down)
     top = max(float(v.abs().max()) for v in want.values())
     grads = dict(port.named_parameters(remove_duplicate=False))
     assert sorted(want) == sorted(grads)
@@ -321,8 +369,115 @@ def check_parity(port, module, x, seed, family, rel=1e-5, *, image=False,
               float((want2[name] - g).abs().max()),
               scale if scale > 1e-6 * top else top)
     sd = port.state_dict()
-    for k, v in jax_to_torch_state_dict(stats, family=family).items():
+    for k, v in jax_to_torch_state_dict(stats, family=family,
+                                        avg_down=avg_down).items():
         if "running_" in k:
             np.testing.assert_allclose(sd[k].numpy(), v.numpy(), rtol=1e-5,
                                        atol=1e-6, err_msg=k)
+    return max(worst)
+
+
+def f64_twin(port):
+    """A copy of ``port`` that computes in f64."""
+    twin = copy.deepcopy(port).double()
+    for m in twin.modules():
+        if getattr(m, "dtype", None) == torch.float32:
+            m.dtype = torch.float64
+    return twin
+
+
+def net_parity(jax_model, port, x, seed, family, rel_logits, rel_grads,
+               avg_down=False):
+    """Train-mode logits, the updated BN statistics and the gradients of
+    ``sum(logits * r)`` in the image and every parameter, then the eval
+    logits from those statistics, of ``port`` against ``jax_model`` (one
+    jitted function, run again on a 1e-7 relative perturbation of the
+    image).  Logits at ``rel_logits`` of the largest.  A gradient at
+    ``rel_grads`` of its largest, or at 3 times the larger of the JAX
+    gradient's move under the perturbation and the port's own f32 error
+    against its f64 twin: both measure how the function's conditioning
+    amplifies f32 rounding.  The train-mode BN's one-pass variance, whose
+    gradient ``2(x - mean)/N`` is formed as ``2x/N - 2mean/N``, cancels
+    where a channel's |mean| >> std: under the deep preact stem the port's
+    f32 input gradient lies 4e-4 of its largest from the f64 value on one
+    thread (3e-8 on several, which sum in blocks), the JAX package's fused
+    BN backward 1e-4.  ``avg_down`` places a ResNet-D shortcut's keys.
+    Returns the worst ratio of error to limit."""
+    flat = random_variables(jax_model, x, seed)
+    variables = unflatten(flat)
+    stats = variables.get("batch_stats", {})
+    shape = jax.eval_shape(
+        lambda x_: jax_model.apply(variables, x_, training=False),
+        jnp.asarray(x)).shape
+    r = np.random.RandomState(seed + 1).randn(*shape).astype(np.float32)
+
+    def loss(params, x_):
+        out, mutated = jax_model.apply(
+            {"params": params, "batch_stats": stats}, x_, training=True,
+            mutable=["batch_stats"])
+        return jnp.vdot(out, jnp.asarray(r)), (
+            out, mutated.get("batch_stats", {}))
+
+    @jax.jit
+    def fn(params, x_):
+        (_, (out, new_stats)), grads = jax.value_and_grad(
+            loss, (0, 1), has_aux=True)(params, x_)
+        # eval from the statistics the train forward left, as the port's
+        evals = jax_model.apply({"params": params,
+                                 "batch_stats": new_stats}, x_,
+                                training=False)
+        return out, new_stats, grads, evals
+
+    noise = 1e-7 * np.random.RandomState(99).randn(*x.shape)
+    out, new_stats, (gp, gx), evals = fn(variables["params"],
+                                         jnp.asarray(x))
+    _, _, (gp2, gx2), _ = fn(variables["params"],
+                             jnp.asarray((x * (1 + noise)).astype(np.float32)))
+    port.load_state_dict(jax_to_torch_state_dict(flat, family=family,
+                                                 avg_down=avg_down),
+                         strict=True)
+    twin = f64_twin(port).train()
+    x64 = nchw(x).double().requires_grad_()
+    (twin(x64) * torch.from_numpy(r).double()).sum().backward()
+    port.train()
+    xt = nchw(x).requires_grad_()
+    got = port(xt)
+    (got * torch.from_numpy(r)).sum().backward()
+    worst = []
+
+    def close(what, g, want, rel, noise=0.0):
+        want = np.asarray(want)
+        limit = max(rel * float(np.abs(want).max()), 3 * noise)
+        err = float(np.abs(g - want).max())
+        worst.append(err / limit)
+        assert err <= limit, (what, err, limit)
+
+    def spread(a, b, c, d):
+        return max(float(np.abs(np.asarray(a) - np.asarray(b)).max()),
+                   float(np.abs(np.asarray(c) - np.asarray(d)).max()))
+
+    close("train logits", got.detach().numpy(), out, rel_logits)
+    dx = to_nhwc(xt.grad)
+    close("dx", dx, gx, rel_grads, spread(gx2, gx, dx, to_nhwc(x64.grad)))
+    want = jax_to_torch_state_dict(flat_np(gp, "params"), family=family,
+                                   avg_down=avg_down)
+    want2 = jax_to_torch_state_dict(flat_np(gp2, "params"), family=family,
+                                    avg_down=avg_down)
+    grads = dict(port.named_parameters())
+    grads64 = dict(twin.named_parameters())
+    assert sorted(want) == sorted(grads)
+    for name, g in want.items():
+        got_g = grads[name].grad.numpy()
+        close(name, got_g, g.numpy(), rel_grads,
+              spread(want2[name], g, got_g, grads64[name].grad))
+    sd = port.state_dict()
+    for k, v in jax_to_torch_state_dict(flat_np(new_stats, "batch_stats"),
+                                        family=family,
+                                        avg_down=avg_down).items():
+        if "running_" in k:
+            np.testing.assert_allclose(sd[k].numpy(), v.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+    port.eval()
+    with torch.no_grad():
+        close("eval logits", port(nchw(x)).numpy(), evals, rel_logits)
     return max(worst)
