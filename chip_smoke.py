@@ -290,6 +290,36 @@ printing the last line:
    timed steps each, images/s, peak memory, and one profiled step
    (device kernels, busy share); no launch of the op and no plain call.
    The phase's seconds.
+19. The last of the JAX package's API (after phase 18).
+   ``local_aggregate_wt`` (the weight ``[Cw, K*K, Ho, Wo, N]``): one
+   autograd call at each of cotnet50's four geometries in bf16 at bs128,
+   recorded as the path "local_aggregate_wt" (one ``k3`` forward, dx and
+   dw launch each, no plain call), the output, dx and dw the same bits as
+   ``local_aggregate``'s on the permuted weight, and one f32 call against
+   the plain version at 1e-5 of the largest.  cotnet50 with its key convs
+   swapped for ``DenseGroupedConv`` (``dense_key_convs``: the JAX
+   package's ``COTNET_DENSE_GROUPED`` form, dense convs with block-diagonal
+   kernels and the same weights) on phase 2's calibrated state, f32 at
+   bs16 with TF32 off: logits against the grouped net within 1e-3 of the
+   largest logit (16 forward launches, no plain call), and one loss and
+   backward through the kernels (16 forward, dx and dw launches, each
+   backward launch against the plain backward) against the grouped net's
+   gradient, held to 3x that net's own noise as in phase 3; then its bf16
+   main paths at 224 bs128, the train step under the CoTNet-50 recipe and
+   the eval step, recorded as "cotnet50 train (dense key convs)" and
+   "cotnet50 eval (dense key convs)", their images/s beside phases 2 and
+   3's, after the 16 key convs' own device ms, grouped against dense, in
+   bf16 at bs128 (forward; forward, dx and dw).  The layer
+   tail at bs128 on 56x56 maps of 256 channels: ``avg_pool2d_same``,
+   ``median_pool2d`` (3x3, and 2x2 for an even window), ``Shiftlution``,
+   ``TBConv``, ``Kerv2d``, ``space_to_depth``, ``EvoNorm2dB0`` /
+   ``EvoNorm2dS0``, ``instance_std``, ``group_std``, ``SplitBatchNorm``,
+   ``test_time_pool`` (a 1x1 classifier to 1000 classes) and
+   ``DenseGroupedConv``, each in f32 with TF32 off on the card against the
+   same module on the CPU with the same seeded weights (1e-5 of the
+   largest, 1e-4 for the convs), EvoNorm B0 and SplitBatchNorm in eval and
+   in training with their running statistics, and in bf16, where the
+   results must be finite.  The phase's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -628,6 +658,14 @@ CNN_TAIL_PATHS = (("resnest50d", "eval", 224, 128),
 TRANSFORMER_RECIPES.update({"resnest50d": RECIPE,
                             "densenet121": dict(
                                 RECIPE, model=dict(drop_rate=0.25))})
+# phase 19, the layer tail: each piece at bs128 on 56x56 maps of 256
+# channels (a cotnet50 stage-1 bottleneck's output), the classifier of
+# test_time_pool to ImageNet's 1000 classes; the f32 tolerance of the convs
+# (a sum of 256 to 2304 products in cuDNN's order against oneDNN's)
+LAYER_TAIL_SHAPE = (BATCH, 256, 56, 56)
+LAYER_TAIL_CLASSES = 1000
+LAYER_TAIL_CONV_RTOL = 1e-4
+LAYER_TAIL_RTOL = 1e-5
 
 
 def log(*args):
@@ -1667,8 +1705,9 @@ def model_phase(la, paths: PathCounts) -> tuple:
                      ("top1_count", "top5_count", "n"))
     if not (0 <= top1 <= top5 <= n == BATCH - 8):
         raise AssertionError(f"eval counts top1 {top1} top5 {top5} n {n}")
+    eval_img_s = BATCH / statistics.median(times)
     log(f"bf16 eval cotnet50 {IMAGE}x{IMAGE} bs{BATCH}: "
-        f"{BATCH / statistics.median(times):.1f} img/s (median of {timed} "
+        f"{eval_img_s:.1f} img/s (median of {timed} "
         f"eval steps) on {nvidia_smi()}; top1 {top1:.0f} top5 {top5:.0f} of "
         f"{n:.0f}; {launches} kernel launches in {steps} forwards, 0 plain "
         f"calls")
@@ -1676,7 +1715,8 @@ def model_phase(la, paths: PathCounts) -> tuple:
     del model16, eval_step
     torch.cuda.empty_cache()
 
-    return state, train_main_path(la, batch, paths)
+    return state, dict(train_main_path(la, batch, paths),
+                       eval_img_s=eval_img_s)
 
 
 def train_loss(model, x, labels):
@@ -1685,9 +1725,13 @@ def train_loss(model, x, labels):
     return label_smoothing_cross_entropy(model(x), labels, 0.1)
 
 
-def gradient_parity(la, model, plain, x):
+def gradient_parity(la, model, plain, x,
+                    plain_counts=(0, {"dx": 0, "dw": 0}, 16, 16),
+                    what: str = "kernel path against plain path"):
     """f32, TF32 off: one loss and backward in training mode through the
-    three kernels against the same model on the plain versions.
+    three kernels against the same model on the plain versions (or, with
+    ``plain_counts`` of a run through the kernels, against another model
+    of the same function: phase 19's grouped cotnet50).
 
     The net's f32 gradients are ill-conditioned: each CotLayer's ``se`` BN
     normalizes 16 pooled vectors that are nearly alike, and its one-pass
@@ -1725,7 +1769,7 @@ def gradient_parity(la, model, plain, x):
         raise AssertionError(f"one f32 loss and backward through the kernels: "
                              f"(launches, bwd launches, plain, plain bwd) = "
                              f"{counts}")
-    if ref_counts != (0, {"dx": 0, "dw": 0}, 16, 16):
+    if ref_counts != plain_counts:
         raise AssertionError(f"the plain model's counts: {ref_counts}")
     if not abs(loss - ref_loss) <= 1e-5 * abs(ref_loss):
         raise AssertionError(f"f32 train loss {loss} != plain {ref_loss}")
@@ -1753,7 +1797,7 @@ def gradient_parity(la, model, plain, x):
                 f"path, the plain path {f} from itself under a 1e-7 input "
                 "perturbation")
     log(f"model f32 gradient parity (bs{x.shape[0]}, train mode): loss "
-        f"{loss:.6f} against {ref_loss:.6f}; kernel path against plain path "
+        f"{loss:.6f} against {ref_loss:.6f}; {what} "
         f"(in brackets: plain path against itself with the input perturbed "
         f"by 1e-7, the limit being 3 times that): relative L2 of the whole "
         f"gradient {got[0]:.3g} ({floor[0]:.3g}); max|dg|/max|g| per "
@@ -2220,17 +2264,19 @@ def switch_checks_f32(la, model_name: str, state=None):
 
 
 def run_main_path(la, paths: PathCounts, model_name: str, kind: str,
-                  timed: int):
+                  timed: int, dense_keys: bool = False) -> float:
     """One bf16 main path at the model's image size with seeded random
     weights: ``kind`` is eval, eval_fused (path B, ``mega_fuse``), train, or
     train_fold (path A, ``gn_fold_train``); eval at bs128, the train kinds
-    at the model's train batch under its recipe.  2 warm-up and ``timed``
-    timed steps; the launches are checked against the kind's and recorded
-    in ``paths``."""
+    at the model's train batch under its recipe; ``dense_keys`` swaps the
+    CoT key convs for ``DenseGroupedConv`` (phase 19).  2 warm-up and ``timed`` timed steps;
+    the launches are checked against the kind's and recorded in ``paths``.
+    Returns the images/s."""
     from cotnet_tpu_torch.models import create_model
     from cotnet_tpu_torch.train.step import make_eval_step
 
-    label = f"{model_name} {kind}"
+    label = f"{model_name} {kind}" + (" (dense key convs)" if dense_keys
+                                      else "")
     training = kind.startswith("train")
     recipe, size = RECIPES[model_name], MODELS[model_name][2]
     n = TRAIN_BATCH.get(model_name, BATCH) if training else BATCH
@@ -2243,6 +2289,8 @@ def run_main_path(la, paths: PathCounts, model_name: str, kind: str,
     model = create_model(model_name, device="cuda", dtype=torch.bfloat16,
                          seed=0, **switches,
                          **(recipe["model"] if training else {}))
+    if dense_keys:
+        dense_key_convs(model)
     if training:
         step, state = recipe_train_step(model, recipe, n)
         gen = torch.Generator(device="cuda").manual_seed(6)
@@ -2295,6 +2343,7 @@ def run_main_path(la, paths: PathCounts, model_name: str, kind: str,
         f"of the op, 0 plain calls")
     profile_step(run, f"bf16 {label} step")
     torch.cuda.empty_cache()
+    return n / median
 
 
 def switches_phase(la, paths: PathCounts, cotnet50_state):
@@ -4262,6 +4311,339 @@ def zoo_phase(la, label: str, f32_models, steps_model: str, paths,
     log(f"{label} phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def local_aggregate_wt_path(la, paths: PathCounts):
+    """Phase 19's op entry point: one autograd call of
+    ``local_aggregate_wt`` (the weight ``[Cw, K*K, Ho, Wo, N]``) at each of
+    cotnet50's four geometries in bf16 at bs128, recorded as the path
+    "local_aggregate_wt": one forward, one dx and one dw launch each on
+    ``k3`` (the kernel phase checks the route), no plain call.  Then the
+    same inputs through ``local_aggregate`` on the permuted weight, which
+    must give the same bits in the output, dx and dw (the kernels see the
+    same contiguous tensors), and one f32 call at 14x14 C=256 against the
+    plain version at 1e-5 of the largest."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def inputs(c, hw, dtype):
+        return tuple(torch.randn(*shape, generator=gen, device="cuda").to(
+            dtype) for shape in ((BATCH, c, hw, hw),
+                                 (c // 8, 9, hw, hw, BATCH),
+                                 (BATCH, c, hw, hw)))
+
+    def run(x, wt, dy, impl=None):
+        xg, wg = x.clone().requires_grad_(), wt.clone().requires_grad_()
+        if impl is None:
+            y = la.local_aggregate_wt(xg, wg)
+        else:
+            y = la.local_aggregate(
+                xg, wg.permute(4, 0, 1, 2, 3).unsqueeze(1), impl=impl)
+        y.backward(dy)
+        return y.detach(), xg.grad, wg.grad
+
+    cases = [inputs(c, hw, torch.bfloat16)
+             for c, hw, _ in COTNET50_GEOMETRIES]
+    la.reset_counts()
+    outs = [run(*case) for case in cases]
+    torch.cuda.synchronize()
+    snapshot = paths.record(la, "local_aggregate_wt", 1)
+    kernels = sorted(kernel for kernel, _ in snapshot["by_key"])
+    shapes = {key[2] for _, key in snapshot["by_key"]}
+    if (kernels != sorted(("fwd", "dx", "dw") * len(cases))
+            or set(snapshot["by_key"].values()) != {1}
+            or len(shapes) != len(cases) or snapshot["plain"]):
+        raise AssertionError(f"local_aggregate_wt: launches {snapshot}")
+    for (c, hw, _), case, got in zip(COTNET50_GEOMETRIES, cases, outs):
+        ref = run(*case, impl="auto")
+        for what, a, b in zip(("output", "dx", "dw"), got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"local_aggregate_wt at {c}/{hw}: its {what} differs "
+                    f"from local_aggregate's on the permuted weight by "
+                    f"{float((a.float() - b.float()).abs().max())}")
+    del cases, outs
+    f32 = inputs(256, 14, torch.float32)
+    got, ref = (run(*f32, impl=impl) for impl in (None, "torch"))
+    errs = [float((g - r).abs().max() / r.abs().max())
+            for g, r in zip(got, ref)]
+    if not max(errs) <= 1e-5:
+        raise AssertionError(f"local_aggregate_wt f32 against the plain "
+                             f"version: max|err| / max|ref| {errs}")
+    log(f"local_aggregate_wt bf16 bs{BATCH} at cotnet50's four geometries: "
+        f"one fwd, dx and dw launch each, 0 plain calls; output, dx and dw "
+        f"the same bits as local_aggregate on the permuted weight; f32 at "
+        f"14x14 C=256 against the plain version: max|err| / max|ref| "
+        f"output {errs[0]:.3g}, dx {errs[1]:.3g}, dw {errs[2]:.3g} (limit "
+        f"1e-5)")
+
+
+def dense_key_convs(model):
+    """Swap each CoT layer's key conv ``key_embed.0`` for a
+    ``DenseGroupedConv`` with the same weights, in place: the net the JAX
+    package builds under ``COTNET_DENSE_GROUPED``."""
+    from cotnet_tpu_torch.models.cotnet import CotLayer
+    from cotnet_tpu_torch.nn import DenseGroupedConv
+
+    for layer in list(model.modules()):
+        if isinstance(layer, CotLayer):
+            conv = layer.key_embed[0]
+            dense = DenseGroupedConv(
+                conv.weight.shape[1] * conv.groups, conv.weight.shape[0],
+                conv.kernel_size, conv.stride, conv.padding, conv.dilation,
+                conv.groups, conv.bias is not None, conv.dtype)
+            dense.load_state_dict(conv.state_dict())
+            layer.key_embed[0] = dense.to(conv.weight.device)
+    return model
+
+
+def key_conv_times() -> dict:
+    """Device ms of cotnet50's 16 key convs (3x3, 4 groups) in bf16 at
+    bs128, the grouped ``Conv2d`` against ``DenseGroupedConv`` on the same
+    weights, each geometry timed alone (``device_ms``) and summed over its
+    blocks: the forward under no_grad (eval) and the forward with its
+    backward to the input and the weight (train).  Keyed (form, mode)."""
+    from cotnet_tpu_torch.nn import Conv2d, DenseGroupedConv
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    totals = {(form, mode): 0.0 for form in ("grouped", "dense")
+              for mode in ("eval", "train")}
+    parts = []
+    for c, hw, blocks in COTNET50_GEOMETRIES:
+        x, dy = (torch.randn(BATCH, c, hw, hw, device="cuda", generator=gen)
+                 .to(torch.bfloat16) for _ in range(2))
+        grouped = Conv2d(c, c, 3, 1, 1, groups=4, dtype=torch.bfloat16).cuda()
+        dense = DenseGroupedConv(c, c, 3, 1, 1, groups=4,
+                                 dtype=torch.bfloat16).cuda()
+        dense.load_state_dict(grouped.state_dict())
+        xg = x.clone().requires_grad_()
+        times = []
+        for form, conv in (("grouped", grouped), ("dense", dense)):
+            def fwd():
+                with torch.no_grad():
+                    conv(x)
+
+            def train():
+                torch.autograd.grad(conv(xg), (xg, conv.weight), dy)
+
+            for mode, fn in (("eval", fwd), ("train", train)):
+                ms = device_ms(fn)
+                totals[form, mode] += blocks * ms
+                times.append(ms)
+        parts.append(f"{hw}x{hw} C={c} x{blocks}: eval {times[0]:.4f} / "
+                     f"{times[2]:.4f}, train {times[1]:.4f} / {times[3]:.4f}")
+    log(f"cotnet50's 16 key convs bf16 bs{BATCH} (3x3, 4 groups), device ms "
+        f"grouped / dense: eval {totals['grouped', 'eval']:.4f} / "
+        f"{totals['dense', 'eval']:.4f}, train (forward, dx, dw) "
+        f"{totals['grouped', 'train']:.4f} / {totals['dense', 'train']:.4f} "
+        f"a step on {nvidia_smi()}; per conv " + "; ".join(parts))
+    return totals
+
+
+def dense_grouped_phase(la, paths: PathCounts, state, main_train: dict):
+    """Phase 19's cotnet50 with its key convs as ``DenseGroupedConv``
+    (dense convs with block-diagonal kernels, ``dense_key_convs``).  f32
+    at bs16, TF32 off, on phase 2's calibrated state: logits against the
+    grouped net within 1e-3 of the largest, 16 forward launches and no
+    plain call a forward; one loss and backward through the kernels (16
+    forward, dx and dw launches, no plain call, each backward launch
+    against the plain backward) against the grouped net's, held to 3x that
+    net's own noise (``gradient_parity``).  Then its bf16 train step under
+    the recipe and its eval step at 224 bs128, beside phases 2 and 3's
+    grouped images/s of this call, after the key convs' own device times
+    (``key_conv_times``)."""
+    from cotnet_tpu_torch.models import create_model
+
+    x = images_f32()
+    on, off = (create_model("cotnet50", device="cuda") for _ in range(2))
+    for model in (on, off):
+        model.load_state_dict(state)
+    dense_key_convs(on)
+    with tf32_off(), torch.no_grad():
+        la.reset_counts()
+        got = on(x)
+        torch.cuda.synchronize()
+        counts = (la.LAUNCHES, la.PLAIN_CALLS)
+        ref = off(x)
+    diff, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    if not (counts == (16, 0) and torch.isfinite(got).all()
+            and got.shape == (16, 1000) and diff <= 1e-3 * scale):
+        raise AssertionError(f"cotnet50 dense key convs f32 logits: "
+                             f"(launches, plain) {counts}, max|diff| {diff} "
+                             f"against the grouped net, max|logit| {scale}")
+    log(f"cotnet50 dense key convs f32 bs{x.shape[0]}: logits against the "
+        f"grouped net on the same state max|diff| {diff:.3g} of max|logit| "
+        f"{scale:.3g} (limit 1e-3); {counts[0]} launches, {counts[1]} plain "
+        f"calls a forward")
+    gradient_parity(la, on, off, x,
+                    plain_counts=(16, {"dx": 16, "dw": 16}, 0, 0),
+                    what="dense key convs against the grouped net")
+    del on, off
+    torch.cuda.empty_cache()
+    key_conv_times()
+    train = run_main_path(la, paths, "cotnet50", "train", timed=6,
+                          dense_keys=True)
+    evl = run_main_path(la, paths, "cotnet50", "eval", timed=8,
+                        dense_keys=True)
+    log(f"cotnet50 dense key convs bf16 {IMAGE}x{IMAGE} bs{BATCH}: train "
+        f"{train:.1f} img/s (grouped, phase 3: "
+        f"{main_train['img_s']:.1f}), eval {evl:.1f} img/s (phase 2: "
+        f"{main_train['eval_img_s']:.1f}) on {nvidia_smi()}; a record: the "
+        f"dense key convs do 4x the grouped convs' products")
+
+
+class _Apply(torch.nn.Module):
+    """A function of the layer tail as a module: ``fn(x)``, or ``fn(child,
+    x)`` with its child (test_time_pool's classifier)."""
+
+    def __init__(self, fn, child=None):
+        super().__init__()
+        self.fn, self.child = fn, child
+
+    def forward(self, x):
+        return self.fn(x) if self.child is None else self.fn(self.child, x)
+
+
+def layer_tail_pieces() -> list:
+    """(name, build(dtype), f32 tolerance of the largest, modes) of phase
+    19: each piece of the pools, ``nn/extra.py``'s layer tail and
+    ``DenseGroupedConv``; a norm with statistics in eval and in training."""
+    from cotnet_tpu_torch import nn as pnn
+
+    c = LAYER_TAIL_SHAPE[1]
+    conv, el = LAYER_TAIL_CONV_RTOL, LAYER_TAIL_RTOL
+    both = ("eval", "train")
+    return [
+        ("avg_pool2d_same 3x3 s2",
+         lambda dt: _Apply(lambda x: pnn.avg_pool2d_same(x, 3, 2)), el,
+         ("eval",)),
+        ("median_pool2d 3x3 pad 1",
+         lambda dt: _Apply(lambda x: pnn.median_pool2d(x, 3, 1, 1)), el,
+         ("eval",)),
+        ("median_pool2d 2x2 s2 (even)",
+         lambda dt: _Apply(lambda x: pnn.median_pool2d(x, 2, 2, 0)), el,
+         ("eval",)),
+        ("Shiftlution 3x3", lambda dt: pnn.Shiftlution(c), el, ("eval",)),
+        ("TBConv 3x3, 4 blocks",
+         lambda dt: pnn.TBConv(c, c, 3, blocks=4, dtype=dt), conv,
+         ("eval",)),
+        ("Kerv2d, learnable balance",
+         lambda dt: pnn.Kerv2d(c, c, learnable_kernel=True, dtype=dt), conv,
+         ("eval",)),
+        ("space_to_depth 4",
+         lambda dt: _Apply(lambda x: pnn.space_to_depth(x, 4)), el,
+         ("eval",)),
+        ("EvoNorm2dB0", lambda dt: pnn.EvoNorm2dB0(c), el, both),
+        ("EvoNorm2dS0, 32 groups", lambda dt: pnn.EvoNorm2dS0(c), el,
+         ("eval",)),
+        ("instance_std", lambda dt: _Apply(pnn.instance_std), el, ("eval",)),
+        ("group_std, 32 groups", lambda dt: _Apply(pnn.group_std), el,
+         ("eval",)),
+        ("SplitBatchNorm, 2 splits",
+         lambda dt: pnn.SplitBatchNorm(c, dtype=dt), el, both),
+        (f"test_time_pool, 1x1 to {LAYER_TAIL_CLASSES}",
+         lambda dt: _Apply(lambda head, x: pnn.test_time_pool(head, x, 224),
+                           pnn.Conv2d(c, LAYER_TAIL_CLASSES, 1, bias=True,
+                                      dtype=dt)), conv, ("eval",)),
+        ("DenseGroupedConv 3x3, 4 groups",
+         lambda dt: pnn.DenseGroupedConv(c, c, 3, 1, 1, groups=4, dtype=dt),
+         conv, ("eval",)),
+    ]
+
+
+def seed_tail_state(module, gen):
+    """Seeded weights for a piece: each module's own initialization from
+    ``gen``, then the norms' scales, ``v``, balances and running variances
+    in [0.5, 1.5] and the biases and running means near 0, so that no
+    factor is the identity."""
+    from cotnet_tpu_torch.nn import Conv2d
+
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    with torch.no_grad():
+        for m in module.modules():
+            tensors = [*m.named_parameters(recurse=False),
+                       *m.named_buffers(recurse=False)]
+            for leaf, t in tensors:
+                if not t.is_floating_point():
+                    continue
+                if leaf in ("bias", "running_mean"):
+                    t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+                elif leaf in ("v", "balance", "running_var") or (
+                        leaf == "weight" and not isinstance(m, Conv2d)):
+                    t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+
+
+def layer_tail_card():
+    """Phase 19's layer tail at ``LAYER_TAIL_SHAPE``: each piece on the card
+    in f32 with TF32 off against the same module on the CPU with the same
+    weights (``LAYER_TAIL_RTOL`` of the largest for the elementwise pieces,
+    ``LAYER_TAIL_CONV_RTOL`` for the convs), in eval and, for EvoNorm B0 and
+    SplitBatchNorm, in training, where the running statistics are compared
+    too; then in bf16 (the compute dtype of the pieces that take one),
+    whose results must be finite.  Returns the worst f32 ratio by piece."""
+    gen = torch.Generator().manual_seed(12)
+    n, c, h, w = LAYER_TAIL_SHAPE
+    x = torch.randn(LAYER_TAIL_SHAPE, generator=gen) \
+        * torch.linspace(0.5, 2.0, n)[:, None, None, None]
+    xc = x.cuda()
+    worst = {}
+    for name, build, rtol, modes in layer_tail_pieces():
+        cpu = build(torch.float32)
+        seed_tail_state(cpu, gen)
+        card = build(torch.float32).cuda()
+        card.load_state_dict(cpu.state_dict())
+        card16 = build(torch.bfloat16).cuda()
+        card16.load_state_dict(cpu.state_dict())
+        ratios = []
+        for mode in modes:
+            training = mode == "train"
+            with torch.no_grad(), tf32_off():
+                ref = cpu.train(training)(x)
+                got = card.train(training)(xc).cpu()
+                got16 = card16.train(training)(xc.to(torch.bfloat16))
+                torch.cuda.synchronize()
+            pairs = [("out", got, ref)]
+            if training:
+                pairs += [(k, v.cpu(), cpu.state_dict()[k])
+                          for k, v in card.state_dict().items()
+                          if k.endswith(("running_mean", "running_var"))]
+            for what, g, r in pairs:
+                scale = float(r.abs().max())
+                ratio = float((g - r).abs().max()) / scale
+                if not (g.shape == r.shape and ratio <= rtol):
+                    raise AssertionError(
+                        f"{name} {mode} f32 {what}, card against CPU: "
+                        f"shape {tuple(g.shape)} / {tuple(r.shape)}, max|err| "
+                        f"/ max|ref| {ratio} (limit {rtol})")
+                ratios.append(ratio)
+            if not (got16.shape == ref.shape
+                    and bool(torch.isfinite(got16).all())):
+                raise AssertionError(f"{name} {mode} bf16: not finite or "
+                                     f"shape {tuple(got16.shape)}")
+            del ref, got, got16
+        worst[name] = max(ratios)
+        del cpu, card, card16
+        torch.cuda.empty_cache()
+    return worst
+
+
+def api_tail_phase(la, paths: PathCounts, state, main_train: dict):
+    """Phase 19: ``local_aggregate_wt``, cotnet50 with dense key convs
+    and the layer tail at a real size; logs the phase's seconds."""
+    t_phase = time.perf_counter()
+    local_aggregate_wt_path(la, paths)
+    dense_grouped_phase(la, paths, state, main_train)
+    t_tail = time.perf_counter()
+    worst = layer_tail_card()
+    log(f"layer tail {'x'.join(map(str, LAYER_TAIL_SHAPE))} on the card "
+        f"against the CPU, f32 max|err| / max|ref| (limit "
+        f"{LAYER_TAIL_RTOL:g}, convs {LAYER_TAIL_CONV_RTOL:g}; EvoNorm B0 "
+        f"and SplitBatchNorm in eval and training, with their running "
+        f"statistics); bf16 finite: "
+        + ", ".join(f"{name} {ratio:.3g}" for name, ratio in worst.items())
+        + f"; {time.perf_counter() - t_tail:.1f} s")
+    log(f"API tail phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def expected_route(e) -> str:
     """The route a main-path launch of entry ``e`` must take."""
     return e.get("main_route", MAIN_ROUTE.get(e["name"], "k3"))
@@ -4422,7 +4804,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_stack_phase(la, paths)
     switches_phase(la, paths, state)
-    del state
     torch.cuda.empty_cache()
     hybrid_phase(la, paths)
     torch.cuda.empty_cache()
@@ -4452,6 +4833,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     cnn_tail_phase(la)
     log(f"CNN tail phase done at {time.perf_counter() - t0:.1f} s")
+    api_tail_phase(la, paths, state, main_train)
+    del state
+    torch.cuda.empty_cache()
+    log(f"API tail phase done at {time.perf_counter() - t0:.1f} s")
 
     hbm_rate = copy_rate()
     log(f"device copy rate: {hbm_rate / 1e12:.3f} TB/s (data sheet "

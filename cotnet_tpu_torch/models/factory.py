@@ -4,9 +4,10 @@
 It takes the JAX factory's arguments and treats each as that factory does:
 the batchnorm kwargs (``bn_tf``, ``bn_momentum``, ``bn_eps``) reach only the
 EfficientNet / MobileNetV3 entrypoints, ``drop_connect_rate`` becomes
-``drop_path_rate`` with a warning, ``pretrained``, ``scriptable``,
-``exportable`` and ``no_jit`` are accepted and change nothing, and a
-non-empty ``checkpoint_path`` is refused (``utils.convert.
+``drop_path_rate`` with a warning, ``pretrained`` is accepted and changes
+nothing, ``scriptable``, ``exportable`` and ``no_jit`` are set for the
+build (``nn.config.set_layer_config``; no layer of the port reads them),
+and a non-empty ``checkpoint_path`` is refused (``utils.convert.
 load_checkpoint_into`` loads a file).
 """
 
@@ -18,6 +19,7 @@ import torch
 
 from cotnet_tpu_torch.models.registry import (is_model, is_model_in_modules,
                                               model_entrypoint)
+from cotnet_tpu_torch.nn.config import set_layer_config
 
 _BN_KWARGS = ("bn_tf", "bn_momentum", "bn_eps")
 
@@ -58,10 +60,12 @@ def create_model(model_name: str, pretrained: bool = False,
         warnings.warn("'drop_connect' is deprecated; use 'drop_path'")
         kwargs["drop_path_rate"] = drop_connect_rate
     kwargs = {k: v for k, v in kwargs.items() if v is not None}
-    model = model_entrypoint(model_name)(pretrained=pretrained,
-                                         num_classes=num_classes,
-                                         in_chans=in_chans, dtype=dtype,
-                                         **kwargs)
+    with set_layer_config(scriptable=scriptable, exportable=exportable,
+                          no_jit=no_jit):
+        model = model_entrypoint(model_name)(pretrained=pretrained,
+                                             num_classes=num_classes,
+                                             in_chans=in_chans, dtype=dtype,
+                                             **kwargs)
     generator = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if hasattr(m, "reset_parameters"):

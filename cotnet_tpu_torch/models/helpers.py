@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import copy
 import sys
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,6 +45,39 @@ def get_model_default_cfg(model_name: str) -> dict:
     from cotnet_tpu_torch.models.registry import _model_default_cfgs
 
     return copy.deepcopy(_model_default_cfgs.get(model_name, default_cfg()))
+
+
+def resolve_data_config(args: Optional[dict] = None,
+                        model_name: Optional[str] = None,
+                        default_cfg_override: Optional[dict] = None,
+                        use_test_size: bool = False) -> dict:
+    """A model's data config merged with the caller's overrides
+    (``cotnet_tpu/models/helpers.py:116-137``, reference config/config.py:
+    152-206): ``input_size`` from ``args``' ``input_size``, else a square
+    ``img_size`` with ``chans`` / ``in_chans`` channels, else the model's;
+    ``interpolation``, ``mean``, ``std``, ``crop_pct`` and ``num_classes``
+    from ``args`` where set, else the model's.  The model's is
+    ``default_cfg_override``, else ``get_model_default_cfg(model_name)``,
+    else the template; ``use_test_size`` is the reference's and unused, as
+    in the JAX function."""
+    args = dict(args or {})
+    cfg = default_cfg_override or (
+        get_model_default_cfg(model_name) if model_name else default_cfg())
+
+    data = {}
+    in_chans = args.get("chans") or args.get("in_chans") or cfg["input_size"][0]
+    if args.get("input_size"):
+        data["input_size"] = tuple(args["input_size"])
+    elif args.get("img_size"):
+        data["input_size"] = (in_chans, args["img_size"], args["img_size"])
+    else:
+        data["input_size"] = tuple(cfg["input_size"])
+    data["interpolation"] = args.get("interpolation") or cfg["interpolation"]
+    data["mean"] = tuple(args.get("mean") or cfg["mean"])
+    data["std"] = tuple(args.get("std") or cfg["std"])
+    data["crop_pct"] = args.get("crop_pct") or cfg["crop_pct"]
+    data["num_classes"] = args.get("num_classes") or cfg["num_classes"]
+    return data
 
 
 def build_model_with_cfg(model_cls: Callable, model_name: str,

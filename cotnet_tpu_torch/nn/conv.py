@@ -4,8 +4,9 @@ The weight is float32 and cast to the module's compute dtype at use, as
 flax's ``Conv(dtype=...)`` does; the initialization is the reference's
 ``kaiming_normal_(mode='fan_out', nonlinearity='relu')``.  ``padding="same"``
 pads TF-SAME (``pad_same``) at each call; ``StdConv2d`` standardizes its
-weight first; ``ConvBnAct`` is a conv, a BN and an activation as the
-children ``conv`` and ``bn``.
+weight first; ``DenseGroupedConv`` computes a grouped conv as a dense one
+with a block-diagonal kernel; ``ConvBnAct`` is a conv, a BN and an
+activation as the children ``conv`` and ``bn``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,19 @@ def pad_same(x, kernel_size, stride, dilation=(1, 1), value: float = 0.0):
     return F.pad(x, (left, right, top, bottom), value=value)
 
 
+def normalize_padding(padding, kernel_size, stride, dilation):
+    """``padding`` as ``F.conv2d`` takes it for the geometry
+    (``cotnet_tpu/nn/conv.py:53-60``, which gives flax's form of the same):
+    None becomes the symmetric ``get_padding`` of each axis, an int or a
+    pair a pair, and a string (``"same"``, ``"valid"``) lower case."""
+    if isinstance(padding, str):
+        return padding.lower()
+    if padding is None:
+        return tuple(get_padding(k, s, d) for k, s, d in zip(
+            to_2tuple(kernel_size), to_2tuple(stride), to_2tuple(dilation)))
+    return to_2tuple(padding)
+
+
 class Conv2d(nn.Module):
     """``F.conv2d`` with torch-style default padding (or ``"same"``: TF-SAME
     by the input's size), groups and an optional bias; parameters
@@ -58,12 +72,10 @@ class Conv2d(nn.Module):
         ks, st, di = to_2tuple(kernel_size), to_2tuple(stride), \
             to_2tuple(dilation)
         self.same = padding == "same"
-        if self.same:
-            padding = 0
-        elif padding is None:
-            padding = tuple(get_padding(k, s, d) for k, s, d in zip(ks, st, di))
         self.kernel_size = ks
-        self.stride, self.padding, self.dilation = st, to_2tuple(padding), di
+        self.stride, self.dilation = st, di
+        self.padding = (0, 0) if self.same else normalize_padding(
+            padding, ks, st, di)
         self.groups = groups
         self.dtype = dtype
         self.weight = nn.Parameter(
@@ -84,12 +96,15 @@ class Conv2d(nn.Module):
         return self.weight
 
     def forward(self, x):
+        return self._conv(x, self.conv_weight(), self.groups)
+
+    def _conv(self, x, weight, groups: int):
         dt = self.dtype
         if self.same:
             x = pad_same(x, self.kernel_size, self.stride, self.dilation)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.conv_weight().to(dt), bias,
-                        self.stride, self.padding, self.dilation, self.groups)
+        return F.conv2d(x.to(dt), weight.to(dt), bias, self.stride,
+                        self.padding, self.dilation, groups)
 
 
 class StdConv2d(Conv2d):
@@ -113,6 +128,31 @@ class StdConv2d(Conv2d):
         mean = w.mean((1, 2, 3), keepdim=True)
         std = w.var((1, 2, 3), unbiased=False, keepdim=True).sqrt()
         return (w - mean) * torch.reciprocal(std + self.eps)
+
+
+class DenseGroupedConv(Conv2d):
+    """A grouped conv computed as a dense one, counterpart of
+    ``cotnet_tpu/nn/conv.py:88-141`` (the JAX package's
+    ``COTNET_DENSE_GROUPED`` form of the CoT key conv): the parameter is
+    the grouped ``weight`` ``[O, I/groups, kh, kw]``, so a state_dict is
+    that of ``Conv2d`` with the same groups; each call scatters it into a
+    block-diagonal ``[O, I, kh, kw]`` kernel (group g's ``O/groups`` rows
+    take the input columns ``g*I/groups ...``) and convolves with
+    ``groups=1``.  The same function as the grouped conv, for ``groups``
+    times its products; the gradient flows back through the scatter."""
+
+    def dense_weight(self):
+        """The block-diagonal f32 kernel ``[O, I, kh, kw]``."""
+        w = self.conv_weight()
+        g = self.groups
+        o, ig, kh, kw = w.shape
+        dense = w.new_zeros(g, o // g, g, ig, kh, kw)
+        idx = torch.arange(g, device=w.device)
+        dense[idx, :, idx] = w.view(g, o // g, ig, kh, kw)
+        return dense.view(o, g * ig, kh, kw)
+
+    def forward(self, x):
+        return self._conv(x, self.dense_weight(), 1)
 
 
 class ConvBnAct(nn.Module):

@@ -1,6 +1,7 @@
-"""The EfficientNet family's two conv layers, counterpart of
-``cotnet_tpu/nn/extra.py:282-372`` (reference models/layers/
-cond_conv2d.py, mixed_conv2d.py), on NCHW.
+"""The extended layer zoo, counterpart of ``cotnet_tpu/nn/extra.py``
+(reference models/layers/: shiftlution.py, tbconv.py, kerv2d.py,
+space_to_depth.py, selective_kernel.py, evo_norm.py, split_batchnorm.py,
+cond_conv2d.py, mixed_conv2d.py, test_time_pool.py), on NCHW.
 
 - ``MixedConv2d``: the channels split into one group per kernel size
   (``_split_channels``: equal parts, the first takes the remainder), each
@@ -16,7 +17,6 @@ cond_conv2d.py, mixed_conv2d.py), on NCHW.
   dtype, as the JAX layer mixes them in ``x.dtype``; the convolution runs
   as the reference runs it, ``x`` viewed as ``[1, N*C, H, W]`` and one
   conv of ``N * groups`` groups.
-
 - ``SelectiveKernelConv`` (``cotnet_tpu/nn/extra.py:144-200``, reference
   selective_kernel.py): parallel ``ConvBnAct`` paths ``paths.{i}`` (3x3
   at growing dilation under ``keep_3x3``), each on its own slice of the
@@ -24,23 +24,29 @@ cond_conv2d.py, mixed_conv2d.py), on NCHW.
   the pooled sum through ``attn.fc_reduce``, ``attn.bn`` and
   ``attn.fc_select`` (1x1 convs without bias, the reference's; the JAX
   layer's Dense kernels are their transposes).
-
-The file's other JAX layers (Shiftlution, TBConv, Kerv2d, SpaceToDepth,
-EvoNorm, SplitBatchNorm) are not ported yet.
+- The layer tail, which no registry key builds: ``Shiftlution`` (channel
+  spans shifted by ``_sorted_shifts``' offsets), ``TBConv`` (one conv
+  shared by contiguous channel blocks), ``Kerv2d`` (polynomial
+  kervolution), ``space_to_depth`` / ``SpaceToDepth``, ``EvoNorm2dB0`` /
+  ``EvoNorm2dS0`` with ``instance_std`` / ``group_std``,
+  ``SplitBatchNorm`` (timm's layout) and ``test_time_pool``.  Each
+  computes what its JAX layer computes, with the channel order its NHWC
+  reshapes give.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from cotnet_tpu_torch.nn.activations import get_act_fn
 from cotnet_tpu_torch.nn.conv import (Conv2d, ConvBnAct, get_padding,
-                                      pad_same, to_2tuple)
+                                      normalize_padding, pad_same, to_2tuple)
 from cotnet_tpu_torch.nn.norm import BatchNorm2d
 
 
@@ -89,12 +95,8 @@ class CondConv2d(nn.Module):
         self.kernel_size = to_2tuple(kernel_size)
         self.stride, self.dilation = to_2tuple(stride), to_2tuple(dilation)
         self.same = padding == "same"
-        if self.same:
-            padding = 0
-        elif padding is None:
-            padding = tuple(get_padding(k, s, d) for k, s, d in zip(
-                self.kernel_size, self.stride, self.dilation))
-        self.padding = to_2tuple(padding)
+        self.padding = (0, 0) if self.same else normalize_padding(
+            padding, kernel_size, stride, dilation)
         self.groups, self.dtype = groups, dtype
         self.weight_shape = (out_channels, in_channels // groups,
                              *self.kernel_size)
@@ -202,3 +204,263 @@ class SelectiveKernelConv(nn.Module):
         logits = self.attn(stacked.sum(1).mean((2, 3), keepdim=True))
         weights = logits.view(n, p, c, 1, 1).softmax(1)
         return (stacked * weights).sum(1)
+
+
+def _sorted_shifts(kernel_h: int, kernel_w: int) -> List[Tuple[int, int]]:
+    """Shiftlution's offsets (reference shiftlution.py:13-26,
+    ``cotnet_tpu/nn/extra.py:23-35``): near-centre shifts first, ties
+    broken by the small terms, in numpy's ``argsort`` order."""
+    shifts, keys = [], []
+    sh = range(-(kernel_h - 1) // 2, (kernel_h - 1) // 2 + 1) if kernel_h > 1 else [0]
+    sw = range(-(kernel_w - 1) // 2, (kernel_w - 1) // 2 + 1) if kernel_w > 1 else [0]
+    for h in sh:
+        for w in sw:
+            shifts.append((h, w))
+            keys.append(max(abs(h) + abs(h) / 10 + abs(w) / 100 + h / 1000 + w / 10000,
+                            abs(w) + abs(h) / 20 + abs(w) / 200 + h / 2000 + w / 20000))
+    order = np.argsort(keys)
+    return [shifts[i] for i in order]
+
+
+class Shiftlution(nn.Module):
+    """Channel-wise spatial shift (reference shiftlution.py): span ``i``
+    of ``channels // (kernel_h * kernel_w)`` channels moves by the ``i``-th
+    offset ``(ho, wo)`` of ``_sorted_shifts``, ``out[y, x] = in[y - ho,
+    x - wo]``, zero outside the map; the leftover channels pass through.
+    Odd kernel sizes only, as in the reference."""
+
+    def __init__(self, channels: int, kernel_h: int = 3, kernel_w: int = 3):
+        super().__init__()
+        self.channels, self.kernel_h, self.kernel_w = channels, kernel_h, \
+            kernel_w
+        self.shifts = _sorted_shifts(kernel_h, kernel_w)
+
+    def forward(self, x):
+        n, c, h, w = x.shape
+        if c != self.channels:
+            raise ValueError(f"Shiftlution of {self.channels} channels got "
+                             f"{c}")
+        ph, pw = (self.kernel_h - 1) // 2, (self.kernel_w - 1) // 2
+        span = c // (self.kernel_h * self.kernel_w)
+        xp = F.pad(x, (pw, pw, ph, ph))
+        outs = [xp[:, i * span:(i + 1) * span, ph - ho:ph - ho + h,
+                   pw - wo:pw - wo + w]
+                for i, (ho, wo) in enumerate(self.shifts)]
+        outs.append(x[:, len(self.shifts) * span:])
+        return torch.cat(outs, 1)
+
+
+class TBConv(nn.Module):
+    """Tied-block conv (reference tbconv.py): one conv, the child ``conv``
+    (``in_channels / blocks`` to ``out_channels / blocks``), shared by
+    ``blocks`` contiguous channel blocks, which become images of a batch
+    ``N * blocks`` and are put back block-major."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, padding=None,
+                 dilation: int = 1, groups: int = 1, blocks: int = 1,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if in_channels % blocks or out_channels % blocks:
+            raise ValueError(f"TBConv: {in_channels} -> {out_channels} "
+                             f"channels in {blocks} blocks")
+        self.blocks = blocks
+        self.conv = Conv2d(in_channels // blocks, out_channels // blocks,
+                           kernel_size, stride, padding, dilation, groups,
+                           bias=bias, dtype=dtype)
+
+    def forward(self, x):
+        n, c, h, w = x.shape
+        y = self.conv(x.reshape(n * self.blocks, c // self.blocks, h, w))
+        return y.reshape(n, -1, *y.shape[2:])
+
+
+class Kerv2d(nn.Module):
+    """Polynomial kervolution, 1x1 only (reference kerv2d.py): ``(conv(x)
+    + bias + balance) ** power + bias``, the reference's bias added twice
+    (kerv2d.py:49-50, ``cotnet_tpu/nn/extra.py:114-122``); the child
+    ``conv`` has no bias of its own.  With ``learnable_kernel`` the balance
+    is a parameter ``[O]`` starting at ``balance``, else the constant in
+    the compute dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 balance: float = 1.0, power: int = 3, bias: bool = True,
+                 learnable_kernel: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = Conv2d(in_channels, out_channels, 1, dtype=dtype)
+        self.power, self.balance_init = power, balance
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+        self.balance = (nn.Parameter(torch.empty(out_channels))
+                        if learnable_kernel else None)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            if self.bias is not None:
+                self.bias.zero_()
+            if self.balance is not None:
+                self.balance.fill_(self.balance_init)
+
+    def forward(self, x):
+        y = self.conv(x)
+        bias = None if self.bias is None else self.bias.to(y.dtype).view(
+            -1, 1, 1)
+        if bias is not None:
+            y = y + bias
+        balance = (y.new_full((), self.balance_init) if self.balance is None
+                   else self.balance.to(y.dtype).view(-1, 1, 1))
+        y = (y + balance).pow(self.power)
+        if bias is not None:
+            y = y + bias
+        return y
+
+
+def space_to_depth(x, block_size: int = 4):
+    """``[N, C, H, W]`` to ``[N, bs*bs*C, H/bs, W/bs]``, the channels
+    ``(sh, sw, c)``-major as the reference's permute orders them
+    (space_to_depth.py)."""
+    n, c, h, w = x.shape
+    bs = block_size
+    x = x.view(n, c, h // bs, bs, w // bs, bs).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, bs * bs * c, h // bs, w // bs)
+
+
+class SpaceToDepth(nn.Module):
+    def __init__(self, block_size: int = 4):
+        super().__init__()
+        self.block_size = block_size
+
+    def forward(self, x):
+        return space_to_depth(x, self.block_size)
+
+
+def instance_std(x, eps: float = 1e-5):
+    """Each (image, channel)'s standard deviation over H and W, ``[N, C, 1,
+    1]``: ``sqrt(var + eps)``, the biased variance."""
+    return (x.var((2, 3), unbiased=False, keepdim=True) + eps).sqrt()
+
+
+def group_std(x, groups: int = 32, eps: float = 1e-5):
+    """The standard deviation of each image's ``groups`` contiguous channel
+    blocks over the block and H, W, broadcast back to x's shape."""
+    n, c, h, w = x.shape
+    xg = x.view(n, groups, c // groups, h, w)
+    std = (xg.var((2, 3, 4), unbiased=False, keepdim=True) + eps).sqrt()
+    return std.expand_as(xg).reshape(n, c, h, w)
+
+
+class _EvoNorm(nn.Module):
+    """The parameters of both EvoNorms, timm's: ``weight``, ``bias`` and,
+    with ``apply_act``, ``v``, each ``[1, C, 1, 1]``."""
+
+    def __init__(self, num_features: int, apply_act: bool):
+        super().__init__()
+        self.apply_act = apply_act
+        shape = (1, num_features, 1, 1)
+        self.weight = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.empty(shape))
+        self.v = nn.Parameter(torch.empty(shape)) if apply_act else None
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            if self.v is not None:
+                self.v.fill_(1.0)
+
+
+class EvoNorm2dB0(_EvoNorm):
+    """EvoNorm-B0 (reference evo_norm.py), in f32 and cast back: with
+    ``apply_act``, ``x / max(sqrt(var + eps), v*x + instance_std(x,
+    eps))``, then ``x * weight + bias``.  ``var`` is the batch's biased
+    variance over N, H and W in training, which moves the buffer
+    ``running_var`` ``[1, C, 1, 1]`` by flax's ``momentum`` (0.9 keeps the
+    old value), and ``running_var`` in eval."""
+
+    def __init__(self, num_features: int, apply_act: bool = True,
+                 momentum: float = 0.9, eps: float = 1e-3):
+        super().__init__(num_features, apply_act)
+        self.momentum, self.eps = momentum, eps
+        if apply_act:
+            self.register_buffer("running_var",
+                                 torch.empty(1, num_features, 1, 1))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        super().reset_parameters(generator)
+        if self.apply_act:
+            self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        xf = x.float()
+        if self.apply_act:
+            if self.training:
+                var = xf.var((0, 2, 3), unbiased=False, keepdim=True)
+                with torch.no_grad():
+                    self.running_var.mul_(self.momentum).add_(
+                        var, alpha=1 - self.momentum)
+            else:
+                var = self.running_var
+            xf = xf / torch.maximum((var + self.eps).sqrt(),
+                                    self.v * xf + instance_std(xf, self.eps))
+        return (xf * self.weight + self.bias).to(x.dtype)
+
+
+class EvoNorm2dS0(_EvoNorm):
+    """EvoNorm-S0 (reference evo_norm.py:44-83), in f32 and cast back: with
+    ``apply_act``, ``x * sigmoid(v*x) / group_std(x, groups)``, then ``x *
+    weight + bias``; no running statistics."""
+
+    def __init__(self, num_features: int, groups: int = 32,
+                 apply_act: bool = True):
+        super().__init__(num_features, apply_act)
+        self.groups = groups
+        self.reset_parameters()
+
+    def forward(self, x):
+        xf = x.float()
+        if self.apply_act:
+            xf = xf * torch.sigmoid(xf * self.v) / group_std(xf, self.groups)
+        return (xf * self.weight + self.bias).to(x.dtype)
+
+
+class SplitBatchNorm(BatchNorm2d):
+    """Aug-split BN (reference split_batchnorm.py:75), in timm's layout:
+    the module is the main BN (``weight``, ``bias``, ``running_mean``,
+    ``running_var``) and ``aux_bn.{i}`` are the other splits'.  In training
+    the batch is ``num_splits`` equal parts, each normalized by its own BN;
+    in eval, or with one split, the main BN takes the whole batch.  Each is
+    the port's ``BatchNorm2d`` (the biased running variance, as flax's)."""
+
+    def __init__(self, num_features: int, num_splits: int = 2,
+                 eps: float = 1e-5, momentum: float = 0.1,
+                 dtype: torch.dtype = torch.float32, group=None):
+        super().__init__(num_features, eps, momentum, dtype=dtype,
+                         group=group)
+        self.num_splits = num_splits
+        self.aux_bn = nn.ModuleList(
+            BatchNorm2d(num_features, eps, momentum, dtype=dtype,
+                        group=group)
+            for _ in range(num_splits - 1))
+
+    def forward(self, x):
+        if not self.training or self.num_splits <= 1:
+            return super().forward(x)
+        if x.shape[0] % self.num_splits:
+            raise ValueError(f"a batch of {x.shape[0]} in {self.num_splits} "
+                             "equal splits")
+        first, *rest = x.chunk(self.num_splits)
+        return torch.cat([super().forward(first)]
+                         + [bn(xi) for bn, xi in zip(self.aux_bn, rest)])
+
+
+def test_time_pool(logits_fn, x, crop_size: int):
+    """Test-time pooling (reference test_time_pool.py): ``logits_fn`` maps
+    the full image's features to per-position logits ``[N, classes, H,
+    W]``, which are averaged over H and W.  ``crop_size`` is the
+    reference's and unused, as in the JAX function."""
+    return logits_fn(x).mean((2, 3))
+
+
+test_time_pool.__test__ = False     # its name is no pytest test's

@@ -5,9 +5,10 @@ from cotnet_tpu_torch.ops.local_agg import (
     local_aggregate_embed_gn,
     local_aggregate_mix,
     local_aggregate_mix_merge,
+    local_aggregate_wt,
     out_size,
 )
 
 __all__ = ["extract_patches", "local_aggregate", "local_aggregate_dilated",
            "local_aggregate_embed_gn", "local_aggregate_mix",
-           "local_aggregate_mix_merge", "out_size"]
+           "local_aggregate_mix_merge", "local_aggregate_wt", "out_size"]

@@ -37,6 +37,8 @@ Two implementations compute the function and its gradients:
 
 ``local_aggregate`` is differentiable in x and w and, with the GroupNorm
 fold, in ``w_scale`` and ``w_bias`` (once: there is no double backward).
+``local_aggregate_wt`` is the same op with the weight in the JAX package's
+CHWN layout ``[Cw, K*K, Ho, Wo, N]``.
 
 ``local_aggregate_embed_gn`` is the eval-only fusion of the embed 1x1 conv,
 the GroupNorm and the aggregation: ``local_aggregate_embed_gn_plain``
@@ -870,6 +872,31 @@ def local_aggregate(
             x, w, w_scale, w_bias, kernel_size, dilation, padding, use_kernel)
     return _AggregateStride1.apply(x, w, kernel_size, dilation, padding,
                                    use_kernel)
+
+
+def local_aggregate_wt(
+    x: torch.Tensor,
+    wt: torch.Tensor,
+    *,
+    kernel_size=3,
+    padding=None,
+    dilation=1,
+) -> torch.Tensor:
+    """``local_aggregate`` with the weight given as ``[Cw, K*K, Ho, Wo, N]``
+    (``cotnet_tpu/ops/local_agg.py:345-370``, the layout of the JAX
+    package's CHWN kernels); its gradient comes back in that layout.
+
+    Stride 1, zero padding and one head, as in the JAX function: ``wt`` is
+    permuted to ``[N, 1, Cw, K*K, Ho, Wo]``, made contiguous, and goes
+    through ``local_aggregate``, on the card the forward, dx and dw
+    kernels (the CHWN layout is a TPU residency choice; the Hopper kernels
+    read the port's own).  Default padding as ``local_aggregate``'s."""
+    if wt.dim() != 5:
+        raise ValueError(f"wt must be [Cw, K*K, Ho, Wo, N] (one head), got "
+                         f"{tuple(wt.shape)}")
+    w = wt.permute(4, 0, 1, 2, 3).unsqueeze(1).contiguous()
+    return local_aggregate(x, w, kernel_size=kernel_size, padding=padding,
+                           dilation=dilation)
 
 
 def embed_gn_key(x, w_pre, groups, dilation, padding) -> tuple:

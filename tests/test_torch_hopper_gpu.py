@@ -1857,3 +1857,96 @@ def test_psconv_masked_weights_stay_zero_on_the_card():
         masked = (m.mask == 0).expand_as(m.weight)
         assert not m.weight[masked].any()
         assert not torch.equal(m.weight[~masked], w0[~masked])
+
+
+# ---- the last of the JAX package's API: local_aggregate_wt and
+# DenseGroupedConv as the CoT key conv -------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_aggregate_wt_against_local_aggregate_on_card(dtype):
+    """``local_aggregate_wt`` with the weight ``[Cw, K*K, Ho, Wo, N]`` is
+    ``local_aggregate`` on the permuted weight: one forward, one dx and one
+    dw launch and no plain call, and the same bits in the output, dx and
+    dw (the kernels get identical contiguous inputs); in f32 also against
+    the plain version at 1e-5 of the largest."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(3)
+    n, c, cw, h, k = 4, 64, 8, 14, 3
+    x = torch.randn(n, c, h, h, device="cuda", generator=gen).to(dtype)
+    wt = torch.randn(cw, k * k, h, h, n, device="cuda", generator=gen).to(
+        dtype)
+    dy = torch.randn(n, c, h, h, device="cuda", generator=gen).to(dtype)
+    runs = []
+    for form in ("wt", "w", "plain"):
+        xg = x.clone().requires_grad_()
+        wg = wt.clone().requires_grad_()
+        w = wg.permute(4, 0, 1, 2, 3).unsqueeze(1)
+        la.reset_counts()
+        if form == "wt":
+            y = la.local_aggregate_wt(xg, wg, kernel_size=k)
+        else:
+            y = la.local_aggregate(xg, w, kernel_size=k,
+                                   impl="auto" if form == "w" else "torch")
+        y.backward(dy)
+        torch.cuda.synchronize()
+        runs.append((y, xg.grad, wg.grad))
+        if form == "wt":
+            assert (la.LAUNCHES, la.BWD_LAUNCHES) == (1, {"dx": 1, "dw": 1})
+            assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
+    for got, same in zip(runs[0], runs[1]):
+        assert torch.equal(got, same)
+    if dtype == torch.float32:
+        for got, ref in zip(runs[0], runs[2]):
+            err = float((got - ref).abs().max())
+            assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+def test_dense_grouped_cotnet_logits_card_against_cpu():
+    """A reduced cotnet50 (one CotBottleneck a stage) with its key convs
+    swapped for ``DenseGroupedConv`` (the JAX package's
+    ``COTNET_DENSE_GROUPED`` form), f32 at bs2 and 64 px, TF32 off: logits
+    on the card against the CPU at 1e-4 of the largest, and against the
+    same weights with the grouped key convs on the card; 4 forward
+    launches a forward and no plain call."""
+    _need_cuda()
+    from cotnet_tpu_torch.models.cotnet import CotBottleneck, CotLayer
+    from cotnet_tpu_torch.models.resnet import ResNet
+    from cotnet_tpu_torch.nn import DenseGroupedConv
+
+    def build(dense):
+        model = ResNet(CotBottleneck, (1, 1, 1, 1), num_classes=10,
+                       base_width=16, zero_init_last_bn=False)
+        for layer in list(model.modules()):
+            if dense and isinstance(layer, CotLayer):
+                conv = layer.key_embed[0]
+                layer.key_embed[0] = DenseGroupedConv(
+                    conv.weight.shape[1] * conv.groups, conv.weight.shape[0],
+                    conv.kernel_size, conv.stride, conv.padding,
+                    groups=conv.groups)
+        return model
+
+    cpu, card, gen = _seeded_pair(lambda: build(True))
+    off = build(False).cuda().eval()
+    off.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 3, 64, 64, generator=gen)
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            ref = cpu(x)
+            la.reset_counts()
+            got = card(x.cuda())
+            torch.cuda.synchronize()
+            counts = (la.LAUNCHES, la.PLAIN_CALLS)
+            got_off = off(x.cuda()).cpu()
+            got = got.cpu()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    assert counts == (4, 0)
+    assert got.shape == (2, 10) and torch.isfinite(got).all()
+    for want in (ref, got_off):
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
