@@ -156,10 +156,18 @@ printing the last line:
    57x57, 13x11 with Cw=6, N=1 at 56x56) and the geometries beyond them
    (K=5 on 3x513 and K=3 on 2x2049 in bf16, K=9 in bf16, K=7 at dilation
    8 on 16x256 in f32), each forward, dx, dw and affine dw entry naming
-   the route its launcher took (``variant``: ``k3``, ``general`` or
-   ``pointwise``; the geometries beyond the tiles must take ``pointwise``,
-   every main path ``k3`` but san19's K = 7 launches, which must take
-   ``general``, ``GEOMETRY_ROUTE``); the backward kernels (dx, dw, and with the
+   the route its launcher took (``variant``: ``k3``, ``k7``, ``general``
+   or ``pointwise``; the geometries beyond the tiles must take
+   ``pointwise``, every main path ``k3`` but san19's K = 7 launches, whose
+   forward and dx must take ``k7`` and dw ``general``,
+   ``GEOMETRY_ROUTE``); the ``k7`` forward and dx also at san19's four
+   K = 7 maps in f32 (N=32) and at the edges of their tiles (13x11 and
+   17x23 in bf16 and f32, N=1 at 56x56, a 5x5 map with two groups, and 16
+   groups, which the k7 tiles refuse and which must take ``general``),
+   each ``k7`` launch made twice for the same bits, f32 within 1e-5 of the
+   largest, with the ptxas registers and spills of the ``k7`` and
+   ``general`` instantiations beside their times (no ``k7`` spill
+   allowed); the backward kernels (dx, dw, and with the
    affine dx and dw+ds+db) at the same geometries, the reflect case
    through autograd as well, each affine dw launched twice and its dw, ds
    and db bit-identical; the fused embed kernels at the eight
@@ -378,11 +386,19 @@ MODELS = {
 # eval path launches the plain forward, and no affine kernel is on any of
 # their paths
 UNFOLDED_MODELS = ("san19", "lrnet50")
+# the route of each kernel at K = 7, dilation 1, zero pad 3, one head and
+# at most 8 channel groups: the forward and dx on their k7 tiles, dw and
+# the affine dw on the general route
+K7_ROUTES = {"fwd": "k7", "dx": "k7", "dw": "general", "dw_affine": "general"}
 # the route every main-path launch of the forward, dx and dw takes at a
-# geometry (C, map, K) where it is not k3: SAN19's K = 7 aggregations, on
-# the general route's halo tiles
-GEOMETRY_ROUTE = {(c, hw, 7): "general" for c, hw, _, *k in SAN19_GEOMETRIES
+# geometry (C, map, K) where it is not k3: SAN19's K = 7 aggregations
+GEOMETRY_ROUTE = {(c, hw, 7): K7_ROUTES for c, hw, _, *k in SAN19_GEOMETRIES
                   if k == [7]}
+# the kernel functions of the k7 route, as the build report and the
+# profiler name them
+K7_FUNCTIONS = ("local_agg_fwd_k7", "local_agg_bwd_dx_k7")
+# what build_report read from ptxas: kernel function -> its line
+PTXAS: dict = {}
 # phase 13, the other comparison families: image size, and no op on their
 # path
 FAMILY_EVAL_MODELS = {"BoTNetS1_59": 256, "lambdanet50": 224,
@@ -793,7 +809,27 @@ def kernel_cases() -> list:
                     cases.append(case)
     for k in (5, 7):
         cases.append(dict(n=4, c=32, h=13, w=11, heads=2, cw=8, k=k, dil=2,
-                          pad_mode="zeros", dtype=torch.float32))
+                          pad_mode="zeros", dtype=torch.float32,
+                          route="general"))
+    # the k7 forward and dx: SAN19's four K = 7 maps in f32, then the edges
+    # of their tiles (an odd map whose width is no multiple of the four
+    # positions of a thread, in both dtypes; N = 1; two groups on a map
+    # smaller than a tile) and 16 groups, which they refuse (general)
+    for c, hw, _, *k in SAN19_GEOMETRIES:
+        if k == [7]:
+            cases.append(dict(n=32, c=c, h=hw, w=hw, heads=1, cw=c // 8,
+                              k=7, dil=1, pad_mode="zeros",
+                              dtype=torch.float32, route=K7_ROUTES))
+    for n, c, cw, h, w, dt in ((2, 64, 8, 13, 11, torch.bfloat16),
+                               (2, 64, 8, 13, 11, torch.float32),
+                               (3, 40, 5, 17, 23, torch.float32),
+                               (1, 64, 8, 56, 56, torch.bfloat16),
+                               (2, 16, 8, 5, 5, torch.float32)):
+        cases.append(dict(n=n, c=c, h=h, w=w, heads=1, cw=cw, k=7, dil=1,
+                          pad_mode="zeros", dtype=dt, route=K7_ROUTES))
+    cases.append(dict(n=2, c=64, h=14, w=14, heads=1, cw=4, k=7, dil=1,
+                      pad_mode="zeros", dtype=torch.bfloat16,
+                      route="general"))
     cases.append(dict(n=8, c=64, h=14, w=14, heads=1, cw=8, k=3, dil=1,
                       pad_mode="reflect", dtype=torch.float32))
     # the edges of the forward's and dx's row tiles and vectors: a map
@@ -827,23 +863,67 @@ def _same_case(a: dict, b: dict) -> bool:
 
 
 def route(la, kernel: str, cs, x, w, pad: int) -> str:
-    """The route (``k3``, ``general`` or ``pointwise``) that the launcher of
-    ``kernel`` (fwd, dx, dw or dw_affine) takes for x and w with the
-    kernel's own padding, as the kernel's library decides it; raises unless
-    it is the case's own (``route``, where the case names one)."""
+    """The route (``k3``, ``k7``, ``general`` or ``pointwise``) that the
+    launcher of ``kernel`` (fwd, dx, dw or dw_affine) takes for x and w with
+    the kernel's own padding, as the kernel's library decides it; raises
+    unless it is the case's own (``route``, where the case names one: one
+    for every kernel, or a dict by kernel)."""
     k, dil = cs["k"], cs["dil"]
     got = la.kernel_route(kernel, x, w, kernel_size=(k, k),
                           dilation=(dil, dil), padding=(pad, pad))
-    if got != cs.get("route", got):
+    want = cs.get("route", got)
+    if isinstance(want, dict):
+        want = want[kernel]
+    if got != want:
         raise AssertionError(f"{kernel} at {describe(cs, pad)} took the "
-                             f"{got} route, not {cs['route']}")
+                             f"{got} route, not {want}")
     return got
 
 
-def main_route(cs) -> dict:
-    """The entry's ``main_route`` key: the route its launches on a main path
-    must take where it is not k3 (``GEOMETRY_ROUTE``)."""
-    return {"main_route": cs["main_route"]} if "main_route" in cs else {}
+def main_route(cs, kernel: str) -> dict:
+    """The entry's ``main_route`` key: the route the launches of
+    ``kernel`` on a main path must take where it is not k3
+    (``GEOMETRY_ROUTE``)."""
+    return ({"main_route": cs["main_route"][kernel]} if "main_route" in cs
+            else {})
+
+
+def k7_checks(what: str, again, got, ref, dtype) -> dict:
+    """A k7 entry's extra checks: a second launch (``again()``) gives the
+    same bits; in f32, max|err| within 1e-5 of the reference's largest.
+    Returns the entry's keys for them."""
+    if not torch.equal(again(), got):
+        raise AssertionError(f"k7 at {what}: a second launch gave other "
+                             "bits")
+    scale = float(ref.float().abs().max())
+    err = float((got.float() - ref.float()).abs().max())
+    if dtype == torch.float32 and not err <= 1e-5 * scale:
+        raise AssertionError(f"k7 at {what}: f32 max|err| {err} beyond "
+                             f"1e-5 of the largest {scale}")
+    return {"deterministic": True, "err_of_max": err / scale}
+
+
+# the kernels' template argument of each dtype, as ptxas names it
+PTXAS_TYPES = {torch.float32: "float", torch.float16: "__half",
+               torch.bfloat16: "__nv_bfloat16"}
+
+
+def ptxas_note(variant: str, name: str, w, affine: bool) -> dict:
+    """The build report's ptxas lines, where build_report read them, for
+    the k7 instantiation that a launch on weight ``w`` runs (its weight
+    pieces: the widest of 4, 2 or 1 elements that w's address, a row and
+    a tap plane are multiples of, as the launcher picks them) and for the
+    general one of the same dtype and affine."""
+    if variant != "k7":
+        return {}
+    elem, (ho, wo) = w.element_size(), w.shape[-2:]
+    piece = 4 * elem
+    while piece > elem and (w.data_ptr() % piece or wo * elem % piece
+                            or ho * wo * elem % piece):
+        piece //= 2
+    args = f"{PTXAS_TYPES[w.dtype]}, {str(affine).lower()}"
+    return {"ptxas": PTXAS.get(f"{name}_k7<{args}, {piece}>", "not measured"),
+            "ptxas_general": PTXAS.get(f"{name}<{args}, 0>", "not measured")}
 
 
 def describe(cs, pad, affine=False) -> str:
@@ -1008,6 +1088,11 @@ def kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 ref = la.local_aggregate(x, wt, impl="torch", **kw)
                 geometry = describe(cs, pad, affine)
                 max_err, rtol, atol = check_close(geometry, got, ref, dt)
+                variant = route(la, "fwd", cs, xk, wt, kpad)
+                extra = {}
+                if variant == "k7":
+                    extra = k7_checks(geometry, lambda: la.local_aggregate(
+                        x, wt, impl="hopper", **kw), got, ref, dt)
                 ms = device_ms(lambda: la.local_aggregate(
                     x, wt, impl="hopper", **kw))
                 plain_ms = device_ms(lambda: la.local_aggregate(
@@ -1024,9 +1109,9 @@ def kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "name": "local_agg_fwd", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_fwd.cu",
                 "replaces": REPLACES, "geometry": geometry,
-                "variant": route(la, "fwd", cs, xk, wt, kpad),
-                **main_route(cs), **launches,
+                "variant": variant, **main_route(cs, "fwd"), **launches,
                 "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
+                **extra, **ptxas_note(variant, "local_agg_fwd", wt, affine),
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
                 "bound_ms_at_copy_rate": nbytes / hbm_rate * 1e3,
@@ -1048,6 +1133,9 @@ def log_entry(e):
         f"({e['bound_by']}; {100 * e['bound_ms'] / e['ms']:.1f}% of it), "
         f"{e['bound_ms_at_copy_rate']:.4f} ms at the copy rate; "
         f"{e['launches']} launches in the main paths")
+    if "ptxas" in e:
+        log(f"  ptxas {e['name']} k7: {e['ptxas']}; general: "
+            f"{e['ptxas_general']}")
 
 
 def valid_taps(size_in, size_out, k, pad, dil) -> int:
@@ -1113,6 +1201,13 @@ def bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 ref = ref[..., kpad:kpad + hi, kpad:kpad + wi]
             max_err, rtol, atol = check_close(f"{geometry} {kernel}", got,
                                               ref, dt)
+            variant = route(la, kernel, cs, x, wt, kpad)
+            extra = {}
+            if variant == "k7":
+                extra = k7_checks(
+                    f"{geometry} {kernel}",
+                    lambda: la.local_aggregate_bwd_hopper(
+                        x, wt, dy, **geo, **need)[pick], got, ref, dt)
             ms = device_ms(lambda: la.local_aggregate_bwd_hopper(
                 x, wt, dy, **geo, **need))
             plain_ms = device_ms(lambda: la.local_aggregate_bwd_plain(
@@ -1128,9 +1223,10 @@ def bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "name": f"local_agg_bwd_{kernel}", "route": "cuda",
                 "source": "cotnet_tpu_torch/ops/csrc/local_agg_bwd.cu",
                 "replaces": REPLACES_BWD[kernel], "geometry": geometry,
-                "variant": route(la, kernel, cs, x, wt, kpad),
-                **main_route(cs), **launches, "max_abs_err": max_err,
-                "tol": {"rtol": rtol, "atol": atol},
+                "variant": variant, **main_route(cs, kernel), **launches,
+                "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
+                **extra,
+                **ptxas_note(variant, f"local_agg_bwd_{kernel}", wt, False),
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
                 "bound_ms_at_copy_rate": nbytes / hbm_rate * 1e3,
@@ -1218,9 +1314,15 @@ def affine_bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 xp, wt, s, b, dy, (k, k), (dil, dil), **need)
             extra = {}
             if kernel == "dx":
-                max_err, rtol, atol = check_close(
-                    f"{geometry} dx", got[0],
-                    ref[0][..., kpad:kpad + hi, kpad:kpad + wi], dt)
+                ref_dx = ref[0][..., kpad:kpad + hi, kpad:kpad + wi]
+                max_err, rtol, atol = check_close(f"{geometry} dx", got[0],
+                                                  ref_dx, dt)
+                if route(la, "dx", cs, x, wt, kpad) == "k7":
+                    extra = k7_checks(
+                        f"{geometry} dx",
+                        lambda: la.local_aggregate_bwd_affine_hopper(
+                            x, wt, s, b, dy, **geo, **need)[0], got[0],
+                        ref_dx, dt)
                 # reads w, dy, s and b, writes dx; per (channel, head,
                 # in-image tap) a multiply and an add, and w*s + b once per
                 # weight
@@ -4678,6 +4780,7 @@ def profile_step(fn, label: str, top: int = 12):
     agg = {name: sum(r[0] for r in rows
                      if f"{name}<" in r[2] or f"{name}(" in r[2])
            for name in ("local_agg_fwd", "local_agg_bwd_dx",
+                        *K7_FUNCTIONS,
                         "local_agg_bwd_dw", "local_agg_bwd_dw_affine",
                         "local_agg_bwd_dw_affine_sums",
                         *EMBED_GN_STATS, *EMBED_GN_AGG)}
@@ -4778,9 +4881,18 @@ def build_report(build):
             short = demangled.get(fn, fn).replace(
                 "(anonymous namespace)::", "").replace("void ", "").split(
                 "(")[0]
-            log(f"build {source}: {short}: "
-                + "; ".join(ptxas.get(fn, []))
-                + f"; {sass.get(fn, 'not measured')} SASS instructions")
+            line = "; ".join(ptxas.get(fn, []))
+            log(f"build {source}: {short}: {line}"
+                f"; {sass.get(fn, 'not measured')} SASS instructions")
+            if line:
+                PTXAS[short] = line
+    # the k7 instantiations keep every value in registers
+    spills = {fn: line for fn, line in PTXAS.items()
+              if fn.startswith(K7_FUNCTIONS)
+              and not re.search(r"\b0 bytes spill stores, 0 bytes spill "
+                                r"loads", line)}
+    if spills:
+        raise AssertionError(f"k7 kernels spill: {spills}")
 
 
 def main() -> int:

@@ -94,15 +94,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 // dw's tiles once for each of its halves (K = 3 and K = 5, compile-time),
 // and its dx stages both halves' dy of every head in one stage.
 //
-// Three routes, chosen before any launch from the geometry alone
+// Four routes, chosen before any launch from the geometry alone
 // (agg_route): ``k3``, the tiles with K = 3 at dilation 1 and column
-// padding 1 compile-time and unrolled (every main path); ``general``, the
-// tiles with runtime K <= kMaxK; and ``pointwise``, one thread per output
-// with no limit on K, width or dilation, for every geometry whose tiles do
-// not fit (K > kMaxK, a row of more than kMaxThreads items, a halo tile
-// beyond a block's shared memory, offsets beyond 32 bits).  The mix op's
-// dx and dw have two (mix_route, local_agg_mix.cu): ``tiles`` and
-// ``pointwise``.
+// padding 1 compile-time and unrolled (every CoT main path); ``k7``, the
+// forward and dx alone at K = 7, dilation 1, column padding 3 and one head
+// (SAN19's stages 1-4), on tiles of their own that hold every channel
+// group at once and walk the tap rows outermost (k7_tiles.cuh);
+// ``general``, the tiles with runtime K <= kMaxK; and ``pointwise``, one
+// thread per output with no limit on K, width or dilation, for every
+// geometry whose tiles do not fit (K > kMaxK, a row of more than
+// kMaxThreads items, a halo tile beyond a block's shared memory, offsets
+// beyond 32 bits).  The mix op's dx and dw have two (mix_route,
+// local_agg_mix.cu): ``tiles`` and ``pointwise``.
 
 namespace {
 
@@ -137,15 +140,16 @@ struct Tiling {
 // c + V - 1 + col_hi]; with ``own_rows`` a stage also holds the tile's R
 // rows of an out_h x out_w plane (dw's dy), q * V columns each, after the
 // halo tile.  ``unit``: the staging copy unit in bytes.  A stage holds
-// ``per_plane`` such regions a plane (the mix's dx: one a half and head).
-// False when no block can hold one row (a row wider than kMaxThreads
-// items, or its stages larger than a block's shared memory) or the grid is
-// too large.
+// ``per_plane`` such regions a plane (the mix's dx: one a half and head),
+// ``stages`` stages deep.  False when no block can hold one row (a row
+// wider than kMaxThreads items, or its stages larger than a block's shared
+// memory) or the grid is too large.
 inline bool plan_tiles(int64_t plane_count, int out_h, int out_w, int src_h,
                        int src_w, int halo, bool own_rows, int col_lo,
                        int col_hi, int elem, int vec, int items, int unit,
                        Tiling* t, unsigned* blocks, unsigned* threads,
-                       size_t* smem, int per_plane = 1) {
+                       size_t* smem, int per_plane = 1,
+                       int stages = kStages) {
   if (plane_count <= 0 || out_h <= 0 || out_w <= 0) return false;
   const int q = (out_w + vec - 1) / vec;
   if (q > kMaxThreads) return false;
@@ -165,7 +169,7 @@ inline bool plan_tiles(int64_t plane_count, int out_h, int out_w, int src_h,
   int64_t region;
   for (;;) {
     region = (rows * (own_rows ? 2 : 1) + int64_t(halo)) * stride * elem;
-    if (kStages * planes * int64_t(per_plane) * region <= kSmemAim ||
+    if (stages * planes * int64_t(per_plane) * region <= kSmemAim ||
         (planes == 1 && rows == 1))
       break;
     if (planes > 1) {
@@ -174,7 +178,7 @@ inline bool plan_tiles(int64_t plane_count, int out_h, int out_w, int src_h,
       rows = (rows + 1) / 2;
     }
   }
-  const int64_t bytes = kStages * planes * int64_t(per_plane) * region;
+  const int64_t bytes = stages * planes * int64_t(per_plane) * region;
   const int tiles = (out_h + rows - 1) / rows;
   const int64_t count = (plane_count + planes - 1) / planes * tiles;
   if (bytes > kMaxSmem - kStaticSmem || count > 0x7fffffff) return false;
@@ -210,6 +214,7 @@ constexpr int kRouteGeneral = 0;
 constexpr int kRoutePointwise = 1;
 constexpr int kRouteK3 = 3;
 constexpr int kRouteMixTiles = 4;  // the mix op's dx and dw
+constexpr int kRouteK7 = 7;        // the forward and dx at K = 7 (k7_tiles.cuh)
 
 // The embed aggregation's scratch, the shared memory after its stages:
 // byte offsets of its parts from the scratch's start, each 16-byte aligned.
@@ -301,13 +306,51 @@ inline bool plan_agg(AggKernel kernel, const Geometry& g, int elem, int vec,
   return true;
 }
 
+// The k7 tiling (k7_tiles.cuh) of the forward (``dx`` false: out Ho x Wo
+// over x's halo rows, a plane per (n, cw)) or dx (dx Hi x Wi over dy's,
+// a plane per (n, cw)) at K = 7, dilation 1, column padding 3 and one
+// head: plan_tiles' planes and row tiles with V = kK7Vec, one stage
+// holding all G = C/Cw channel groups, and the rows spread evenly over the
+// tiles (56 rows: 7 tiles of 8, not 6 of 9 and one of 2).  False where
+// the tiles do not take the geometry: more than kK7Groups groups, a block
+// of more than kK7Threads threads (a row wider than 4 * kK7Threads), or a
+// stage beyond a block's shared memory.
+constexpr int kK7Groups = 8;     // channel groups a k7 block holds, at most
+constexpr int kK7Threads = 128;  // threads of a k7 block, at most
+constexpr int kK7Vec = 4;        // positions of a k7 thread item
+
+inline bool plan_k7(bool dx, const Geometry& g, int elem, int unit,
+                    Tiling* t, unsigned* blocks, unsigned* threads,
+                    size_t* smem) {
+  const int groups = g.c / g.cw;
+  if (groups < 1 || groups > kK7Groups) return false;
+  const int out_h = dx ? g.hi : g.ho, out_w = dx ? g.wi : g.wo;
+  const int src_h = dx ? g.ho : g.hi, src_w = dx ? g.wo : g.wi;
+  int items = kK7Threads;
+  for (int pass = 0; pass < 2; ++pass) {
+    if (!plan_tiles(int64_t(g.n) * g.cw, out_h, out_w, src_h, src_w, 6,
+                    false, -3, 3, elem, kK7Vec, items, unit, t, blocks,
+                    threads, smem, groups, 1)) {
+      return false;
+    }
+    if (t->planes > 1 || t->tiles == 1) break;
+    items = (out_h + t->tiles - 1) / t->tiles * t->q;
+  }
+  return *threads <= unsigned(kK7Threads);
+}
+
 // The route a launch of ``kernel`` at geometry g with ``elem``-byte
 // elements takes: kRouteK3 for K = 3 at dilation 1 and column padding 1
-// (and, for dx, one head) when its tiles fit; kRouteGeneral for any K up
-// to kMaxK when its tiles fit; kRoutePointwise for every other geometry.
+// (and, for dx, one head) when its tiles fit; kRouteK7 for the forward and
+// dx at K = 7, dilation 1, column padding 3 and one head when the k7 tiles
+// take it (plan_k7); kRouteGeneral for any K up to kMaxK when its tiles
+// fit; kRoutePointwise for every other geometry.
 inline int agg_route(AggKernel kernel, const Geometry& g, int elem) {
   const bool k3 = g.kh == 3 && g.kw == 3 && g.dh == 1 && g.dw == 1 &&
                   g.pw == 1 && (kernel != kAggDx || g.heads == 1);
+  const bool k7 = (kernel == kAggFwd || kernel == kAggDx) && g.kh == 7 &&
+                  g.kw == 7 && g.dh == 1 && g.dw == 1 && g.pw == 3 &&
+                  g.heads == 1;
   const bool general = g.kh >= 1 && g.kw >= 1 && g.kh <= kMaxK &&
                        g.kw <= kMaxK && g.dh >= 1 && g.dw >= 1;
   // the tiled kernels' offsets within a plane (and within a weight
@@ -319,6 +362,10 @@ inline int agg_route(AggKernel kernel, const Geometry& g, int elem) {
   Tiling t;
   unsigned blocks, threads;
   size_t smem;
+  if (k7 && plan_k7(kernel == kAggDx, g, elem, 0, &t, &blocks, &threads,
+                    &smem)) {
+    return kRouteK7;
+  }
   if (!plan_agg(kernel, g, elem, k3 ? 4 : 1, 0, &t, &blocks, &threads,
                 &smem)) {
     return kRoutePointwise;

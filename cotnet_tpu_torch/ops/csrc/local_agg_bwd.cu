@@ -69,10 +69,19 @@
 //   allows.  At K = 3 a thread reads its V + 2 columns of a row in
 //   (V + 4) / 2 shared loads of two elements.
 // - Two instantiations, as the forward's: K = 3 at dilation 1, column
-//   padding 1 and one head, V = 4, compile-time and unrolled (every main
-//   path), and a general one (runtime K <= kMaxK, dilation, padding, heads;
-//   V = 1), which reads the weights of each head again for every channel
-//   group.
+//   padding 1 and one head, V = 4, compile-time and unrolled (every CoT
+//   main path), and a general one (runtime K <= kMaxK, dilation, padding,
+//   heads; V = 1), which reads the weights of each head again for every
+//   channel group.
+// - K = 7 at dilation 1, column padding 3, one head and at most 8 channel
+//   groups (SAN19's stages 1-4: the JAX package's _dx_kernel /
+//   _dx_gather_kernel and _dxdw_gather_kernel at those taps) takes a walk
+//   of its own, local_agg_bwd_dx_k7 (k7_tiles.cuh): every group's dy tile
+//   staged at once, the tap rows outermost, each row's 28 shifted weights
+//   read in aligned pieces of a 12-column window, 8 x 4 f32 accumulators a
+//   thread; __launch_bounds__(128, 4), at most 116 registers and no spills
+//   (ptxas, sm_90a), four blocks an SM, 12.5-44 KB of shared memory a
+//   block.
 // dw (the halo tiles of common.cuh, the walk in dw_tiles.cuh; the forward's
 // design with the roles of the weight and the output swapped, each byte of
 // x (per head), dy and dw read or written from HBM once):
@@ -127,6 +136,7 @@
 // do not.  Left for later: one launch that reads dy once for dx and dw.
 
 #include "dw_tiles.cuh"
+#include "k7_tiles.cuh"
 
 namespace {
 
@@ -333,6 +343,17 @@ __global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
       }
     }
   }
+}
+
+// The k7 route of dx (k7_tiles.cuh): K = 7 at dilation 1, column padding
+// 3 and one head; WA, the bytes of its weight pieces.  The forward's launch
+// bounds.
+template <typename T, bool AFFINE, int WA>
+__global__ void __launch_bounds__(kK7Threads, 4)
+    local_agg_bwd_dx_k7(const T* __restrict__ w, const float* __restrict__ s,
+                        const float* __restrict__ b, const T* __restrict__ dy,
+                        T* __restrict__ dx, Geometry g, Tiling t) {
+  dx_k7_tiles<T, AFFINE, WA>(w, s, b, dy, dx, g, t);
 }
 
 // The pointwise route of dx, for the geometries the tiles do not take.  w,
@@ -554,6 +575,31 @@ int launch_dx_variant(const void* w, const void* s, const void* b,
 }
 
 template <typename T, bool AFFINE>
+int launch_dx_k7(const void* w, const void* s, const void* b, const void* dy,
+                 void* dx, const Geometry& g, cudaStream_t stream) {
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_k7(true, g, int(sizeof(T)),
+               copy_unit(dy, int64_t(g.wo) * int(sizeof(T))), &t, &blocks,
+               &threads, &smem)) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  constexpr int E = int(sizeof(T));
+  const int wa = k7_weight_piece(w, g.wo, g.ho * g.wo, E);
+  const auto kernel = wa == 4 * E   ? local_agg_bwd_dx_k7<T, AFFINE, 4 * E>
+                      : wa == 2 * E ? local_agg_bwd_dx_k7<T, AFFINE, 2 * E>
+                                    : local_agg_bwd_dx_k7<T, AFFINE, E>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(w), static_cast<const float*>(s),
+      static_cast<const float*>(b), static_cast<const T*>(dy),
+      static_cast<T*>(dx), g, t);
+  return int(cudaGetLastError());
+}
+
+template <typename T, bool AFFINE>
 int launch_dx(const void* w, const void* s, const void* b, const void* dy,
               void* dx, const Geometry& g, cudaStream_t stream) {
   const int64_t total = int64_t(g.n) * g.c * g.hi * g.wi;
@@ -561,6 +607,8 @@ int launch_dx(const void* w, const void* s, const void* b, const void* dy,
   switch (agg_route(kAggDx, g, int(sizeof(T)))) {
     case kRouteK3:
       return launch_dx_variant<T, AFFINE, 3>(w, s, b, dy, dx, g, stream);
+    case kRouteK7:
+      return launch_dx_k7<T, AFFINE>(w, s, b, dy, dx, g, stream);
     case kRouteGeneral:
       return launch_dx_variant<T, AFFINE, 0>(w, s, b, dy, dx, g, stream);
     default: {
@@ -806,8 +854,9 @@ extern "C" long long local_agg_bwd_dw_affine_workspace(
 
 // The route a dx, dw or affine dw launch at this geometry runs, decided as
 // the launcher decides it: 3 (k3: K = 3, dilation 1, column padding 1; for
-// dx one head too), 0 (general: K up to kMaxK) or 1 (pointwise: every
-// geometry whose tiles do not fit).  dtype as above.
+// dx one head too), 7 (k7, dx alone: K = 7, dilation 1, column padding 3,
+// one head), 0 (general: K up to kMaxK) or 1 (pointwise: every geometry
+// whose tiles do not fit).  dtype as above.
 extern "C" int local_agg_bwd_dx_variant(int dtype, int n, int c, int hi,
                                         int wi, int heads, int cw, int kh,
                                         int kw, int ho, int wo, int ph,

@@ -51,9 +51,16 @@
 // - Index arithmetic is done once per block and thread, in 32 bits (the
 //   launcher checks the sizes).
 // Two instantiations: K = 3 at dilation 1 and column padding 1, compile-
-// time and fully unrolled (every main path), V = 4, at most 64 registers;
-// and a general one, runtime K <= kMaxK, dilation, padding and heads, V =
-// 1, its 7x7 taps unrolled under runtime guards.  A geometry whose tiles do
+// time and fully unrolled (every CoT main path), V = 4, at most 64
+// registers; and a general one, runtime K <= kMaxK, dilation, padding and
+// heads, V = 1, its 7x7 taps unrolled under runtime guards.  K = 7 at
+// dilation 1, column padding 3, one head and at most 8 channel groups
+// (SAN19's stages 1-4, which the JAX package sends to _fwd_kernel :447
+// through pallas_plan) takes a walk of its own, local_agg_fwd_k7
+// (k7_tiles.cuh): every group of a plane staged at once, the tap rows
+// outermost, 8 x 4 f32 accumulators a thread; __launch_bounds__(128, 4),
+// at most 116 registers and no spills (ptxas, sm_90a), four blocks an
+// SM, 12.5-44 KB of shared memory a block (15.75 KB at 56x56 bf16).  A geometry whose tiles do
 // not fit (K > kMaxK, a row of more than kMaxThreads items, a halo tile
 // beyond shared memory) takes a third route, local_agg_fwd_pointwise: one
 // thread per output, wo fastest, its taps read through L1/L2, with no
@@ -62,6 +69,7 @@
 // that kernel.
 
 #include "fwd_tiles.cuh"
+#include "k7_tiles.cuh"
 
 namespace {
 
@@ -117,6 +125,17 @@ __global__ void __launch_bounds__(kMaxThreads, KC == 3 ? 2 : 1)
                   const float* __restrict__ s, const float* __restrict__ b,
                   T* __restrict__ out, Geometry g, Tiling t) {
   fwd_tiles<T, KC>(x, out, g, t, LoadedWeights<T, AFFINE, KC>{w, s, b});
+}
+
+// The k7 route (k7_tiles.cuh): K = 7 at dilation 1, column padding 3 and
+// one head; WA, the bytes of its weight pieces.  At most kK7Threads threads
+// a block and four blocks an SM: at most 128 registers a thread.
+template <typename T, bool AFFINE, int WA>
+__global__ void __launch_bounds__(kK7Threads, 4)
+    local_agg_fwd_k7(const T* __restrict__ x, const T* __restrict__ w,
+                     const float* __restrict__ s, const float* __restrict__ b,
+                     T* __restrict__ out, Geometry g, Tiling t) {
+  fwd_k7_tiles<T, AFFINE, WA>(x, w, s, b, out, g, t);
 }
 
 // The pointwise route, for the geometries the tiles do not take.  x, w, s,
@@ -202,6 +221,31 @@ int launch(const void* x, const void* w, const void* s, const void* b,
   return int(cudaGetLastError());
 }
 
+template <typename T, bool AFFINE>
+int launch_k7(const void* x, const void* w, const void* s, const void* b,
+              void* out, const Geometry& g, cudaStream_t stream) {
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_k7(false, g, int(sizeof(T)),
+               copy_unit(x, int64_t(g.wi) * int(sizeof(T))), &t, &blocks,
+               &threads, &smem)) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  constexpr int E = int(sizeof(T));
+  const int wa = k7_weight_piece(w, g.wo, g.ho * g.wo, E);
+  const auto kernel = wa == 4 * E   ? local_agg_fwd_k7<T, AFFINE, 4 * E>
+                      : wa == 2 * E ? local_agg_fwd_k7<T, AFFINE, 2 * E>
+                                    : local_agg_fwd_k7<T, AFFINE, E>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const float*>(s), static_cast<const float*>(b),
+      static_cast<T*>(out), g, t);
+  return int(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch(int affine, const void* x, const void* w, const void* s,
              const void* b, void* out, const Geometry& g,
@@ -213,6 +257,9 @@ int dispatch(int affine, const void* x, const void* w, const void* s,
     case kRouteK3:
       return affine ? launch<T, true, 3>(x, w, s, b, out, g, stream)
                     : launch<T, false, 3>(x, w, s, b, out, g, stream);
+    case kRouteK7:
+      return affine ? launch_k7<T, true>(x, w, s, b, out, g, stream)
+                    : launch_k7<T, false>(x, w, s, b, out, g, stream);
     case kRouteGeneral:
       return affine ? launch<T, true, 0>(x, w, s, b, out, g, stream)
                     : launch<T, false, 0>(x, w, s, b, out, g, stream);
@@ -247,8 +294,9 @@ extern "C" int local_agg_fwd_launch(int dtype, int affine, const void* x,
 }
 
 // The route a launch at this geometry runs, decided as the launcher decides
-// it: 3 (k3: K = 3, dilation 1, column padding 1), 0 (general: K up to
-// kMaxK) or 1 (pointwise: every geometry whose tiles do not fit).
+// it: 3 (k3: K = 3, dilation 1, column padding 1), 7 (k7: K = 7, dilation
+// 1, column padding 3, one head), 0 (general: K up to kMaxK) or 1
+// (pointwise: every geometry whose tiles do not fit).
 extern "C" int local_agg_fwd_variant(int dtype, int n, int c, int hi, int wi,
                                      int heads, int cw, int kh, int kw,
                                      int ho, int wo, int ph, int pw, int dh,

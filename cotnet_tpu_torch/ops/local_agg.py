@@ -33,7 +33,10 @@ Two implementations compute the function and its gradients:
   which the launcher picks from the geometry before it launches and
   ``kernel_route`` reports: ``k3`` and ``general``, halo tiles in shared
   memory (K = 3 at dilation 1 unrolled; any K up to 7), and ``pointwise``,
-  one thread per output, for every geometry whose tiles do not fit.
+  one thread per output, for every geometry whose tiles do not fit.  The
+  forward and dx have a fourth, ``k7``: K = 7 at dilation 1, column padding
+  3 and one head with at most 8 channel groups (SAN19's), on tiles that
+  hold every group at once (``csrc/k7_tiles.cuh``).
 
 ``local_aggregate`` is differentiable in x and w and, with the GroupNorm
 fold, in ``w_scale`` and ``w_bias`` (once: there is no double backward).
@@ -466,7 +469,7 @@ def embed_gn_statistics(x, w_pre, w2, b2, *, kernel_size, dilation, padding,
 # the route of a forward, dx, dw or affine dw launch (and "tiles" of the
 # mix's forward, dx or dw), by the code its library's *_variant function
 # returns for the geometry
-ROUTES = {3: "k3", 0: "general", 1: "pointwise", 4: "tiles"}
+ROUTES = {3: "k3", 7: "k7", 0: "general", 1: "pointwise", 4: "tiles"}
 _ROUTE_FUNCTIONS = {
     "fwd": (_LIB_NAME, "local_agg_fwd_variant"),
     "dx": (_BWD_LIB_NAME, "local_agg_bwd_dx_variant"),
@@ -477,12 +480,13 @@ _ROUTE_FUNCTIONS = {
 
 def kernel_route(kernel: str, x, w, *, kernel_size, dilation,
                  padding) -> str:
-    """The route (``"k3"``, ``"general"`` or ``"pointwise"``) that a launch
-    of ``kernel`` takes for x ``[N, C, Hi, Wi]`` and w ``[N, heads, Cw, K2,
-    Ho, Wo]`` in x's dtype, as the kernel's launcher decides it from the
-    geometry before it launches: ``"fwd"`` and ``"dx"`` with the affine or
-    without, ``"dw"`` without it, ``"dw_affine"`` (dw, ds and db) with it.
-    Builds the kernel's library."""
+    """The route (``"k3"``, ``"k7"``, ``"general"`` or ``"pointwise"``)
+    that a launch of ``kernel`` takes for x ``[N, C, Hi, Wi]`` and w
+    ``[N, heads, Cw, K2, Ho, Wo]`` in x's dtype, as the kernel's launcher
+    decides it from the geometry before it launches: ``"fwd"`` and ``"dx"``
+    with the affine or without (``"k7"`` is theirs alone), ``"dw"`` without
+    it, ``"dw_affine"`` (dw, ds and db) with it.  Builds the kernel's
+    library."""
     lib, name = _ROUTE_FUNCTIONS[kernel]
     fn = _c_function(lib, name, [ctypes.c_int] * 15)
     n, c, hi, wi = x.shape

@@ -428,11 +428,13 @@ def test_fwd_dx_tiling_edges_match_plain_on_card(edge, dtype, affine):
     assert la.LAUNCHES == 1
     assert (la.AFFINE_BWD_LAUNCHES if affine else la.BWD_LAUNCHES)["dx"] == 1
     assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
-    heads = geometry[5]
+    c, cw, heads = geometry[1], geometry[2], geometry[5]
+    # K = 7 at dilation 1, one head and at most 8 groups: the k7 tiles
+    k7 = (k, dil, heads) == (7, 1, 1) and c // cw <= 8
     assert la.kernel_route("fwd", x, wt, **geo) == (
-        "k3" if (k, dil) == (3, 1) else "general")
+        "k3" if (k, dil) == (3, 1) else "k7" if k7 else "general")
     assert la.kernel_route("dx", x, wt, **geo) == (
-        "k3" if (k, dil, heads) == (3, 1, 1) else "general")
+        "k3" if (k, dil, heads) == (3, 1, 1) else "k7" if k7 else "general")
     xp = torch.nn.functional.pad(x, (pad,) * 4)
     ref = la.local_aggregate_plain(xp, wt, (k, k), (1, 1), (dil, dil), s, b)
     torch.testing.assert_close(out.float(), ref.float(),
@@ -1399,10 +1401,10 @@ def test_ema_evaler_on_card():
 # of Cw = 8 weight channels, zero pad 3
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_san_k7_general_route_matches_plain_on_card(dtype):
-    """The forward, dx and dw at SAN19's stage-1 geometry take the
-    ``general`` route (halo tiles for K up to 7) and match the plain
-    version: f32 at 1e-5, bf16 within one ulp of the reference's
-    largest."""
+    """At SAN19's stage-1 geometry the forward and dx take the ``k7`` route
+    (their K = 7 tiles) and dw the ``general`` one (halo tiles for K up to
+    7); all three match the plain version: f32 at 1e-5, bf16 within one
+    ulp of the reference's largest."""
     _need_cuda()
     gen = torch.Generator("cuda").manual_seed(17)
     n, c, cw, k, hw = 4, 64, 8, 7, 56
@@ -1411,8 +1413,8 @@ def test_san_k7_general_route_matches_plain_on_card(dtype):
                     generator=gen).to(dtype)
     dy = torch.randn(n, c, hw, hw, device="cuda", generator=gen).to(dtype)
     geo = dict(kernel_size=(k, k), dilation=(1, 1), padding=(3, 3))
-    for kernel in ("fwd", "dx", "dw"):
-        assert la.kernel_route(kernel, x, w, **geo) == "general", kernel
+    for kernel, want in (("fwd", "k7"), ("dx", "k7"), ("dw", "general")):
+        assert la.kernel_route(kernel, x, w, **geo) == want, kernel
     la.reset_counts()
     got = la.local_aggregate(x, w, kernel_size=k, padding=3, impl="hopper")
     dx, dw = la.local_aggregate_bwd_hopper(x, w, dy, **geo)
@@ -1426,6 +1428,72 @@ def test_san_k7_general_route_matches_plain_on_card(dtype):
         tol = 1e-5 if dtype == torch.float32 else 8e-3
         err = float((g.float() - r.float()).abs().max())
         assert err <= tol * scale, (name, err, scale)
+
+
+# (N, C, Cw, H, W) at K = 7, dilation 1, zero pad 3 and one head: the edges
+# of the k7 tiles (an odd map whose width is no multiple of a thread's four
+# positions; Cw = 5; N = 1 at SAN19's stage-1 map; two groups on a map
+# smaller than a tile) and 16 channel groups, which they refuse (general)
+K7_EDGES = {
+    "13x11": (2, 64, 8, 13, 11),
+    "17x23_cw5": (3, 40, 5, 17, 23),
+    "n1_56x56": (1, 64, 8, 56, 56),
+    "5x5_g2": (2, 16, 8, 5, 5),
+    "g16_refused": (2, 64, 4, 14, 14),
+}
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("edge", sorted(K7_EDGES))
+def test_k7_edges_match_plain_on_card(edge, dtype, affine):
+    """The k7 forward and dx (with and without the affine) at the edges of
+    their tiles: the route (``general`` where they refuse, and for dw
+    always), two launches each that give the same bits and no plain call,
+    and the plain version: f32 within 1e-5 of the reference's largest,
+    bf16 within one ulp of it."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    n, c, cw, h, w = K7_EDGES[edge]
+    x, wt, s, b, dy = _edge_tensors((n, c, cw, h, w, 1, 7, 1), dt, affine,
+                                    seed=len(edge) + 7)
+    geo = dict(kernel_size=(7, 7), dilation=(1, 1), padding=(3, 3))
+    want = "k7" if c // cw <= 8 else "general"
+    for kernel in ("fwd", "dx"):
+        assert la.kernel_route(kernel, x, wt, **geo) == want, kernel
+    assert la.kernel_route("dw", x, wt, **geo) == "general"
+    la.reset_counts()
+    outs, dxs = [], []
+    for _ in range(2):
+        outs.append(la.local_aggregate_hopper(x, wt, s, b, **geo))
+        if affine:
+            dxs.append(la.local_aggregate_bwd_affine_hopper(
+                x, wt, s, b, dy, **geo, need_dw=False)[0])
+        else:
+            dxs.append(la.local_aggregate_bwd_hopper(x, wt, dy, **geo,
+                                                     need_dw=False)[0])
+    torch.cuda.synchronize()
+    assert la.LAUNCHES == 2
+    assert (la.AFFINE_BWD_LAUNCHES if affine else la.BWD_LAUNCHES)["dx"] == 2
+    assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(dxs[0], dxs[1])
+    xp = torch.nn.functional.pad(x, (3,) * 4)
+    ref = la.local_aggregate_plain(xp, wt, (7, 7), (1, 1), (1, 1), s, b)
+    if affine:
+        ref_dx = la.local_aggregate_bwd_affine_plain(
+            xp, wt, s, b, dy, (7, 7), (1, 1), need_dw=False)[0]
+    else:
+        ref_dx = la.local_aggregate_bwd_plain(xp, wt, dy, (7, 7), (1, 1),
+                                              need_dw=False)[0]
+    ref_dx = ref_dx[..., 3:3 + h, 3:3 + w]
+    for name, got, want_t in (("fwd", outs[0], ref), ("dx", dxs[0], ref_dx)):
+        if dt == torch.float32:
+            err = float((got - want_t).abs().max())
+            assert err <= 1e-5 * float(want_t.abs().max()), (name, err)
+        else:
+            torch.testing.assert_close(
+                got.float(), want_t.float(),
+                **dict(zip(("rtol", "atol"), _tolerance(dt, want_t))))
 
 
 def test_reflect_pad_beyond_the_map_on_card():
