@@ -159,11 +159,12 @@ printing the last line:
    the route its launcher took (``variant``: ``k3``, ``k7``, ``general``
    or ``pointwise``; the geometries beyond the tiles must take
    ``pointwise``, every main path ``k3`` but san19's K = 7 launches, whose
-   forward and dx must take ``k7`` and dw ``general``,
-   ``GEOMETRY_ROUTE``); the ``k7`` forward and dx also at san19's four
-   K = 7 maps in f32 (N=32) and at the edges of their tiles (13x11 and
-   17x23 in bf16 and f32, N=1 at 56x56, a 5x5 map with two groups, and 16
-   groups, which the k7 tiles refuse and which must take ``general``),
+   forward, dx and dw must take ``k7`` (the affine dw, on no path there,
+   ``general``), ``GEOMETRY_ROUTE``); the ``k7`` forward, dx and dw also
+   at san19's four K = 7 maps in f32 (N=32) and at the edges of their
+   tiles (13x11 and 17x23 in bf16 and f32, N=1 at 56x56, a 5x5 map with
+   two groups, and 16 groups, which the k7 tiles refuse and which must
+   take ``general``),
    each ``k7`` launch made twice for the same bits, f32 within 1e-5 of the
    largest, with the ptxas registers and spills of the ``k7`` and
    ``general`` instantiations beside their times (no ``k7`` spill
@@ -387,16 +388,17 @@ MODELS = {
 # their paths
 UNFOLDED_MODELS = ("san19", "lrnet50")
 # the route of each kernel at K = 7, dilation 1, zero pad 3, one head and
-# at most 8 channel groups: the forward and dx on their k7 tiles, dw and
-# the affine dw on the general route
-K7_ROUTES = {"fwd": "k7", "dx": "k7", "dw": "general", "dw_affine": "general"}
+# at most 8 channel groups: the forward, dx and dw on their k7 tiles, the
+# affine dw (on no model's path there) on the general route
+K7_ROUTES = {"fwd": "k7", "dx": "k7", "dw": "k7", "dw_affine": "general"}
 # the route every main-path launch of the forward, dx and dw takes at a
 # geometry (C, map, K) where it is not k3: SAN19's K = 7 aggregations
 GEOMETRY_ROUTE = {(c, hw, 7): K7_ROUTES for c, hw, _, *k in SAN19_GEOMETRIES
                   if k == [7]}
 # the kernel functions of the k7 route, as the build report and the
 # profiler name them
-K7_FUNCTIONS = ("local_agg_fwd_k7", "local_agg_bwd_dx_k7")
+K7_FUNCTIONS = ("local_agg_fwd_k7", "local_agg_bwd_dx_k7",
+                "local_agg_bwd_dw_k7")
 # what build_report read from ptxas: kernel function -> its line
 PTXAS: dict = {}
 # phase 13, the other comparison families: image size, and no op on their
@@ -811,10 +813,10 @@ def kernel_cases() -> list:
         cases.append(dict(n=4, c=32, h=13, w=11, heads=2, cw=8, k=k, dil=2,
                           pad_mode="zeros", dtype=torch.float32,
                           route="general"))
-    # the k7 forward and dx: SAN19's four K = 7 maps in f32, then the edges
-    # of their tiles (an odd map whose width is no multiple of the four
-    # positions of a thread, in both dtypes; N = 1; two groups on a map
-    # smaller than a tile) and 16 groups, which they refuse (general)
+    # the k7 forward, dx and dw: SAN19's four K = 7 maps in f32, then the
+    # edges of their tiles (an odd map whose width is no multiple of the
+    # four positions of a thread, in both dtypes; N = 1; two groups on a
+    # map smaller than a tile) and 16 groups, which they refuse (general)
     for c, hw, _, *k in SAN19_GEOMETRIES:
         if k == [7]:
             cases.append(dict(n=32, c=c, h=hw, w=hw, heads=1, cw=c // 8,
@@ -910,10 +912,11 @@ PTXAS_TYPES = {torch.float32: "float", torch.float16: "__half",
 
 def ptxas_note(variant: str, name: str, w, affine: bool) -> dict:
     """The build report's ptxas lines, where build_report read them, for
-    the k7 instantiation that a launch on weight ``w`` runs (its weight
-    pieces: the widest of 4, 2 or 1 elements that w's address, a row and
-    a tap plane are multiples of, as the launcher picks them) and for the
-    general one of the same dtype and affine."""
+    the k7 instantiation that a launch on weight ``w`` runs (for dw, ``w``
+    is dw: its pieces are the widest of 4, 2 or 1 elements that w's
+    address, a row and a tap plane are multiples of, as the launcher picks
+    them) and for the general one of the same dtype and affine (dw's
+    instantiations have no affine argument)."""
     if variant != "k7":
         return {}
     elem, (ho, wo) = w.element_size(), w.shape[-2:]
@@ -921,7 +924,9 @@ def ptxas_note(variant: str, name: str, w, affine: bool) -> dict:
     while piece > elem and (w.data_ptr() % piece or wo * elem % piece
                             or ho * wo * elem % piece):
         piece //= 2
-    args = f"{PTXAS_TYPES[w.dtype]}, {str(affine).lower()}"
+    args = PTXAS_TYPES[w.dtype]
+    if not name.endswith("_dw"):
+        args += f", {str(affine).lower()}"
     return {"ptxas": PTXAS.get(f"{name}_k7<{args}, {piece}>", "not measured"),
             "ptxas_general": PTXAS.get(f"{name}<{args}, 0>", "not measured")}
 
@@ -1226,7 +1231,8 @@ def bwd_kernel_phase(la, hbm_rate: float, paths: PathCounts) -> list:
                 "variant": variant, **main_route(cs, kernel), **launches,
                 "max_abs_err": max_err, "tol": {"rtol": rtol, "atol": atol},
                 **extra,
-                **ptxas_note(variant, f"local_agg_bwd_{kernel}", wt, False),
+                **ptxas_note(variant, f"local_agg_bwd_{kernel}",
+                             wt if kernel == "dx" else got, False),
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
                 "bound_ms_at_copy_rate": nbytes / hbm_rate * 1e3,
@@ -4965,8 +4971,9 @@ def main() -> int:
             f"the main paths made {launched} launches, the kernel phase "
             f"accounts for {sum(e['launches'] for e in entries)}")
     # every main path runs the K = 3 route of the forward, dx and dw but at
-    # the geometries GEOMETRY_ROUTE names (SAN19's K = 7 on general), the
-    # mix path the tiles route of the mix's forward, dx and dw
+    # the geometries GEOMETRY_ROUTE names (SAN19's K = 7: the forward, dx
+    # and dw on k7), the mix path the tiles route of the mix's forward, dx
+    # and dw
     off_route = sorted({f"{e['name']} ({e['variant']}, want "
                         f"{expected_route(e)}) {e['geometry']}"
                         for e in entries

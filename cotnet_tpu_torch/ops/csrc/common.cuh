@@ -97,9 +97,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Four routes, chosen before any launch from the geometry alone
 // (agg_route): ``k3``, the tiles with K = 3 at dilation 1 and column
 // padding 1 compile-time and unrolled (every CoT main path); ``k7``, the
-// forward and dx alone at K = 7, dilation 1, column padding 3 and one head
-// (SAN19's stages 1-4), on tiles of their own that hold every channel
-// group at once and walk the tap rows outermost (k7_tiles.cuh);
+// forward, dx and dw (not the affine dw) at K = 7, dilation 1, column
+// padding 3 and one head (SAN19's stages 1-4), on tiles of their own that
+// hold every channel group at once and walk the tap rows outermost
+// (k7_tiles.cuh);
 // ``general``, the tiles with runtime K <= kMaxK; and ``pointwise``, one
 // thread per output with no limit on K, width or dilation, for every
 // geometry whose tiles do not fit (K > kMaxK, a row of more than
@@ -214,7 +215,7 @@ constexpr int kRouteGeneral = 0;
 constexpr int kRoutePointwise = 1;
 constexpr int kRouteK3 = 3;
 constexpr int kRouteMixTiles = 4;  // the mix op's dx and dw
-constexpr int kRouteK7 = 7;        // the forward and dx at K = 7 (k7_tiles.cuh)
+constexpr int kRouteK7 = 7;  // the forward, dx and dw at K = 7 (k7_tiles.cuh)
 
 // The embed aggregation's scratch, the shared memory after its stages:
 // byte offsets of its parts from the scratch's start, each 16-byte aligned.
@@ -306,31 +307,33 @@ inline bool plan_agg(AggKernel kernel, const Geometry& g, int elem, int vec,
   return true;
 }
 
-// The k7 tiling (k7_tiles.cuh) of the forward (``dx`` false: out Ho x Wo
-// over x's halo rows, a plane per (n, cw)) or dx (dx Hi x Wi over dy's,
-// a plane per (n, cw)) at K = 7, dilation 1, column padding 3 and one
-// head: plan_tiles' planes and row tiles with V = kK7Vec, one stage
-// holding all G = C/Cw channel groups, and the rows spread evenly over the
-// tiles (56 rows: 7 tiles of 8, not 6 of 9 and one of 2).  False where
-// the tiles do not take the geometry: more than kK7Groups groups, a block
-// of more than kK7Threads threads (a row wider than 4 * kK7Threads), or a
-// stage beyond a block's shared memory.
+// The k7 tiling (k7_tiles.cuh) of the forward (out Ho x Wo over x's halo
+// rows), dx (dx Hi x Wi over dy's) or dw (dw Ho x Wo over x's halo rows,
+// a stage holding dy's rows of the tile besides), a plane per (n, cw), at
+// K = 7, dilation 1, column padding 3 and one head: plan_tiles' planes and
+// row tiles with V = kK7Vec, one stage holding all G = C/Cw channel
+// groups, and the rows spread evenly over the tiles (56 rows: 7 tiles of
+// 8, not 6 of 9 and one of 2).  False where the tiles do not take the
+// geometry: more than kK7Groups groups, a block of more than kK7Threads
+// threads (a row wider than 4 * kK7Threads), or a stage beyond a block's
+// shared memory.
 constexpr int kK7Groups = 8;     // channel groups a k7 block holds, at most
 constexpr int kK7Threads = 128;  // threads of a k7 block, at most
 constexpr int kK7Vec = 4;        // positions of a k7 thread item
 
-inline bool plan_k7(bool dx, const Geometry& g, int elem, int unit,
+inline bool plan_k7(AggKernel kernel, const Geometry& g, int elem, int unit,
                     Tiling* t, unsigned* blocks, unsigned* threads,
                     size_t* smem) {
   const int groups = g.c / g.cw;
   if (groups < 1 || groups > kK7Groups) return false;
+  const bool dx = kernel == kAggDx;
   const int out_h = dx ? g.hi : g.ho, out_w = dx ? g.wi : g.wo;
   const int src_h = dx ? g.ho : g.hi, src_w = dx ? g.wo : g.wi;
   int items = kK7Threads;
   for (int pass = 0; pass < 2; ++pass) {
     if (!plan_tiles(int64_t(g.n) * g.cw, out_h, out_w, src_h, src_w, 6,
-                    false, -3, 3, elem, kK7Vec, items, unit, t, blocks,
-                    threads, smem, groups, 1)) {
+                    kernel == kAggDw, -3, 3, elem, kK7Vec, items, unit, t,
+                    blocks, threads, smem, groups, 1)) {
       return false;
     }
     if (t->planes > 1 || t->tiles == 1) break;
@@ -341,14 +344,15 @@ inline bool plan_k7(bool dx, const Geometry& g, int elem, int unit,
 
 // The route a launch of ``kernel`` at geometry g with ``elem``-byte
 // elements takes: kRouteK3 for K = 3 at dilation 1 and column padding 1
-// (and, for dx, one head) when its tiles fit; kRouteK7 for the forward and
-// dx at K = 7, dilation 1, column padding 3 and one head when the k7 tiles
-// take it (plan_k7); kRouteGeneral for any K up to kMaxK when its tiles
-// fit; kRoutePointwise for every other geometry.
+// (and, for dx, one head) when its tiles fit; kRouteK7 for the forward,
+// dx and dw at K = 7, dilation 1, column padding 3 and one head when the
+// k7 tiles take it (plan_k7); kRouteGeneral for any K up to kMaxK when its
+// tiles fit; kRoutePointwise for every other geometry.
 inline int agg_route(AggKernel kernel, const Geometry& g, int elem) {
   const bool k3 = g.kh == 3 && g.kw == 3 && g.dh == 1 && g.dw == 1 &&
                   g.pw == 1 && (kernel != kAggDx || g.heads == 1);
-  const bool k7 = (kernel == kAggFwd || kernel == kAggDx) && g.kh == 7 &&
+  const bool k7 = (kernel == kAggFwd || kernel == kAggDx ||
+                   kernel == kAggDw) && g.kh == 7 &&
                   g.kw == 7 && g.dh == 1 && g.dw == 1 && g.pw == 3 &&
                   g.heads == 1;
   const bool general = g.kh >= 1 && g.kw >= 1 && g.kh <= kMaxK &&
@@ -362,8 +366,7 @@ inline int agg_route(AggKernel kernel, const Geometry& g, int elem) {
   Tiling t;
   unsigned blocks, threads;
   size_t smem;
-  if (k7 && plan_k7(kernel == kAggDx, g, elem, 0, &t, &blocks, &threads,
-                    &smem)) {
+  if (k7 && plan_k7(kernel, g, elem, 0, &t, &blocks, &threads, &smem)) {
     return kRouteK7;
   }
   if (!plan_agg(kernel, g, elem, k3 ? 4 : 1, 0, &t, &blocks, &threads,

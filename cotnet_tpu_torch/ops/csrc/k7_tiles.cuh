@@ -1,7 +1,9 @@
 // The K = 7 halo tiles, the ``k7`` route (common.cuh, plan_k7): the walks
-// of the forward (local_agg_fwd.cu) and of dx (local_agg_bwd.cu) at K = 7,
-// dilation 1, column padding 3 and one head, SAN19's aggregations in its
-// stages 1-4 (Cw = C/8: G = 8 channel groups share a plane's weights).
+// of the forward (local_agg_fwd.cu) and of dx and dw (local_agg_bwd.cu) at
+// K = 7, dilation 1, column padding 3 and one head, SAN19's aggregations
+// in its stages 1-4 (Cw = C/8: G = 8 channel groups share a plane's
+// weights).  The forward and dx first; dw's walk, which turns the roles
+// of the weight and the output round, is described where it is defined.
 //
 // What held the general instantiation back there (V = 1, runtime K): one
 // dependent chain of 49 FMAs a thread and channel, one shared load of one
@@ -178,27 +180,132 @@ __device__ __forceinline__ void dx_k7_weights(float (&wr)[kK7][kK7Vec],
   }
 }
 
-// The tile's staged source, common to both walks: source rows [lo, hi) of
+// Piece c of WA bytes of v (E = WA / sizeof(T) elements from v[E*c]),
+// rounded to T, to p + c * E; nothing where ``store`` is false.
+template <typename T, int WA, int N>
+__device__ __forceinline__ void store_piece(T* __restrict__ p, int c,
+                                            bool store, const float (&v)[N]) {
+  using R = typename Raw<WA>::type;
+  constexpr int E = WA / int(sizeof(T));
+  if (!store) return;
+  R raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < E; ++k) e[k] = from_f32<T>(v[c * E + k]);
+  *reinterpret_cast<R*>(p + c * E) = raw;
+}
+
+// A second source of a stage, after the first's halo tile (dw's dy rows):
+// rows [lo, hi) of src's planes, a group ``step`` elements from the one
+// before, each of ``width`` elements, staged row 0 being source row lo at
+// staged row t.staged, with no zero columns before them, copied in units
+// of ``unit`` bytes.
+template <typename T>
+struct K7Rows {
+  const T* const* src;
+  int64_t step;
+  int lo, hi, width, unit;
+};
+
+// The tile's staged source, common to the walks: source rows [lo, hi) of
 // the image, staged row 0 being source row ``first``, all G groups of the
 // block's planes; src[p] is plane p's group-0 source (null past the last
-// plane), a group ``step`` elements from the one before.  Zeros first,
-// then one cp.async group, committed.
+// plane), a group ``step`` elements from the one before; then, in each
+// group's stage, ``more``'s rows where it is given.  Zeros first, then one
+// cp.async group, committed.
 template <typename T>
-__device__ __forceinline__ void stage_all_groups(char* stages,
-                                                 const Tiling& t,
-                                                 const T* const* src,
-                                                 int groups, int64_t step,
-                                                 int lo, int hi, int first,
-                                                 int width) {
+__device__ __forceinline__ void stage_all_groups(
+    char* stages, const Tiling& t, const T* const* src, int groups,
+    int64_t step, int lo, int hi, int first, int width,
+    const K7Rows<T>* more = nullptr) {
   const int stage_bytes = t.planes * t.region;
   zero_stages(stages, groups * stage_bytes);
   __syncthreads();  // src[], the zeros
 #pragma unroll 1
   for (int gg = 0; gg < groups; ++gg) {
-    stage_rows(stages + gg * stage_bytes, t, src, gg * step, lo, hi, first,
-               width);
+    char* buf = stages + gg * stage_bytes;
+    stage_rows(buf, t, src, gg * step, lo, hi, first, width);
+    if (more != nullptr) {
+      Tiling tm = t;
+      tm.pl = 0;
+      tm.unit = more->unit;
+      stage_rows(buf + t.staged * t.stride * int(sizeof(T)), tm, more->src,
+                 gg * more->step, more->lo, more->hi, more->lo, more->width);
+    }
   }
   cp_async_commit();
+}
+
+// A block of the walks: planes plane0 .. plane0 + t.planes - 1 of the
+// planes (n, cw), rows r0 .. r0 + t.rows - 1 of what it writes.
+struct K7Block {
+  int plane0, planes, r0;
+};
+
+__device__ __forceinline__ K7Block k7_block(const Geometry& g,
+                                            const Tiling& t) {
+  const int tile = blockIdx.x % t.tiles;
+  // planes < 2^31: checked at launch
+  return {int(blockIdx.x / t.tiles) * t.planes, g.n * g.cw, tile * t.rows};
+}
+
+// src[p]: the group-0 channel of the block's plane p in ``base``, a
+// tensor [N, C, hw] (null past the last plane); the same in base2 (hw2
+// elements a channel) into src2 where it is given.
+template <typename T>
+__device__ __forceinline__ void k7_sources(const Geometry& g,
+                                           const K7Block& b,
+                                           const Tiling& t, const T** src,
+                                           const T* base, int hw,
+                                           const T** src2 = nullptr,
+                                           const T* base2 = nullptr,
+                                           int hw2 = 0) {
+  if (threadIdx.x < t.planes) {
+    const int plane = b.plane0 + threadIdx.x;
+    const T* sp = nullptr;
+    const T* sp2 = nullptr;
+    if (plane < b.planes) {
+      const int n = plane / g.cw;
+      const int64_t ch = int64_t(n) * g.c + (plane - n * g.cw);
+      sp = base + ch * hw;
+      if (src2 != nullptr) sp2 = base2 + ch * hw2;
+    }
+    src[threadIdx.x] = sp;
+    if (src2 != nullptr) src2[threadIdx.x] = sp2;
+  }
+}
+
+// A thread's item: plane p of the block (``plane``), row r0 + ``row`` of a
+// rows x cols output, its nv <= kK7Vec positions from column col0;
+// ``active`` where it has any.
+struct K7Item {
+  int p, row, col0, plane, nv;
+  bool active;
+};
+
+__device__ __forceinline__ K7Item k7_item(const K7Block& b, const Tiling& t,
+                                          int rows, int cols) {
+  const int items = t.rows * t.q;
+  const int p = threadIdx.x / items;
+  const int rem = threadIdx.x - p * items;
+  const int row = rem / t.q;
+  const int col0 = (rem - row * t.q) * kK7Vec;
+  const int plane = b.plane0 + p;
+  return {p, row, col0, plane, min(kK7Vec, cols - col0),
+          p < t.planes && plane < b.planes && b.r0 + row < rows};
+}
+
+// The pieces of E elements of an item's positions that lie in its row
+// (bit c for piece c; the row's width is a multiple of E, so a piece is
+// wholly inside or outside).
+template <int E>
+__device__ __forceinline__ unsigned k7_row_pieces(int nv) {
+  unsigned mask = 0;
+#pragma unroll
+  for (int c = 0; c < kK7Vec / E; ++c) {
+    if (c * E < nv) mask |= 1u << c;
+  }
+  return mask;
 }
 
 // The forward: x [N, C, Hi, Wi]; w [N, 1, Cw, 49, Ho, Wo]; s, b [N, 1, Cw,
@@ -220,46 +327,24 @@ __device__ __forceinline__ void fwd_k7_tiles(const T* __restrict__ x,
   extern __shared__ __align__(16) char stages[];
   __shared__ const T* src[kMaxPlanes];
 
-  // the block: planes plane0 .. plane0 + t.planes - 1, output rows r0 ..
-  // r0 + t.rows - 1; staged row 0 is x row ``first``
-  const int tile = blockIdx.x % t.tiles;
-  const int plane0 = int(blockIdx.x / t.tiles) * t.planes;
-  const int planes = g.n * g.cw;  // < 2^31: checked at launch
-  const int r0 = tile * t.rows;
-  const int first = r0 - g.ph;
-  if (threadIdx.x < t.planes) {
-    const int plane = plane0 + threadIdx.x;
-    const T* xp = nullptr;
-    if (plane < planes) {
-      const int n = plane / g.cw;
-      xp = x + (int64_t(n) * g.c + (plane - n * g.cw)) * hw_in;
-    }
-    src[threadIdx.x] = xp;
-  }
+  // the block's output rows; staged row 0 is x row ``first``
+  const K7Block blk = k7_block(g, t);
+  const int first = blk.r0 - g.ph;
+  k7_sources(g, blk, t, src, x, hw_in);
   stage_all_groups(stages, t, src, groups, int64_t(g.cw) * hw_in,
                    max(0, first), min(g.hi, first + t.staged), first, g.wi);
 
-  // the thread: plane p of the block, row ho, positions wo0 .. wo0 + nv - 1
-  const int items = t.rows * t.q;
-  const int p = threadIdx.x / items;
-  const int rem = threadIdx.x - p * items;
-  const int row = rem / t.q;
-  const int wo0 = (rem - row * t.q) * V;
-  const int ho = r0 + row;
-  const int plane = plane0 + p;
-  const bool active = p < t.planes && plane < planes && ho < g.ho;
-  const int nv = min(V, g.wo - wo0);
+  // the thread: output row ho, positions wo0 .. wo0 + nv - 1
+  const K7Item it = k7_item(blk, t, g.ho, g.wo);
+  const int p = it.p, row = it.row, wo0 = it.col0, plane = it.plane;
+  const int ho = blk.r0 + row;
+  const int nv = it.nv;
   cp_async_wait<0>();
   __syncthreads();
-  if (!active) return;
+  if (!it.active) return;
 
-  // the weight pieces of the positions inside the row (Wo is a multiple of
-  // E, so a piece is wholly inside or outside)
-  unsigned mask = 0;
-#pragma unroll
-  for (int c = 0; c < V / E; ++c) {
-    if (c * E < nv) mask |= 1u << c;
-  }
+  // the weight pieces of the positions inside the row
+  const unsigned mask = k7_row_pieces<E>(nv);
   const T* wp = w + int64_t(plane) * (kK7 * kK7) * hw_out + ho * g.wo + wo0;
   const float* sp = AFFINE ? s + int64_t(plane) * (kK7 * kK7) : nullptr;
   const float* bp = AFFINE ? b + int64_t(plane) * (kK7 * kK7) : nullptr;
@@ -310,38 +395,21 @@ __device__ __forceinline__ void dx_k7_tiles(const T* __restrict__ w,
   extern __shared__ __align__(16) char stages[];
   __shared__ const T* src[kMaxPlanes];
 
-  // the block: planes plane0 .. plane0 + t.planes - 1, dx rows r0 ..
-  // r0 + t.rows - 1; staged row 0 is dy row ``first``
-  const int tile = blockIdx.x % t.tiles;
-  const int plane0 = int(blockIdx.x / t.tiles) * t.planes;
-  const int planes = g.n * g.cw;  // < 2^31: checked at launch
-  const int r0 = tile * t.rows;
-  const int first = r0 + g.ph - (kK7 - 1);
-  if (threadIdx.x < t.planes) {
-    const int plane = plane0 + threadIdx.x;
-    const T* yp = nullptr;
-    if (plane < planes) {
-      const int n = plane / g.cw;
-      yp = dy + (int64_t(n) * g.c + (plane - n * g.cw)) * hw_out;
-    }
-    src[threadIdx.x] = yp;
-  }
+  // the block's dx rows; staged row 0 is dy row ``first``
+  const K7Block blk = k7_block(g, t);
+  const int first = blk.r0 + g.ph - (kK7 - 1);
+  k7_sources(g, blk, t, src, dy, hw_out);
   stage_all_groups(stages, t, src, groups, int64_t(g.cw) * hw_out,
                    max(0, first), min(g.ho, first + t.staged), first, g.wo);
 
-  // the thread: plane p of the block, dx row h, columns col0 .. col0 + nv - 1
-  const int items = t.rows * t.q;
-  const int p = threadIdx.x / items;
-  const int rem = threadIdx.x - p * items;
-  const int row = rem / t.q;
-  const int col0 = (rem - row * t.q) * V;
-  const int h = r0 + row;
-  const int plane = plane0 + p;
-  const bool active = p < t.planes && plane < planes && h < g.hi;
-  const int nv = min(V, g.wi - col0);
+  // the thread: dx row h, columns col0 .. col0 + nv - 1
+  const K7Item it = k7_item(blk, t, g.hi, g.wi);
+  const int p = it.p, row = it.row, col0 = it.col0, plane = it.plane;
+  const int h = blk.r0 + row;
+  const int nv = it.nv;
   cp_async_wait<0>();
   __syncthreads();
-  if (!active) return;
+  if (!it.active) return;
 
   // the window's pieces (columns col0 - 4 .. col0 + 7) inside [0, Wo) (Wo
   // is a multiple of E, so a piece is wholly inside or outside)
@@ -379,6 +447,113 @@ __device__ __forceinline__ void dx_k7_tiles(const T* __restrict__ w,
   for (int gg = 0; gg < kK7Groups; ++gg) {
     if (gg < groups) {
       store_vec<T, V>(dxp + gg * int64_t(g.cw) * hw_in, nv, acc[gg]);
+    }
+  }
+}
+
+// dw: x [N, C, Hi, Wi]; dy [N, C, Ho, Wo]; dw [N, 1, Cw, 49, Ho, Wo].  A
+// plane is (n, cw); tap (i, j) of position (ho, wo) sums, over the groups
+// in order, x at (ho - ph + i, wo - 3 + j) times dy at (ho, wo).
+// Its bound is the bytes it writes: dw is 49 / (2G) times as large as x
+// and dy together (about 3 / 4 of the bytes at G = 8).  What held the
+// general instantiation back (V = 1): 49 f32 sums a thread under
+// __launch_bounds__(kMaxThreads, 1), one shared load of one x element per
+// FMA, and 49 stores of one element a thread at the end.  Here:
+// - The forward's blocks and thread items (plan_k7: a tile of whole rows
+//   of one plane or whole planes, V = kK7Vec positions a thread item).
+// - One cp.async stage holds, for every group and plane, x's halo tile
+//   and then dy's rows of the tile (no zero columns before them, copied
+//   in units of ``dy_unit`` bytes), so the block walks the tap rows.
+// - The tap rows i are the outer loop, not unrolled.  For row i a thread
+//   keeps 7 x V f32 sums; for each group in order it reads its V dy values
+//   (one aligned load) and the V + 6 x columns of row ho - ph + i (three
+//   aligned loads of four, as k7_row) and adds 7 * V products.  After the
+//   last group it rounds row i's 7 tap planes' V values once and stores
+//   them, so the stores of one row overlap the sums of the next.
+// - dw is stored in pieces of WA bytes, the widest that every thread's
+//   pieces start on (dw's address, a row's and a tap plane's bytes: the
+//   forward's weight rule, k7_weight_piece, on dw); a piece lies wholly
+//   inside or outside the row, one outside is not stored.  Neighbouring
+//   threads store neighbouring pieces of a tap plane's row.
+// - Each byte of x and dy is read from HBM once (a tile's 6 halo rows
+//   again, from L2), each dw element written once by its one owner, which
+//   adds the groups in a fixed order, g = 0..G-1: no atomics, the same
+//   bits from launch to launch.
+template <typename T, int WA>
+__device__ __forceinline__ void dw_k7_tiles(const T* __restrict__ x,
+                                            const T* __restrict__ dy,
+                                            T* __restrict__ dw,
+                                            const Geometry& g,
+                                            const Tiling& t, int dy_unit) {
+  constexpr int V = kK7Vec;
+  constexpr int E = WA / int(sizeof(T));
+  const int hw_in = g.hi * g.wi, hw_out = g.ho * g.wo;
+  const int groups = g.c / g.cw;
+
+  extern __shared__ __align__(16) char stages[];
+  __shared__ const T* x_src[kMaxPlanes];
+  __shared__ const T* dy_src[kMaxPlanes];
+
+  // the block's rows; staged row 0 is x row ``first``, dy's rows of the
+  // tile follow x's halo tile at staged row t.staged
+  const K7Block blk = k7_block(g, t);
+  const int first = blk.r0 - g.ph;
+  k7_sources(g, blk, t, x_src, x, hw_in, dy_src, dy, hw_out);
+  const K7Rows<T> dy_rows{dy_src, int64_t(g.cw) * hw_out, blk.r0,
+                          min(g.ho, blk.r0 + t.rows), g.wo, dy_unit};
+  stage_all_groups(stages, t, x_src, groups, int64_t(g.cw) * hw_in,
+                   max(0, first), min(g.hi, first + t.staged), first, g.wi,
+                   &dy_rows);
+
+  // the thread: row ho, positions wo0 .. wo0 + nv - 1
+  const K7Item it = k7_item(blk, t, g.ho, g.wo);
+  const int p = it.p, row = it.row, wo0 = it.col0, plane = it.plane;
+  const int ho = blk.r0 + row;
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!it.active) return;
+
+  // the store pieces of the positions inside the row
+  const unsigned mask = k7_row_pieces<E>(it.nv);
+  // column wo0 - 4 of x row ho - ph (tap row 0), and dy at (ho, wo0), in
+  // plane p's group-0 stage
+  const T* xb = reinterpret_cast<const T*>(stages) +
+                p * (t.region / int(sizeof(T))) + row * t.stride + t.pl +
+                wo0 - 4;
+  const T* yb = reinterpret_cast<const T*>(stages) +
+                p * (t.region / int(sizeof(T))) +
+                (t.staged + row) * t.stride + wo0;
+  const int group_elems = t.planes * t.region / int(sizeof(T));
+  T* dwp = dw + int64_t(plane) * (kK7 * kK7) * hw_out + ho * g.wo + wo0;
+#pragma unroll 1
+  for (int i = 0; i < kK7; ++i) {
+    float acc[kK7][V];
+#pragma unroll
+    for (int j = 0; j < kK7; ++j) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[j][v] = 0.f;
+    }
+#pragma unroll
+    for (int gg = 0; gg < kK7Groups; ++gg) {
+      if (gg < groups) {
+        float ys[V], xs[V + 8];
+        load_pieces<V * int(sizeof(T))>(yb + gg * group_elems, ys);
+        load_pieces<4 * int(sizeof(T))>(
+            xb + gg * group_elems + i * t.stride, xs);
+#pragma unroll
+        for (int j = 0; j < kK7; ++j) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[j][v] += xs[v + j + 1] * ys[v];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kK7; ++j) {
+#pragma unroll
+      for (int c = 0; c < V / E; ++c) {
+        store_piece<T, WA>(dwp + (i * kK7 + j) * hw_out, c, mask >> c & 1u,
+                           acc[j]);
+      }
     }
   }
 }

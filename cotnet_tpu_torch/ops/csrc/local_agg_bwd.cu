@@ -104,6 +104,16 @@
 //   the pointwise kernel does: no atomics, deterministic.
 // - The same two instantiations as the forward (K = 3 at dilation 1 and
 //   column padding 1, V = 4, held to 64 registers; general, V = 1).
+// - K = 7 at dilation 1, column padding 3, one head and at most 8 channel
+//   groups (SAN19's stages 1-4: the JAX package's _dw_kernel /
+//   _dw_kernel_dot and the dw of _dxdw_gather_kernel at those taps) takes
+//   a walk of its own, local_agg_bwd_dw_k7 (k7_tiles.cuh): every group's
+//   x halo tile and dy rows staged at once, the tap rows outermost, 7 x 4
+//   f32 sums a thread for the row being walked, stored after its last
+//   group in pieces of up to 4 elements; __launch_bounds__(128, 4),
+//   64-77 registers and no spills (ptxas, sm_90a), four blocks an SM,
+//   21-38 KB of shared memory a block in bf16 (26-45 KB in f32).  The
+//   affine dw keeps general at K = 7 (no model runs it there).
 // dx and dw each have a third route for the geometries their tiles do not
 // take (K > kMaxK, a row of more than kMaxThreads items, a halo tile beyond
 // shared memory): one thread per output element, the fastest-varying index
@@ -474,6 +484,17 @@ __device__ __forceinline__ float weight_grad(const T* __restrict__ x,
   return acc;
 }
 
+// The k7 route of dw (k7_tiles.cuh): K = 7 at dilation 1, column padding
+// 3 and one head; WA, the bytes of its store pieces.  The forward's
+// launch bounds.
+template <typename T, int WA>
+__global__ void __launch_bounds__(kK7Threads, 4)
+    local_agg_bwd_dw_k7(const T* __restrict__ x, const T* __restrict__ dy,
+                        T* __restrict__ dw, Geometry g, Tiling t,
+                        int dy_unit) {
+  dw_k7_tiles<T, WA>(x, dy, dw, g, t, dy_unit);
+}
+
 // The pointwise route of dw, for the geometries the tiles do not take.  x,
 // dy, dw as above; one thread per dw element.
 template <typename T>
@@ -580,7 +601,7 @@ int launch_dx_k7(const void* w, const void* s, const void* b, const void* dy,
   Tiling t;
   unsigned blocks, threads;
   size_t smem;
-  if (!plan_k7(true, g, int(sizeof(T)),
+  if (!plan_k7(kAggDx, g, int(sizeof(T)),
                copy_unit(dy, int64_t(g.wo) * int(sizeof(T))), &t, &blocks,
                &threads, &smem)) {
     return int(cudaErrorInvalidConfiguration);
@@ -647,6 +668,30 @@ int launch_dw_variant(const void* x, const void* dy, void* dw,
 }
 
 template <typename T>
+int launch_dw_k7(const void* x, const void* dy, void* dw, const Geometry& g,
+                 cudaStream_t stream) {
+  constexpr int E = int(sizeof(T));
+  Tiling t;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_k7(kAggDw, g, E, copy_unit(x, int64_t(g.wi) * E), &t, &blocks,
+               &threads, &smem)) {
+    return int(cudaErrorInvalidConfiguration);
+  }
+  // dw's store pieces: the rule of the forward's weight pieces, on dw
+  const int wa = k7_weight_piece(dw, g.wo, g.ho * g.wo, E);
+  const auto kernel = wa == 4 * E   ? local_agg_bwd_dw_k7<T, 4 * E>
+                      : wa == 2 * E ? local_agg_bwd_dw_k7<T, 2 * E>
+                                    : local_agg_bwd_dw_k7<T, E>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<T*>(dw), g, t, copy_unit(dy, int64_t(g.wo) * E));
+  return int(cudaGetLastError());
+}
+
+template <typename T>
 int launch_dw(const void* x, const void* dy, void* dw, const Geometry& g,
               cudaStream_t stream) {
   const int64_t total =
@@ -655,6 +700,8 @@ int launch_dw(const void* x, const void* dy, void* dw, const Geometry& g,
   switch (agg_route(kAggDw, g, int(sizeof(T)))) {
     case kRouteK3:
       return launch_dw_variant<T, 3>(x, dy, dw, g, stream);
+    case kRouteK7:
+      return launch_dw_k7<T>(x, dy, dw, g, stream);
     case kRouteGeneral:
       return launch_dw_variant<T, 0>(x, dy, dw, g, stream);
     default: {
@@ -854,9 +901,9 @@ extern "C" long long local_agg_bwd_dw_affine_workspace(
 
 // The route a dx, dw or affine dw launch at this geometry runs, decided as
 // the launcher decides it: 3 (k3: K = 3, dilation 1, column padding 1; for
-// dx one head too), 7 (k7, dx alone: K = 7, dilation 1, column padding 3,
-// one head), 0 (general: K up to kMaxK) or 1 (pointwise: every geometry
-// whose tiles do not fit).  dtype as above.
+// dx one head too), 7 (k7, dx and dw, not the affine dw: K = 7, dilation
+// 1, column padding 3, one head), 0 (general: K up to kMaxK) or 1
+// (pointwise: every geometry whose tiles do not fit).  dtype as above.
 extern "C" int local_agg_bwd_dx_variant(int dtype, int n, int c, int hi,
                                         int wi, int heads, int cw, int kh,
                                         int kw, int ho, int wo, int ph,

@@ -227,7 +227,7 @@ int launch_k7(const void* x, const void* w, const void* s, const void* b,
   Tiling t;
   unsigned blocks, threads;
   size_t smem;
-  if (!plan_k7(false, g, int(sizeof(T)),
+  if (!plan_k7(kAggFwd, g, int(sizeof(T)),
                copy_unit(x, int64_t(g.wi) * int(sizeof(T))), &t, &blocks,
                &threads, &smem)) {
     return int(cudaErrorInvalidConfiguration);

@@ -34,9 +34,10 @@ Two implementations compute the function and its gradients:
   ``kernel_route`` reports: ``k3`` and ``general``, halo tiles in shared
   memory (K = 3 at dilation 1 unrolled; any K up to 7), and ``pointwise``,
   one thread per output, for every geometry whose tiles do not fit.  The
-  forward and dx have a fourth, ``k7``: K = 7 at dilation 1, column padding
-  3 and one head with at most 8 channel groups (SAN19's), on tiles that
-  hold every group at once (``csrc/k7_tiles.cuh``).
+  forward, dx and dw (not the affine dw) have a fourth, ``k7``: K = 7 at
+  dilation 1, column padding 3 and one head with at most 8 channel groups
+  (SAN19's), on tiles that hold every group at once
+  (``csrc/k7_tiles.cuh``).
 
 ``local_aggregate`` is differentiable in x and w and, with the GroupNorm
 fold, in ``w_scale`` and ``w_bias`` (once: there is no double backward).
@@ -484,8 +485,8 @@ def kernel_route(kernel: str, x, w, *, kernel_size, dilation,
     that a launch of ``kernel`` takes for x ``[N, C, Hi, Wi]`` and w
     ``[N, heads, Cw, K2, Ho, Wo]`` in x's dtype, as the kernel's launcher
     decides it from the geometry before it launches: ``"fwd"`` and ``"dx"``
-    with the affine or without (``"k7"`` is theirs alone), ``"dw"`` without
-    it, ``"dw_affine"`` (dw, ds and db) with it.  Builds the kernel's
+    with the affine or without, ``"dw"`` without it, ``"dw_affine"`` (dw,
+    ds and db) with it (``"k7"`` is all but its).  Builds the kernel's
     library."""
     lib, name = _ROUTE_FUNCTIONS[kernel]
     fn = _c_function(lib, name, [ctypes.c_int] * 15)

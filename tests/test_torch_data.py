@@ -157,6 +157,11 @@ def jax_host_batches(image_tree, train, procs, **kw):
                     pad_last=not train, proc_pool=loader._pool,
                     seed=loader.seed * 131 + loader.epoch)]
     finally:
+        # the JAX loader's close does not wait for its workers; a worker
+        # still starting then finds the pool's shared counter gone
+        # (SemLock._rebuild: FileNotFoundError), so wait for them first
+        if loader._pool is not None:
+            loader._pool.shutdown(wait=True, cancel_futures=True)
         loader.close()
 
 

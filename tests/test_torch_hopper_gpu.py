@@ -490,8 +490,8 @@ def test_fwd_dx_on_a_prepadded_input_match_plain_on_card(k, affine):
 def test_dw_tiling_edges_match_plain_on_card(edge, dtype):
     """The dw kernel's halo tiles against the plain backward at the edges
     of their tiling (the forward's), one launch and no plain call, and the
-    route each took: ``k3`` at K = 3, dilation 1 (any heads), else
-    ``general``."""
+    route each took: ``k3`` at K = 3, dilation 1 (any heads); ``k7`` at
+    K = 7, dilation 1, one head and at most 8 groups; else ``general``."""
     _need_cuda()
     dt = getattr(torch, dtype)
     geometry = TILING_EDGES[edge]
@@ -504,8 +504,10 @@ def test_dw_tiling_edges_match_plain_on_card(edge, dtype):
     torch.cuda.synchronize()
     assert la.BWD_LAUNCHES == {"dx": 0, "dw": 1}
     assert la.PLAIN_BWD_CALLS == 0
+    c, cw, heads = geometry[1], geometry[2], geometry[5]
+    k7 = (k, dil, heads) == (7, 1, 1) and c // cw <= 8
     assert la.kernel_route("dw", x, wt, **geo) == (
-        "k3" if (k, dil) == (3, 1) else "general")
+        "k3" if (k, dil) == (3, 1) else "k7" if k7 else "general")
     xp = torch.nn.functional.pad(x, (pad,) * 4)
     ref = la.local_aggregate_bwd_plain(xp, wt, dy, (k, k), (dil, dil),
                                        need_dx=False)[1]
@@ -1401,10 +1403,9 @@ def test_ema_evaler_on_card():
 # of Cw = 8 weight channels, zero pad 3
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_san_k7_general_route_matches_plain_on_card(dtype):
-    """At SAN19's stage-1 geometry the forward and dx take the ``k7`` route
-    (their K = 7 tiles) and dw the ``general`` one (halo tiles for K up to
-    7); all three match the plain version: f32 at 1e-5, bf16 within one
-    ulp of the reference's largest."""
+    """At SAN19's stage-1 geometry the forward, dx and dw take the ``k7``
+    route (their K = 7 tiles); all three match the plain version: f32 at
+    1e-5, bf16 within one ulp of the reference's largest."""
     _need_cuda()
     gen = torch.Generator("cuda").manual_seed(17)
     n, c, cw, k, hw = 4, 64, 8, 7, 56
@@ -1413,7 +1414,7 @@ def test_san_k7_general_route_matches_plain_on_card(dtype):
                     generator=gen).to(dtype)
     dy = torch.randn(n, c, hw, hw, device="cuda", generator=gen).to(dtype)
     geo = dict(kernel_size=(k, k), dilation=(1, 1), padding=(3, 3))
-    for kernel, want in (("fwd", "k7"), ("dx", "k7"), ("dw", "general")):
+    for kernel, want in (("fwd", "k7"), ("dx", "k7"), ("dw", "k7")):
         assert la.kernel_route(kernel, x, w, **geo) == want, kernel
     la.reset_counts()
     got = la.local_aggregate(x, w, kernel_size=k, padding=3, impl="hopper")
@@ -1447,11 +1448,11 @@ K7_EDGES = {
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("edge", sorted(K7_EDGES))
 def test_k7_edges_match_plain_on_card(edge, dtype, affine):
-    """The k7 forward and dx (with and without the affine) at the edges of
-    their tiles: the route (``general`` where they refuse, and for dw
-    always), two launches each that give the same bits and no plain call,
-    and the plain version: f32 within 1e-5 of the reference's largest,
-    bf16 within one ulp of it."""
+    """The k7 forward, dx and dw (with and without the affine) at the edges
+    of their tiles: the route (``general`` where they refuse, and for the
+    affine dw always), two launches each that give the same bits and no
+    plain call, and the plain version: f32 within 1e-5 of the reference's
+    largest, bf16 within one ulp of it."""
     _need_cuda()
     dt = getattr(torch, dtype)
     n, c, cw, h, w = K7_EDGES[edge]
@@ -1459,34 +1460,40 @@ def test_k7_edges_match_plain_on_card(edge, dtype, affine):
                                     seed=len(edge) + 7)
     geo = dict(kernel_size=(7, 7), dilation=(1, 1), padding=(3, 3))
     want = "k7" if c // cw <= 8 else "general"
-    for kernel in ("fwd", "dx"):
+    for kernel in ("fwd", "dx", "dw"):
         assert la.kernel_route(kernel, x, wt, **geo) == want, kernel
-    assert la.kernel_route("dw", x, wt, **geo) == "general"
+    assert la.kernel_route("dw_affine", x, wt, **geo) == "general"
     la.reset_counts()
-    outs, dxs = [], []
+    outs, dxs, dws = [], [], []
     for _ in range(2):
         outs.append(la.local_aggregate_hopper(x, wt, s, b, **geo))
-        if affine:
-            dxs.append(la.local_aggregate_bwd_affine_hopper(
-                x, wt, s, b, dy, **geo, need_dw=False)[0])
-        else:
-            dxs.append(la.local_aggregate_bwd_hopper(x, wt, dy, **geo,
-                                                     need_dw=False)[0])
+        for pick, got in ((0, dxs), (1, dws)):
+            need = dict(need_dx=pick == 0, need_dw=pick == 1)
+            if affine:
+                grads = la.local_aggregate_bwd_affine_hopper(
+                    x, wt, s, b, dy, **geo, **need)
+            else:
+                grads = la.local_aggregate_bwd_hopper(x, wt, dy, **geo,
+                                                      **need)
+            got.append(grads[pick])
     torch.cuda.synchronize()
     assert la.LAUNCHES == 2
-    assert (la.AFFINE_BWD_LAUNCHES if affine else la.BWD_LAUNCHES)["dx"] == 2
+    assert (la.AFFINE_BWD_LAUNCHES if affine else la.BWD_LAUNCHES) == {
+        "dx": 2, "dw": 2}
     assert (la.PLAIN_CALLS, la.PLAIN_BWD_CALLS) == (0, 0)
-    assert torch.equal(outs[0], outs[1]) and torch.equal(dxs[0], dxs[1])
+    for pair in (outs, dxs, dws):
+        assert torch.equal(pair[0], pair[1])
     xp = torch.nn.functional.pad(x, (3,) * 4)
     ref = la.local_aggregate_plain(xp, wt, (7, 7), (1, 1), (1, 1), s, b)
     if affine:
-        ref_dx = la.local_aggregate_bwd_affine_plain(
-            xp, wt, s, b, dy, (7, 7), (1, 1), need_dw=False)[0]
+        ref_dx, ref_dw = la.local_aggregate_bwd_affine_plain(
+            xp, wt, s, b, dy, (7, 7), (1, 1))[:2]
     else:
-        ref_dx = la.local_aggregate_bwd_plain(xp, wt, dy, (7, 7), (1, 1),
-                                              need_dw=False)[0]
+        ref_dx, ref_dw = la.local_aggregate_bwd_plain(xp, wt, dy, (7, 7),
+                                                      (1, 1))
     ref_dx = ref_dx[..., 3:3 + h, 3:3 + w]
-    for name, got, want_t in (("fwd", outs[0], ref), ("dx", dxs[0], ref_dx)):
+    for name, got, want_t in (("fwd", outs[0], ref), ("dx", dxs[0], ref_dx),
+                              ("dw", dws[0], ref_dw)):
         if dt == torch.float32:
             err = float((got - want_t).abs().max())
             assert err <= 1e-5 * float(want_t.abs().max()), (name, err)

@@ -11,6 +11,8 @@ CPU the port runs its plain versions; the Hopper kernels' own tests are in
 ``test_torch_hopper_gpu.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -53,8 +55,8 @@ def test_mix_matches_jax(impl, heads):
     ``[half, head, c]`` with Cw dividing C twice (g = 2), f32, rtol/atol
     1e-5 (f32 sums in another order)."""
     x, w1, w2 = make_mix_inputs(10 + heads, heads=heads)
-    ref = jax_mix(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(w2),
-                  impl=impl)
+    ref = _jax(jax_mix, impl=impl)(jnp.asarray(x), jnp.asarray(w1),
+                                   jnp.asarray(w2))
     la.reset_counts()
     got = la.local_aggregate_mix(*_port_mix(x, w1, w2))
     assert (la.PLAIN_MIX_CALLS, la.PLAIN_CALLS) == (1, 0)
@@ -77,9 +79,16 @@ def _port_mix_grads(x, w1, w2, r, merge=False, **kwargs):
     return to_nhwc(xt.grad), _to_kmajor(w1t.grad), _to_kmajor(w2t.grad)
 
 
+def _jax(fn, **kwargs):
+    """``fn`` with these keyword arguments, jitted: one compile a shape, not
+    one for each operation of the JAX form run eagerly."""
+    return jax.jit(functools.partial(fn, **kwargs))
+
+
 def _jax_mix_grads(x, w1, w2, r, fn=jax_mix, **kwargs):
     f = lambda *a: jnp.vdot(fn(*a, **kwargs), jnp.asarray(r))  # noqa: E731
-    return jax.grad(f, (0, 1, 2))(*(jnp.asarray(a) for a in (x, w1, w2)))
+    return jax.jit(jax.grad(f, (0, 1, 2)))(
+        *(jnp.asarray(a) for a in (x, w1, w2)))
 
 
 @pytest.mark.parametrize("heads", [1, 2])
@@ -134,13 +143,12 @@ def test_mix_matches_jax_at_the_tile_edges(edge, merge):
     la.reset_counts()
     if merge:
         got = la.local_aggregate_mix_merge(xt, torch.cat([w1t, w2t], dim=3))
-        ref = jax_mix_merge(jnp.asarray(x),
-                            jnp.asarray(np.concatenate([w1, w2], axis=4)),
-                            impl=impl)
+        ref = _jax(jax_mix_merge, impl=impl)(
+            jnp.asarray(x), jnp.asarray(np.concatenate([w1, w2], axis=4)))
     else:
         got = la.local_aggregate_mix(xt, w1t, w2t)
-        ref = jax_mix(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(w2),
-                      impl=impl)
+        ref = _jax(jax_mix, impl=impl)(jnp.asarray(x), jnp.asarray(w1),
+                                       jnp.asarray(w2))
     assert (la.PLAIN_MIX_CALLS, la.PLAIN_CALLS) == (1, 0)
     assert got.shape == (n, 2 * heads * c, h, w)
     np.testing.assert_allclose(to_nhwc(got), np.asarray(ref), rtol=1e-5,
@@ -170,7 +178,8 @@ def test_mix_grads_match_jax_at_the_tile_edges(edge, merge):
         wm = np.concatenate([w1, w2], axis=4)
         f = lambda x_, w_: jnp.vdot(  # noqa: E731
             jax_mix_merge(x_, w_, impl=impl), jnp.asarray(r))
-        dx, dwm = jax.grad(f, (0, 1))(jnp.asarray(x), jnp.asarray(wm))
+        dx, dwm = jax.jit(jax.grad(f, (0, 1)))(jnp.asarray(x),
+                                               jnp.asarray(wm))
         ref = (dx, dwm[..., :9, :], dwm[..., 9:, :])
     else:
         ref = _jax_mix_grads(x, w1, w2, r, impl=impl)
@@ -192,8 +201,8 @@ def test_mix_merge_matches_mix_and_jax(heads):
     got = la.local_aggregate_mix_merge(xt, wm)
     torch.testing.assert_close(got, la.local_aggregate_mix(xt, w1t, w2t),
                                rtol=0, atol=0)
-    ref = jax_mix_merge(jnp.asarray(x),
-                        jnp.asarray(np.concatenate([w1, w2], axis=4)))
+    ref = _jax(jax_mix_merge)(jnp.asarray(x),
+                              jnp.asarray(np.concatenate([w1, w2], axis=4)))
     np.testing.assert_allclose(to_nhwc(got), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
     r = _cotangent((2, 7, 6, 2 * heads * 8), seed=12)
@@ -229,8 +238,8 @@ def test_unfused_geometry_composes_two_aggregations(case):
         np.testing.assert_allclose(g, np.asarray(want), rtol=1e-5, atol=1e-5,
                                    err_msg=name)
     out = la.local_aggregate_mix(*_port_mix(x, w1, w2), **kwargs)
-    want = jax_mix(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(w2),
-                   impl="xla", **kwargs)
+    want = _jax(jax_mix, impl="xla", **kwargs)(
+        jnp.asarray(x), jnp.asarray(w1), jnp.asarray(w2))
     np.testing.assert_allclose(to_nhwc(out), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
 
@@ -388,10 +397,12 @@ def test_dilated_matches_jax(heads, dilations):
     x = rng.randn(2, 9, 9, 8).astype(np.float32)
     w = rng.randn(2, 9, 9, heads, 9, 4).astype(np.float32)
     r = _cotangent((2, 9, 9, heads * 8), seed=16)
-    ref = jax_dilated(jnp.asarray(x), jnp.asarray(w), dilations, impl="xla")
+    ref = _jax(jax_dilated, dilations=dilations, impl="xla")(
+        jnp.asarray(x), jnp.asarray(w))
     f = lambda x_, w_: jnp.vdot(  # noqa: E731
         jax_dilated(x_, w_, dilations, impl="xla"), jnp.asarray(r))
-    ref_dx, ref_dw = jax.grad(f, (0, 1))(jnp.asarray(x), jnp.asarray(w))
+    ref_dx, ref_dw = jax.jit(jax.grad(f, (0, 1)))(jnp.asarray(x),
+                                                  jnp.asarray(w))
     xt, wt = (t.requires_grad_() for t in to_port(x, w)[:2])
     la.reset_counts()
     out = la.local_aggregate_dilated(xt, wt, dilations)

@@ -77,6 +77,11 @@ def as_port(params) -> dict:
          for k, v in flatten_dict(params, sep="/").items()})
 
 
+# ``optax.apply_updates`` jitted once for the module: one compile for the
+# tree, not one for each of its tensor shapes
+_apply_updates = jax.jit(optax.apply_updates)
+
+
 def run_jax(cfg, flat, grads, steps):
     tx = jax_optim.create_optimizer(cfg, lambda c: jnp.asarray(LRS)[c])
     params = jax_params(flat)
@@ -84,7 +89,7 @@ def run_jax(cfg, flat, grads, steps):
     update = jax.jit(lambda g, s, p: tx.update(g, s, p))
     for g in grads[:steps]:
         updates, opt_state = update(jax_params(g), opt_state, params)
-        params = optax.apply_updates(params, updates)
+        params = _apply_updates(params, updates)
     return params, opt_state
 
 

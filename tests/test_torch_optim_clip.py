@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from cotnet_tpu.train import optim as jax_optim  # noqa: E402
@@ -90,10 +91,13 @@ def test_clip_gradients_match_optax(tree, mode):
     flat, grads = tree
     value = {"norm": 20.0, "value": 0.5, "agc": 0.01}[mode]
     tx = jax_optim.clip_transform(mode, value)
-    ref, _ = tx.update(jax_params(grads[1]), tx.init(jax_params(flat)),
-                       jax_params(flat))
+    # jitted, as the JAX train step runs it (one compile, not one for each
+    # operation and tensor shape)
+    ref, _ = jax.jit(tx.update)(jax_params(grads[1]),
+                                tx.init(jax_params(flat)), jax_params(flat))
     params = jax_to_torch_state_dict(flat)
-    for k, g in jax_to_torch_state_dict(grads[1]).items():
+    unclipped = jax_to_torch_state_dict(grads[1])
+    for k, g in unclipped.items():
         params[k].grad = g.clone()
     port_optim.clip_gradients(list(params.values()), mode, value)
     clipped = 0
@@ -101,8 +105,7 @@ def test_clip_gradients_match_optax(tree, mode):
         got = params[k].grad.numpy()
         np.testing.assert_allclose(got, r.numpy(), rtol=1e-6, atol=1e-9,
                                    err_msg=k)
-        clipped += not np.array_equal(got, jax_to_torch_state_dict(
-            grads[1])[k].numpy())
+        clipped += not np.array_equal(got, unclipped[k].numpy())
     assert clipped == len(params)
 
 

@@ -14,8 +14,11 @@
   a model that holds the EMA; the eval padding dropped before ReaL scoring.
 """
 
+import contextlib
 import json
 import logging
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -117,8 +120,30 @@ def test_logger_writes_log_txt_on_rank_zero(tmp_path):
     assert all(h.stream is None for h in old)
 
 
+@contextlib.contextmanager
+def _fds_into(path):
+    """File descriptors 1 and 2 into ``path`` for the block: the profiler's
+    C++ side logs its start and stop there, past pytest's capture, where
+    the lines would break the run's progress lines."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = [os.dup(1), os.dup(2)]
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            for fd, old in zip((1, 2), saved):
+                os.dup2(old, fd)
+                os.close(old)
+
+
 def test_profiler_trace_and_annotation(tmp_path):
-    with profiler.trace(str(tmp_path)) as prof:
+    with _fds_into(tmp_path / "profiler.log"), \
+            profiler.trace(str(tmp_path)) as prof:
         with profiler.annotate("cot region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     with open(tmp_path / "trace.json") as f:

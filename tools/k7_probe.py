@@ -1,6 +1,6 @@
-"""The op's forward and dx kernels at SAN19's K = 7 maps and cotnet50's K = 3
-maps, timed in the tree the command runs from, so that two trees can be
-compared on one card.
+"""The op's forward, dx and dw kernels at SAN19's K = 7 maps and cotnet50's
+K = 3 maps, timed in the tree the command runs from, so that two trees can
+be compared on one card.
 
     python3 <path to>/tools/k7_probe.py TAG OUT.json [--check]
 
@@ -8,8 +8,8 @@ Run it from a tree's root (its ``cotnet_tpu_torch`` and ``chip_smoke.py``
 are the ones imported); to compare two trees, run it from each in turns
 (A, B, B, A) in one command.  It builds the kernels (``build_report``:
 ptxas registers and spills), then times, with ``chip_smoke.device_ms``
-(cold L2, median of 20), the forward and dx at bs128 bf16 at SAN19's four
-K = 7 geometries (C 64 / 128 / 256 / 512 at 56 / 28 / 14 / 7, Cw = C/8,
+(cold L2, median of 20), the forward, dx and dw at bs128 bf16 at SAN19's
+four K = 7 geometries (C 64 / 128 / 256 / 512 at 56 / 28 / 14 / 7, Cw = C/8,
 zero pad 3) and cotnet50's four K = 3 ones, each beside its byte bound
 and the route it took.  ``--check`` also holds each launch against the
 plain version (bf16 within one ulp of the largest, f32 within 1e-5 of
@@ -45,12 +45,16 @@ EDGES = ((2, 64, 8, 13, 11, torch.bfloat16, None, False),
 
 
 def run(kern, x, w, dy, s, b, geo):
+    """One launch of ``kern`` (fwd, dx or dw; with s and b, the affine
+    forward, dx or dw, ds and db), its output (dw's alone)."""
     if kern == "fwd":
         return la.local_aggregate_hopper(x, w, s, b, **geo)
+    need = dict(need_dx=kern == "dx", need_dw=kern == "dw")
+    pick = 0 if kern == "dx" else 1
     if s is not None:
         return la.local_aggregate_bwd_affine_hopper(x, w, s, b, dy, **geo,
-                                                    need_dw=False)[0]
-    return la.local_aggregate_bwd_hopper(x, w, dy, **geo, need_dw=False)[0]
+                                                    **need)[pick]
+    return la.local_aggregate_bwd_hopper(x, w, dy, **geo, **need)[pick]
 
 
 def reference(kern, x, w, dy, s, b, k, pad):
@@ -58,13 +62,15 @@ def reference(kern, x, w, dy, s, b, k, pad):
     xp = F.pad(x, (pw, pw, ph, ph))
     if kern == "fwd":
         return la.local_aggregate_plain(xp, w, (k, k), (1, 1), (1, 1), s, b)
+    need = dict(need_dx=kern == "dx", need_dw=kern == "dw")
     if s is not None:
         r = la.local_aggregate_bwd_affine_plain(xp, w, s, b, dy, (k, k),
-                                                (1, 1), need_dw=False)[0]
+                                                (1, 1), **need)
     else:
-        r = la.local_aggregate_bwd_plain(xp, w, dy, (k, k), (1, 1),
-                                         need_dw=False)[0]
-    return r[..., ph:ph + x.shape[2], pw:pw + x.shape[3]]
+        r = la.local_aggregate_bwd_plain(xp, w, dy, (k, k), (1, 1), **need)
+    if kern == "dw":
+        return r[1]
+    return r[0][..., ph:ph + x.shape[2], pw:pw + x.shape[3]]
 
 
 def case(gen, tag, check, n, c, cw, h, wd, k, dt, pad=None, affine=False,
@@ -82,10 +88,11 @@ def case(gen, tag, check, n, c, cw, h, wd, k, dt, pad=None, affine=False,
         b = 0.5 * randn(n, 1, cw, k * k, dtype=torch.float32)
     geo = dict(kernel_size=(k, k), dilation=(1, 1), padding=pad)
     rows = []
-    for kern in ("fwd", "dx"):
+    for kern in ("fwd", "dx", "dw"):
+        which = "dw_affine" if kern == "dw" and affine else kern
         row = dict(kernel=kern, n=n, c=c, cw=cw, h=h, w=wd, k=k, pad=pad,
                    dtype=str(dt).replace("torch.", ""), affine=affine,
-                   route=la.kernel_route(kern, x, w, **geo))
+                   route=la.kernel_route(which, x, w, **geo))
         got = run(kern, x, w, dy, s, b, geo)
         torch.cuda.synchronize()
         if check:
@@ -103,8 +110,10 @@ def case(gen, tag, check, n, c, cw, h, wd, k, dt, pad=None, affine=False,
             row["same_bits"] = True
         if timed:
             row["ms"] = cs.device_ms(lambda: run(kern, x, w, dy, s, b, geo))
-            src = x if kern == "fwd" else dy
-            nbytes = (src.numel() + w.numel() + got.numel()) \
+            # fwd reads x and w, dx dy and w, dw x and dy; each writes its
+            # output (the affine's s and b, ds and db left out)
+            ins = {"fwd": (x, w), "dx": (dy, w), "dw": (x, dy)}[kern]
+            nbytes = (sum(t.numel() for t in ins) + got.numel()) \
                 * x.element_size()
             row["bound_ms"] = nbytes / cs.HBM_BYTES_PER_S * 1e3
             row["share"] = row["bound_ms"] / row["ms"]
